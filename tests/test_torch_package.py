@@ -1,0 +1,164 @@
+"""Package-level contracts of the port (wcsph_tpu_torch).
+
+* importing it pulls in no JAX, flax or wcsph_tpu (the GPU machine has none);
+* its SimConfig has the JAX package's fields and defaults, the config and
+  state cross between the packages, and its scene builders give the JAX
+  package's particles;
+* the CPU path (plain twins) never touches the kernel launch counters, and
+  a tensor on a device with neither a kernel nor a plain twin raises;
+* building the CUDA kernels without nvcc raises with a clear message.
+"""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = wt = engine = tgrid = None   # bound by _port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port():
+    """Import torch and the port when this module's first test runs, not
+    at collection: pytest-xdist collects every test module in every
+    worker, and a worker that runs only the JAX package's tests then
+    never loads torch beside XLA."""
+    global torch, wt, engine, tgrid
+    import torch
+    import wcsph_tpu_torch as wt
+    from wcsph_tpu_torch import engine, grid as tgrid
+    torch.set_num_threads(1)
+
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "wcsph_tpu_torch"
+
+
+def test_port_imports_no_jax():
+    """In a fresh interpreter, and in every source file of the package."""
+    code = ("import sys, wcsph_tpu_torch, wcsph_tpu_torch.bench, "
+            "wcsph_tpu_torch.engine, wcsph_tpu_torch.simulation\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'wcsph_tpu')]\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)
+    for f in PKG.rglob("*.py"):
+        tree = ast.parse(f.read_text())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            for n in names:
+                assert n.split(".")[0] not in ("jax", "flax", "wcsph_tpu"), (
+                    f, n)
+
+
+def test_host_model_crosses_between_packages(tmp_path):
+    """SimConfig parity and round trip; state_from_numpy of the JAX
+    package's state_to_numpy (non-zero warm starts) and back; the scene
+    builders (a numpy copy) give the JAX package's particles, for the dam
+    break and an OBJ obstacle read by load_obj."""
+    import jax.numpy as jnp
+
+    from wcsph_tpu import dam_break
+    from wcsph_tpu import scene as jscene
+    from wcsph_tpu.config import SimConfig as JaxConfig
+    from wcsph_tpu.state import init_state, state_to_numpy
+
+    ref = [(f.name, f.default) for f in dataclasses.fields(JaxConfig)]
+    got = [(f.name, f.default) for f in dataclasses.fields(wt.SimConfig)]
+    assert got == ref
+    jcfg = JaxConfig(particle_radius=0.02, domain_min=(-1, -2, -3),
+                     cell_capacity=24, viscosity=3.0)
+    tcfg = wt.config_from_dict(dataclasses.asdict(jcfg))
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.grid_res == jcfg.grid_res
+    with pytest.raises(ValueError):
+        wt.config_from_dict({"no_such_field": 1})
+
+    sc = dam_break(particle_radius=0.025, fluid_dims=(3, 3, 3),
+                   box_extent=0.3)
+    s = init_state(sc, JaxConfig())
+    rng = np.random.RandomState(0)
+    nl = sc.n_liquid
+    s = s.replace(vel=jnp.asarray(rng.randn(3, nl), jnp.float32),
+                  vel_guess=jnp.asarray(rng.randn(3, nl), jnp.float32),
+                  kappa=jnp.asarray(rng.randn(nl), jnp.float32),
+                  kappa_v=jnp.asarray(rng.randn(nl), jnp.float32),
+                  dt=jnp.float32(2.5e-3), time=jnp.float32(0.125),
+                  last_pressure_iters=jnp.int32(7))
+    d = state_to_numpy(s)
+    t = wt.state_from_numpy(d, "cpu")
+    back = wt.state_to_numpy(t)
+    for k in ("pos", "vel", "omega", "vel_guess", "pressure", "kappa",
+              "kappa_v", "dt", "time", "last_visc_iters",
+              "last_pressure_iters", "n_liquid", "n_total"):
+        np.testing.assert_array_equal(back[k], np.asarray(d[k]), err_msg=k)
+    assert t.n_liquid == nl and float(t.kappa_v.abs().max()) > 0.0
+
+    obj = tmp_path / "quad.obj"
+    obj.write_text("# quad\nv 0 0 0\nv 0.1 0 0\nv 0.1 0.1 0\n"
+                   "v 0 0.1 0.05\nf 1 2 3 4\n")
+    scenes = []
+    for mod in (jscene, wt.scene):
+        sc = mod.dam_break(particle_radius=0.025, fluid_dims=(3, 4, 5),
+                           box_extent=0.5)
+        b = mod.SceneBuilder()
+        b.add_liquid_block((2, 2, 2), 0.05)
+        b.add_obj(str(obj))
+        scenes.append((sc, b.build()))
+    for a, b in zip(*scenes):
+        np.testing.assert_array_equal(a.positions, b.positions)
+        assert (a.n_liquid, a.n_solid) == (b.n_liquid, b.n_solid)
+        np.testing.assert_array_equal(a.aabb_min, b.aabb_min)
+        np.testing.assert_array_equal(a.aabb_max, b.aabb_max)
+    assert scenes[1][1].n_solid == 4
+
+
+def _golden_sim():
+    r = 0.025
+    sc = wt.dam_break(particle_radius=r, fluid_dims=(4, 4, 4),
+                      box_extent=0.45)
+    lo, hi = sc.domain(pad=4 * r)
+    return wt.Simulation(sc, wt.default_config(
+        "dfsph", particle_radius=r, domain_min=lo, domain_max=hi))
+
+
+def test_cpu_path_counts_no_launch_and_never_falls_back():
+    """The plain twins on CPU tensors leave every launch counter at 0; a
+    tensor on a device with neither a kernel nor a plain twin raises."""
+    engine.reset_launch_counts()
+    sim = _golden_sim()
+    sim.run(2)
+    sim.check_health()
+    assert sim.telemetry()["neighbor_overflow"] == 0
+    assert all(v == 0 for v in engine.LAUNCHES.values()), engine.LAUNCHES
+    assert set(engine.LAUNCHES) == set(engine.KERNELS)
+
+    g = tgrid.build_grid(sim.state.pos, sim.state.n_liquid, sim.cfg)
+    vel = torch.zeros((3, g.n), device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain twin"):
+        engine.k1_div_acc(g, vel)
+    # the oracle's switch sends nothing but CUDA tensors elsewhere, and
+    # is off again once its block is left, by an exception too
+    with pytest.raises(ValueError, match="no kernel or plain twin"):
+        with engine.plain_twins():
+            engine.k1_div_acc(g, vel)
+    assert not engine._plain_on_card
+
+
+def test_cuda_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        engine.build_library(build_dir=tmp_path / "build")
+    assert not (tmp_path / "build").exists()

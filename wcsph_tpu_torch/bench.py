@@ -1,0 +1,178 @@
+"""Throughput benchmark of the port: DFSPH dam break, particle-steps/s.
+
+    python -m wcsph_tpu_torch.bench --side 100 --steps 10
+
+Prints ONE JSON line shaped like the JAX package's ``bench.py``:
+``{"metric", "value", "unit", "vs_baseline", "config"}``, where ``config``
+names the backend, the card, and which stages run hand kernels.  There is
+no fallback: a failure exits non-zero with its traceback.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+from . import engine
+from .scene import dam_break
+from .simulation import Simulation, default_config
+
+# Stages of one step and what runs them on a CUDA device.
+STAGES = {
+    "density_alpha_drho": "cuda:k1_density_alpha_drho",
+    "divergence_warm_start": "cuda:k2_fused_kappa_drho",
+    "divergence_iterations": "cuda:k3_fused_iter_full",
+    "viscosity_setup": "cuda:k1_visc_init",
+    "viscosity_iterations": "cuda:k4_fused_visc_iter",
+    "vorticity": "cuda:k1_vorticity",
+    "advected_density": "cuda:k1_div_acc",
+    "pressure_iterations": "cuda:k3_fused_iter_full",
+    "bin_sort_offsets": "torch",
+    "pack_unpack": "torch",
+    "elementwise_and_host_loop_control": "torch",
+}
+
+
+def card_info() -> str:
+    """``name, power.limit`` of the card as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def build_sim(n_side: int, device="cuda") -> Simulation:
+    """The flagship scene of the JAX package's bench.py: an n_side^3 liquid
+    block in a box shell of extent 1.35 x the block, r = 0.025."""
+    r = 0.025
+    extent = n_side * 2 * r * 1.35
+    sc = dam_break(particle_radius=r, fluid_dims=(n_side,) * 3,
+                   box_extent=extent)
+    lo, hi = sc.domain(pad=6 * r)
+    cfg = default_config("dfsph", particle_radius=r, domain_min=lo,
+                         domain_max=hi)
+    return Simulation(sc, cfg, solver="dfsph", device=device)
+
+
+def measure(sim: Simulation, warmup: int, steps: int) -> dict:
+    """Run ``warmup`` steps, reset the launch counters, time ``steps``
+    steps (host clock around work ending in a synchronize, per step and in
+    total)."""
+    sync = (torch.cuda.synchronize if sim.device.type == "cuda"
+            else (lambda: None))
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        sim.step()
+    sync()
+    warmup_s = time.perf_counter() - t0
+    engine.reset_launch_counts()
+    iters, step_ms = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ts = time.perf_counter()
+        sim.step()
+        sync()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        d = sim.state.diag
+        iters.append((d.divergence_iters, d.pressure_iters,
+                      d.viscosity_iters))
+    elapsed = time.perf_counter() - t0
+    launches = dict(engine.LAUNCHES)
+    sim.check_health()
+    nl = sim.state.n_liquid
+    return {"particle_steps_per_s": nl * steps / elapsed,
+            "elapsed_s": elapsed, "warmup_s": warmup_s, "steps": steps,
+            "n_liquid": nl, "n_total": sim.state.n_total,
+            "iters": iters, "launches": launches, "step_ms": step_ms,
+            "telemetry": sim.telemetry()}
+
+
+def profile(sim: Simulation, steps: int) -> dict:
+    """``steps`` more steps under torch.profiler: device time per kernel
+    name, and the device's busy share of its own timeline (kernel time over
+    the span from the first kernel's start to the last one's end; tracing
+    slows the host, so the share is a lower bound on the untraced one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            sim.step()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    span_us = (max(e.time_range.end for e in dev)
+               - min(e.time_range.start for e in dev))
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:20]
+    return {"steps": steps,
+            "device_span_ms_per_step": span_us / steps / 1e3,
+            "device_busy_ms_per_step": busy_us / steps / 1e3,
+            "device_busy_share": busy_us / span_us,
+            "kernels_ms_per_step": [
+                (e.key[:60], e.count // steps,
+                 e.self_device_time_total / steps / 1e3) for e in top]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--side", type=int, default=100,
+                    help="liquid cube side (100 = 1M particles)")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--profile", type=int, default=0,
+                    help="after the timed steps, trace this many more under "
+                         "torch.profiler and print the device breakdown to "
+                         "stderr (not part of the metric)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("wcsph_tpu_torch.bench measures the CUDA device; "
+                         "torch.cuda.is_available() is False")
+    t0 = time.perf_counter()
+    sim = build_sim(args.side, "cuda")
+    build_s = time.perf_counter() - t0
+    res = measure(sim, args.warmup, args.steps)
+    nl = res["n_liquid"]
+    label = ("1M" if nl >= 900_000 else ("100k" if nl >= 90_000 else str(nl)))
+    print(f"[bench] {res}", file=sys.stderr)
+    if args.profile:
+        print(f"[bench] profile {json.dumps(profile(sim, args.profile))}",
+              file=sys.stderr)
+    value = res["particle_steps_per_s"]
+    print(json.dumps({
+        "metric": f"dfsph_particle_steps_per_sec_{label}",
+        "value": value,
+        "unit": "particle-steps/s",
+        # BASELINE.json's north star, 5e8 particle-steps/s
+        "vs_baseline": value / 5.0e8,
+        "config": {
+            "backend": "torch-cuda",
+            "device": torch.cuda.get_device_name(0),
+            "card": card_info(),
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "stages": STAGES,
+            "overflow": res["telemetry"]["neighbor_overflow"],
+            "build_s": build_s,
+            "kernel_build_s": engine.BUILD_SECONDS,
+            "warmup_s": res["warmup_s"],
+            "steps": res["steps"],
+            "step_ms_median": statistics.median(res["step_ms"]),
+            "step_ms_max": max(res["step_ms"]),
+        },
+    }))
+
+
+if __name__ == "__main__":
+    main()
