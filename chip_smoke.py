@@ -9,18 +9,24 @@ its own lines and raising on failure:
 
 0. device: torch.cuda must be available; the card's name and power limit
    (nvidia-smi), torch and CUDA versions;
-1. build: compile the kernels of ``wcsph_tpu_torch/csrc`` with nvcc;
-2. each kernel against its plain PyTorch twin on the card, at the shapes
-   of a squeezed side-24 dam break with a converging velocity and
-   numpy-seeded k / S fields;
-3. whole steps: the 20-step golden scene on CUDA against
-   ``tests/golden/dfsph_golden.npz``, and 3 steps of the pressurized
-   side-8 scene with the kernels against the plain twins on the card
-   (per-step iteration counts equal);
-4. the main path: DFSPH dam break at side 100 (1M liquid particles),
-   warm-up steps, launch counters reset, timed steps, health check, every
-   kernel launched; then each kernel's time beside its plain twin's at the
-   main path's shapes.
+1. build: compile the kernels of ``wcsph_tpu_torch/csrc`` with nvcc (one
+   nvcc per source, in parallel);
+2. each kernel (K1-K8, every entry point) against its plain PyTorch twin on
+   the card, at the shapes of a squeezed side-24 dam break with a
+   converging velocity, numpy-seeded k / S / pressure fields, tension and
+   adhesion on;
+3. whole steps: the 20-step golden scene of each of the four solvers on
+   CUDA against ``tests/golden/<solver>_golden.npz``, and 3 steps of the
+   pressurized side-8 scene, per solver and for DFSPH with tension, with
+   the kernels against the plain twins on the card (per-step iteration
+   counts equal);
+4. the paths at full width, a dam break at side 100 (1M liquid particles):
+   DFSPH (the first slice's main path), then SESPH, PCISPH, IISPH and DFSPH
+   with surface tension; for each, warm-up steps, launch counters reset,
+   timed steps, health check, overflow 0, every kernel of the path
+   launched; then each kernel against its plain twin again and timed
+   beside it at those shapes, with the least time the card could take
+   for the same work (``bound_ms``).
 
 The line before the last is one JSON object with the per-kernel record;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -39,13 +45,19 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(HERE, "tests", "golden", "dfsph_golden.npz")
+GOLDEN_DIR = os.path.join(HERE, "tests", "golden")
+SOLVERS = ("dfsph", "sesph", "pcisph", "iisph")
 
-# The main path: bench.py's flagship dam break (side 100 = 1M liquid
-# particles), warm-up steps, then the timed steps.
+# The paths at full width: bench.py's flagship dam break (side 100 = 1M
+# liquid particles), warm-up steps, then the timed steps.
 MAIN_SIDE = 100
 MAIN_WARMUP = 3
 MAIN_STEPS = 10
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+# rate and float32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
 
 # Tolerances of the kernel-vs-plain checks, as max|kernel - plain| /
 # max|plain| per output field (a vector field counts as one: a component
@@ -56,8 +68,8 @@ MAIN_STEPS = 10
 # adds a receiver's ~40 terms in neighbour order, the plain twin's
 # index_add_ on the card in arbitrary (atomic) order.
 TOL_SWEEP = 1e-5     # one sweep: a few float32 ulps of the largest term
-TOL_FUSED = 1e-4     # K2-K4 chain a second sweep / global sums on the first
-                     # sweep's order-dependent rounding
+TOL_FUSED = 1e-4     # K2-K4 and K6-K8 chain a second sweep / global sums
+                     # on the first sweep's order-dependent rounding
 
 
 def log(*a):
@@ -109,7 +121,9 @@ class KernelCheck:
 def kernel_inputs(grid, liq_pos, rng):
     """Realistic operands at the grid's shapes: the converging velocity
     around ``liq_pos``, the density sweep's rho / alpha / count, seeded
-    k and S fields."""
+    k, S and pressure fields, IISPH's advection coefficients of that
+    velocity, and a compressed right-hand side (so that the Jacobi update
+    leaves positive pressures and its residual sum does not cancel)."""
     import torch
 
     from wcsph_tpu_torch import dense_ops, engine
@@ -137,9 +151,22 @@ def kernel_inputs(grid, liq_pos, rng):
     drho = torch.where(cnt < cfg.min_div_neighbors, 0.0,
                        torch.clamp(raw[6], min=0.0))
     adv = torch.clamp(rho / cfg.rest_density + float(dt) * raw[6], min=1.0)
+    press = (seeded(m, scale=1e3).abs() * liq).contiguous()
+    rinv = engine.rho_inv(rho).contiguous()
+    ia = dense_ops.iisph_adv(grid, vel)
+    den_i2 = (rho / cfg.rest_density) ** 2
+    dii = (ia[0:3] * ((cfg.rest_density / rho) ** 2)[None]).contiguous()
+    deninv = (cfg.liquid_volume / den_i2).contiguous()
     return dict(
-        dt=dt, vel=vel.contiguous(), rho=rho,
-        rinv=engine.rho_inv(rho).contiguous(),
+        p=press, rr=(rho / cfg.rest_density).contiguous(),
+        pi=(press * rinv * rinv).contiguous(),
+        ril=(liq * rinv).contiguous(),
+        dii=dii, deninv=deninv,
+        aii=(dense_ops.iisph_aii(grid, dii) - deninv * ia[4]).contiguous(),
+        b=(-(0.01 + 0.01 * seeded(m).abs()) * liq).contiguous(),
+        dpi=(press / den_i2).contiguous(),
+        factor=np.float32(1e5),
+        dt=dt, vel=vel.contiguous(), rho=rho.contiguous(), rinv=rinv,
         om=(seeded(3, m, scale=0.1) * liq).contiguous(),
         kf=(seeded(m, scale=1e-2) * liq).contiguous(),
         gate=(liq * torch.as_tensor(rng.rand(m) > 0.3, device=dev)).float()
@@ -160,7 +187,7 @@ def kernel_inputs(grid, liq_pos, rng):
 
 def kernel_cases(grid, inp):
     """(wrapper name, label, make operands, outputs of (operands, return
-    value), tolerance) for every kernel of the path, K3 in both modes.
+    value), tolerance) for every kernel entry, K3 in both modes.
     ``make`` returns fresh copies of what a call updates in place."""
     import torch
 
@@ -205,6 +232,25 @@ def kernel_cases(grid, inp):
          lambda: (grid, x.clone(), inp["r"].clone(), inp["d"].clone(),
                   delta, inp["rinv"], minv6, dt),
          lambda a, r: [a[1], a[2], a[3], r], TOL_FUSED),
+        ("k5_density_alpha", "", lambda: (grid,), fields(1, 1), TOL_SWEEP),
+        ("k5_sesph_force", "",
+         lambda: (grid, inp["vel"], inp["rinv"], inp["rr"], inp["pi"],
+                  inp["p"]), lambda a, r: [r], TOL_SWEEP),
+        ("k5_iisph_adv", "", lambda: (grid, inp["vel"]), fields(3, 1, 1),
+         TOL_SWEEP),
+        ("k5_iisph_aii", "", lambda: (grid, inp["dii"]), lambda a, r: [r],
+         TOL_SWEEP),
+        ("k5_iisph_force", "", lambda: (grid, inp["dpi"]), lambda a, r: [r],
+         TOL_SWEEP),
+        ("k6_fused_tension", "", lambda: (grid, inp["ril"], inp["rho"]),
+         lambda a, r: list(r), TOL_FUSED),
+        ("k7_fused_jacobi_iter", "",
+         lambda: (grid, inp["dii"], inp["deninv"], inp["aii"], inp["b"],
+                  inp["p"].clone(), dt),
+         lambda a, r: [r[0], r[1], a[5], r[2].reshape(1)], TOL_FUSED),
+        ("k8_fused_pcisph_iter", "",
+         lambda: (grid, inp["vel"], inp["p"].clone(), dt, inp["factor"]),
+         lambda a, r: [r[0], r[1], a[2], r[2].reshape(1)], TOL_FUSED),
     ]
 
 
@@ -220,7 +266,7 @@ def check_kernels(grid, cases, chk):
         got = outs(ak, getattr(engine, name)(*ak))
         ap = make()
         want = outs(ap, engine.KERNELS[name][2](*ap))
-        if name == "k1_density_alpha_drho":
+        if name in ("k1_density_alpha_drho", "k5_density_alpha"):
             if not torch.equal(got[1], want[1]):
                 raise AssertionError(f"{name}: neighbour counts differ")
             log(f"  {name}: counts equal (max {int(want[1].max())}, "
@@ -273,6 +319,77 @@ def time_kernels(grid, cases, reps_kernel=20, reps_plain=5):
 
 
 # ---------------------------------------------------------------------------
+# The least time the card could take for a kernel's work
+# ---------------------------------------------------------------------------
+
+# name -> (float32 words read per row, words written per row, operations as
+# a function of the pair counts P and the rows M).  Words: the kernel's
+# operand list, each input read once and each output written once; scratch
+# that a kernel keeps between its own launches is not counted.  Every sweep
+# also reads the geometry once (positions 3, liquid flag 1, cell id 1 per
+# row, and the cell offsets).  Operations: float32 adds, multiplies,
+# divides and square roots of the one-sided formula per directed pair
+# WITHIN h (not per 27-cell candidate: scanning candidates is the
+# implementation's cost), with the pair geometry 8, W 8, gradW factor 7
+# (13 for both), taking the outer spline branch; selects and compares are
+# not counted.  P["all"]: every pair; P["liq"]: pairs with a liquid
+# receiver; P["gate"]: pairs whose receiver passes K2's gate of this run's
+# inputs; P["star"]: pairs with a liquid receiver at PCISPH's moved
+# positions of this run's inputs.
+WORK = {
+    "k1_density_alpha_drho": (3, 7, lambda P, M: 45 * P["all"]),
+    "k1_div_acc": (3, 1, lambda P, M: 26 * P["liq"]),
+    "k1_visc_init": (4, 9, lambda P, M: 58 * P["liq"]),
+    "k1_vorticity": (7, 9, lambda P, M: 84 * P["liq"]),
+    "k2_fused_kappa_drho": (5, 4,
+                            lambda P, M: 24 * P["gate"] + 26 * P["liq"]),
+    "k3_fused_iter_full": (7, 5, lambda P, M: (27 + 26) * P["liq"] + 10 * M),
+    "k4_fused_visc_iter": (16, 9, lambda P, M: 39 * P["liq"] + 60 * M),
+    "k5_density_alpha": (0, 2, lambda P, M: 19 * P["all"]),
+    "k5_sesph_force": (7, 3, lambda P, M: 59 * P["liq"]),
+    "k5_iisph_adv": (3, 5, lambda P, M: 35 * P["liq"]),
+    "k5_iisph_aii": (3, 1, lambda P, M: 23 * P["liq"]),
+    "k5_iisph_force": (1, 3, lambda P, M: 29 * P["liq"]),
+    "k6_fused_tension": (2, 6, lambda P, M: (23 + 62) * P["liq"]),
+    "k7_fused_jacobi_iter": (7, 5,
+                             lambda P, M: (24 + 48) * P["liq"] + 15 * M),
+    "k8_fused_pcisph_iter": (4, 5,
+                             lambda P, M: (24 + 35) * P["star"] + 5 * M),
+}
+
+
+def pair_counts(grid, inp):
+    """The directed pairs within h that this run's inputs make each kind
+    of sweep evaluate (see WORK)."""
+    import torch
+
+    from wcsph_tpu_torch import dense_ops
+
+    p = dense_ops.pairs_of(grid)
+    xs = torch.where(grid.liquid[None],
+                     grid.pos + inp["vel"] * float(inp["dt"]), grid.pos)
+    star = dense_ops.build_pairs(grid, xs)
+    return {"all": int(p.i.shape[0]),
+            "liq": int(grid.liquid[p.i].sum()),
+            "gate": int((inp["gate"][p.i] != 0).sum()),
+            "star": int(grid.liquid[star.i].sum())}
+
+
+def bounds(grid, counts):
+    """name -> (bound ms, "bytes" or "operations") from WORK and the
+    card's published peaks."""
+    m = grid.n
+    geom_words = 5 * m + grid.cfg.num_cells + 1
+    out = {}
+    for name, (n_in, n_out, ops) in WORK.items():
+        t_bytes = 4 * (geom_words + (n_in + n_out) * m) / PEAK_BYTES_PER_S
+        t_ops = ops(counts, m) / PEAK_FP32_FLOPS
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -311,8 +428,12 @@ def main():
     side = 24
     sc = squeezed_dam_break(side, 0.92, box_extent=side * 2 * r * 1.35)
     lo, hi = sc.domain(pad=6 * r)
+    # tension, adhesion and the boundary term of the explicit viscosity on,
+    # so that no term of a formula is zero
+    all_terms = dict(explicit_viscosity_b=0.05)
     cfg = default_config("dfsph", particle_radius=r, domain_min=lo,
-                         domain_max=hi)
+                         domain_max=hi, **all_terms,
+                         **bench.flagship_paths(side)["dfsph+tension"][1])
     sim = Simulation(sc, cfg, device=dev)     # resolves the boundary volume
     grid = build_grid(sim.state.pos, sc.n_liquid, sim.cfg)
     log(f"[phase 2] side {side} squeezed 0.92: M={grid.n} rows, "
@@ -320,101 +441,166 @@ def main():
     chk = KernelCheck()
     cases = kernel_cases(grid, kernel_inputs(
         grid, sc.positions[: sc.n_liquid], np.random.RandomState(0)))
+    if {c[0] for c in cases} != set(engine.KERNELS):
+        raise AssertionError("a kernel entry has no case")
     check_kernels(grid, cases, chk)
     log("[phase 2] every kernel agrees with its plain twin")
 
     # ---- phase 3: whole steps -------------------------------------------
-    ref = np.load(GOLDEN)
     from wcsph_tpu_torch import dam_break
 
     gsc = dam_break(particle_radius=r, fluid_dims=(5, 5, 5), box_extent=0.55)
     glo, ghi = gsc.domain(pad=4 * r)
-    gsim = Simulation(gsc, default_config(
-        "dfsph", particle_radius=r, domain_min=glo, domain_max=ghi),
-        device=dev)
-    gsim.run(20)
-    np.testing.assert_allclose(gsim.state.pos.cpu().numpy(), ref["pos"],
-                               rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(gsim.state.vel.cpu().numpy(), ref["vel"],
-                               rtol=2e-3, atol=2e-4)
-    assert abs(float(gsim.state.dt) - float(ref["dt"])) < 1e-6
-    assert gsim.state.diag.pressure_iters == int(ref["pressure_iters"])
-    dpos = np.abs(gsim.state.pos.cpu().numpy() - ref["pos"]).max()
-    log(f"[phase 3] golden 20 steps on CUDA within golden tolerances "
-        f"(max|dpos|={dpos:.2e})")
+    for solver in SOLVERS:
+        ref = np.load(os.path.join(GOLDEN_DIR, f"{solver}_golden.npz"))
+        gsim = Simulation(gsc, default_config(
+            solver, particle_radius=r, domain_min=glo, domain_max=ghi),
+            solver=solver, device=dev)
+        gsim.run(20)
+        np.testing.assert_allclose(gsim.state.pos.cpu().numpy(), ref["pos"],
+                                   rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(gsim.state.vel.cpu().numpy(), ref["vel"],
+                                   rtol=2e-3, atol=2e-4)
+        assert abs(float(gsim.state.dt) - float(ref["dt"])) < 1e-6
+        if solver != "sesph":
+            assert (gsim.state.diag.pressure_iters
+                    == int(ref["pressure_iters"]))
+        gsim.check_health()
+        dpos = np.abs(gsim.state.pos.cpu().numpy() - ref["pos"]).max()
+        log(f"[phase 3] {solver} golden 20 steps on CUDA within golden "
+            f"tolerances (max|dpos|={dpos:.2e})")
 
-    psc = squeezed_dam_break(8, 0.92, box_extent=0.9)
-    plo, phi = psc.domain(pad=4 * r)
-    pcfg = default_config("dfsph", particle_radius=r, domain_min=plo,
-                          domain_max=phi)
-    traces = []
-    for use_plain in (False, True):
-        psim = Simulation(psc, pcfg, device=dev)
-        psim.state = psim.state.replace(vel=torch.as_tensor(
-            converging_velocity(psc.positions[: psc.n_liquid]), device=dev))
-        iters = []
-        with engine.plain_twins() if use_plain else contextlib.nullcontext():
-            for _ in range(3):
-                psim.step()
-                dg = psim.state.diag
-                iters.append((dg.divergence_iters, dg.pressure_iters,
-                              dg.viscosity_iters))
-        traces.append((iters, float(psim.state.kappa_v.abs().max()),
-                       psim.state.pos.cpu().numpy()))
-    log(f"[phase 3] pressurized side 8, (div, pressure, visc) iters per "
-        f"step: kernels {traces[0][0]}, plain {traces[1][0]}")
-    if traces[0][0] != traces[1][0]:
-        raise AssertionError("pressurized scene: iteration counts differ")
-    np.testing.assert_allclose(traces[0][2], traces[1][2], rtol=2e-4,
-                               atol=2e-5)
+    pressurized = [(s, {}) for s in SOLVERS] + [
+        ("dfsph", dict(tension_coff=0.25, tension_coff_b=0.4,
+                       adhesion_center=(0.0, -0.45, 0.0),
+                       adhesion_radius=0.3))]
+    for solver, over in pressurized:
+        psc = squeezed_dam_break(8, 0.90 if solver == "pcisph" else 0.92,
+                                 box_extent=0.9)
+        plo, phi = psc.domain(pad=4 * r)
+        pcfg = default_config(solver, particle_radius=r, domain_min=plo,
+                              domain_max=phi, **over)
+        traces = []
+        for use_plain in (False, True):
+            psim = Simulation(psc, pcfg, solver=solver, device=dev)
+            if solver == "dfsph":
+                psim.state = psim.state.replace(vel=torch.as_tensor(
+                    converging_velocity(psc.positions[: psc.n_liquid]),
+                    device=dev))
+            iters, pmax = [], 0.0
+            with (engine.plain_twins() if use_plain
+                  else contextlib.nullcontext()):
+                for _ in range(3):
+                    psim.step()
+                    dg = psim.state.diag
+                    iters.append((dg.divergence_iters, dg.pressure_iters,
+                                  dg.viscosity_iters))
+                    pmax = max(pmax, float(psim.state.pressure.abs().max()))
+            psim.check_health()
+            traces.append((iters, psim.state.pos.cpu().numpy(), pmax))
+        tag = solver + (" + tension" if over else "")
+        log(f"[phase 3] pressurized side 8, {tag}: (div, pressure, visc) "
+            f"iters per step: kernels {traces[0][0]}, plain {traces[1][0]}; "
+            f"max|p| over the steps {traces[0][2]:.4g}")
+        if traces[0][0] != traces[1][0]:
+            raise AssertionError(f"pressurized {tag}: iteration counts "
+                                 f"differ")
+        np.testing.assert_allclose(traces[0][1], traces[1][1], rtol=2e-4,
+                                   atol=2e-5)
 
-    # ---- phase 4: the main path ------------------------------------------
-    t0 = time.perf_counter()
-    msim = bench.build_sim(MAIN_SIDE, dev)
-    build_s = time.perf_counter() - t0
-    log(f"[phase 4] side {MAIN_SIDE}: {msim.state.n_liquid} liquid + "
-        f"{msim.state.n_solid} boundary, grid {msim.cfg.grid_res} = "
-        f"{msim.cfg.num_cells} cells, scene+setup {build_s:.1f} s")
-    res = bench.measure(msim, MAIN_WARMUP, MAIN_STEPS)
-    launches = res["launches"]
-    tel = res["telemetry"]
-    log(f"[phase 4] {res['particle_steps_per_s']:.6e} particle-steps/s "
-        f"({res['steps']} steps in {res['elapsed_s']:.3f} s, warm-up "
-        f"{res['warmup_s']:.1f} s; step ms median "
-        f"{statistics.median(res['step_ms']):.3f} max "
-        f"{max(res['step_ms']):.3f}) on {card}; (div, pressure, visc) iters "
-        f"{res['iters']}; overflow {tel['neighbor_overflow']}; "
-        f"vel_max {tel['vel_max']:.3f}; dt {tel['dt']:.3e}")
-    log(f"[phase 4] launches {launches}")
+    # ---- phase 4: the paths at full width -----------------------------------
+    # the kernels each path must launch
+    visc = ("k1_visc_init", "k4_fused_visc_iter")
+    dfsph_kernels = ("k1_density_alpha_drho", "k1_div_acc", "k1_vorticity",
+                     "k2_fused_kappa_drho", "k3_fused_iter_full") + visc
+    must_launch = {
+        "dfsph": dfsph_kernels,
+        "sesph": ("k5_density_alpha", "k5_sesph_force"),
+        "pcisph": ("k5_density_alpha", "k5_sesph_force",
+                   "k8_fused_pcisph_iter"),
+        "iisph": ("k5_density_alpha", "k5_iisph_adv", "k5_iisph_aii",
+                  "k5_iisph_force", "k7_fused_jacobi_iter") + visc,
+        "dfsph+tension": dfsph_kernels + ("k6_fused_tension",),
+    }
+    paths = bench.flagship_paths(MAIN_SIDE)
+    launches = {name: 0 for name in engine.KERNELS}
+    path_records = {}
+    mstate = None
+    for path, (solver, over) in paths.items():
+        t0 = time.perf_counter()
+        msim = bench.build_sim(MAIN_SIDE, dev, solver, **over)
+        build_s = time.perf_counter() - t0
+        log(f"[phase 4] {path}, side {MAIN_SIDE}: {msim.state.n_liquid} "
+            f"liquid + {msim.state.n_solid} boundary, grid "
+            f"{msim.cfg.grid_res} = {msim.cfg.num_cells} cells, scene+setup "
+            f"{build_s:.1f} s")
+        res = bench.measure(msim, MAIN_WARMUP, MAIN_STEPS)
+        tel = res["telemetry"]
+        log(f"[phase 4] {path}: {res['particle_steps_per_s']:.6e} "
+            f"particle-steps/s ({res['steps']} steps in "
+            f"{res['elapsed_s']:.3f} s, warm-up {res['warmup_s']:.1f} s; "
+            f"step ms median {statistics.median(res['step_ms']):.3f} max "
+            f"{max(res['step_ms']):.3f}) on {card}; (div, pressure, visc) "
+            f"iters {res['iters']}; density error "
+            f"{tel['density_error']:.3e} (pre {tel['density_error_pre']:.3e}"
+            f"); overflow {tel['neighbor_overflow']}; vel_max "
+            f"{tel['vel_max']:.3f}; dt {tel['dt']:.3e}")
+        ran = {k: v for k, v in res["launches"].items() if v}
+        log(f"[phase 4] {path}: launches {ran}")
+        missing = [k for k in must_launch[path]
+                   if res["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"{path} did not launch {missing}")
+        if tel["neighbor_overflow"] != 0:
+            raise AssertionError(f"{path}: overflow != 0")
+        for k, v in res["launches"].items():
+            launches[k] += v
+        path_records[path] = {
+            "particle_steps_per_s": res["particle_steps_per_s"],
+            "n_liquid": res["n_liquid"], "iters": res["iters"],
+            "step_ms": res["step_ms"], "launches": ran}
+        if path == "dfsph":
+            mstate, mcfg = msim.state, msim.cfg
+        del msim
+        torch.cuda.empty_cache()
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
-        raise AssertionError(f"main path did not launch {missing}")
-    if tel["neighbor_overflow"] != 0:
-        raise AssertionError("overflow != 0")
+        raise AssertionError(f"no full-width path launched {missing}")
+
     # each kernel against its plain twin again, and timed beside it, at
-    # the main path's shapes (the rows of the last step's grid)
-    mgrid = build_grid(msim.state.pos, msim.state.n_liquid, msim.cfg)
+    # the full-width shapes (the rows of the DFSPH path's last grid, with
+    # every term of the formulas switched on as in phase 2)
+    mgrid = build_grid(mstate.pos, mstate.n_liquid, mcfg.replace(
+        **all_terms, **paths["dfsph+tension"][1]))
     t0 = time.perf_counter()
     dense_ops.pairs_of(mgrid)
     torch.cuda.synchronize()
     log(f"[phase 4] plain pair list: {int(mgrid.pairs.i.shape[0])} directed "
         f"pairs, built in {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    liq_pos = msim.state.pos[:, : msim.state.n_liquid].T.cpu().numpy()
-    cases = kernel_cases(mgrid, kernel_inputs(mgrid, liq_pos,
-                                              np.random.RandomState(1)))
+    liq_pos = mstate.pos[:, : mstate.n_liquid].T.cpu().numpy()
+    minp = kernel_inputs(mgrid, liq_pos, np.random.RandomState(1))
+    cases = kernel_cases(mgrid, minp)
     check_kernels(mgrid, cases, chk)
     log(f"[phase 4] every kernel agrees with its plain twin at M={mgrid.n}")
     times = time_kernels(mgrid, cases)
+    counts = pair_counts(mgrid, minp)
+    bound = bounds(mgrid, counts)
+    log(f"[phase 4] pairs within h at M={mgrid.n}: {counts}")
+    for name, (ms, by) in bound.items():
+        log(f"  {name}: bound {ms:.4f} ms by {by}; kernel "
+            f"{times[name][0] / ms:.1f}x its bound")
 
+    # no single PyTorch call computes a neighbour sweep over a cell list, so
+    # no kernel has a library yardstick
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": chk.max_abs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bound[name][0], "bound_by": bound[name][1],
+         "library_ms": None}
         for name, (src, rep, _) in engine.KERNELS.items()],
-        "card": card,
-        "main_path": {"particle_steps_per_s": res["particle_steps_per_s"],
-                      "n_liquid": res["n_liquid"], "iters": res["iters"],
-                      "step_ms": res["step_ms"]}}
+        "card": card, "rows": mgrid.n, "pairs": counts,
+        "paths": path_records}
     log(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

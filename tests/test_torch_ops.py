@@ -7,7 +7,14 @@ The JAX side holds particles in capacity-padded (C, NC) slots, the port in
 rows sorted by cell; both are mapped back to particle order (JAX through
 ``grid.pid``, the port through ``grid.order``) before comparing.  Tolerance:
 ``_close`` of tests/test_engine.py, rtol 3e-5 of max(max|ref|, 1), over the
-receivers each op is defined at; neighbour counts exact.
+receivers each op is defined at; neighbour counts exact.  The SESPH force
+and the tension sweeps take that file's rtol 2e-4 (their XLA twins divide
+where the engine forms multiply by a reciprocal), on the same scene squeezed
+by 0.92 so that the Tait pressure is not zero.  The IISPH and PCISPH sweeps
+have closures of the JAX solvers as their XLA twins and are compared through
+whole steps in tests/test_torch_solver_steps.py; here the PCISPH pair list
+(candidates of the original cells, cut at the moved positions) is held
+against a brute-force count.
 """
 
 import jax.numpy as jnp
@@ -41,7 +48,7 @@ DT = np.float32(1e-3)
 class _Case:
     """One scene in both layouts, with seeded per-particle fields."""
 
-    def __init__(self, cap, jitter, seed=0):
+    def __init__(self, cap, jitter, seed=0, squeeze=1.0, **cfg_over):
         import dataclasses
 
         r = 0.025
@@ -50,8 +57,11 @@ class _Case:
                        box_extent=side * 2 * r * 1.5)
         lo, hi = sc.domain(pad=6 * r)
         self.cfg = SimConfig(particle_radius=r, domain_min=lo, domain_max=hi,
-                             cell_capacity=cap)
+                             cell_capacity=cap, **cfg_over)
         rng = np.random.RandomState(seed)
+        liq = sc.positions[: sc.n_liquid]
+        centre = liq.mean(axis=0, keepdims=True)
+        sc.positions[: sc.n_liquid] = centre + (liq - centre) * squeeze
         pos = sc.positions.T.copy()
         if jitter:
             pos += rng.randn(*pos.shape).astype(np.float32) * jitter
@@ -279,3 +289,94 @@ def test_vorticity_and_pair_list(case):
     assert got == want
     valid = np.asarray(case.grid.valid)
     assert len(p.i) == int(np.asarray(stats.count)[valid].sum())
+
+
+@pytest.fixture(scope="module")
+def squeezed():
+    """The jittered scene squeezed by 0.92, with the tension config of
+    tests/test_engine.py:143-144 (cohesion and adhesion gates both on)."""
+    return _Case(16, 0.003, squeeze=0.92, tension_coff=0.25,
+                 tension_coff_b=0.4, adhesion_center=(0.0, -0.2, 0.0),
+                 adhesion_radius=0.2)
+
+
+def test_density_and_sesph_force(squeezed):
+    """K5's _DensityAlpha and _SesphForce emits (plain twins): rho and exact
+    counts against density_stats(with_alpha=False); the fused force against
+    explicit_viscosity_accel + pressure_accel_symmetric, with a non-zero
+    Tait pressure; and with zero pressure, PCISPH's pure viscosity."""
+    from wcsph_tpu import ops as wops
+
+    case = squeezed
+    stats = dense_ops.density_stats(case.grid, case.cfg, with_alpha=False)
+    rho, cnt = engine.density(case.tg)
+    allp = np.ones(case.n, bool)
+    _close(case.jparticles(stats.rho), case.tparticles(rho), allp)
+    np.testing.assert_array_equal(case.jparticles(stats.count),
+                                  case.tparticles(cnt))
+
+    rhoj, pj = wops.tait_pressure(stats.rho, case.cfg)
+    from wcsph_tpu_torch import ops as tops
+    rhot, pt = tops.tait_pressure(rho, case.tcfg)
+    _close(case.jparticles(pj), case.tparticles(pt), case.liquid)
+    assert float(np.abs(case.jparticles(pj))[case.liquid].max()) > 1e3
+    velj, velt = case.jpack(case.vel), case.tpack(case.vel)
+    for pjx, ptx in ((pj, pt), (jnp.zeros_like(pj), torch.zeros_like(pt))):
+        acc_x = (dense_ops.explicit_viscosity_accel(case.grid, case.cfg, velj,
+                                                    rhoj)
+                 + dense_ops.pressure_accel_symmetric(case.grid, case.cfg,
+                                                      rhoj, pjx))
+        acc_t = engine.sesph_force(case.tg, velt, rhot, ptx)
+        assert float(np.abs(case.jparticles(acc_x)).max()) > 0.0
+        _close(case.jparticles(acc_x), case.tparticles(acc_t), case.liquid,
+               rtol=2e-4)
+
+
+def test_fused_tension(squeezed):
+    """K6's plain twin == surface_normals + tension_accel, with the cohesion
+    and the boundary-adhesion gates both active (asserted)."""
+    case = squeezed
+    stats = dense_ops.density_stats(case.grid, case.cfg, with_alpha=False)
+    n1 = dense_ops.surface_normals(case.grid, case.cfg, stats.rho)
+    t1 = dense_ops.tension_accel(case.grid, case.cfg, stats.rho, n1)
+    rho = torch.as_tensor(case.jparticles(stats.rho))[case.tg.order]
+    n2, t2 = engine.fused_tension(case.tg, rho)
+    _close(case.jparticles(n1), case.tparticles(n2), case.liquid)
+    _close(case.jparticles(t1), case.tparticles(t2), case.liquid, rtol=2e-4)
+    assert float(np.abs(case.tparticles(t2)).max()) > 0.0
+    import dataclasses
+    tg_na = dataclasses.replace(
+        case.tg, cfg=case.tcfg.replace(tension_coff_b=0.0))
+    _, t3 = engine.fused_tension(tg_na, rho)
+    assert float((t2 - t3).abs().max()) > 0.0
+
+
+def test_starred_pair_list(case):
+    """build_pairs with moved positions: the candidates are those of the
+    ORIGINAL cells, the cut is taken at the moved positions."""
+    rng = np.random.RandomState(11)
+    tg = case.tg
+    h = case.cfg.support_radius
+    shift = (0.3 * h * rng.randn(3, tg.n)).astype(np.float32)
+    xs = tg.pos + torch.as_tensor(shift) * tg.liq
+    p = tdense.build_pairs(tg, xs)
+    got = set(zip(p.i.tolist(), p.j.tolist()))
+
+    gx, gy, gz = case.cfg.grid_res
+    cell = tg.cell.numpy().astype(np.int64)
+    c3 = np.stack([cell // (gy * gz), (cell // gz) % gy, cell % gz])
+    adjacent = (np.abs(c3[:, :, None] - c3[:, None, :]) <= 1).all(axis=0)
+    x = xs.numpy()
+    rr = x[:, :, None] - x[:, None, :]
+    d2 = rr[0] * rr[0] + rr[1] * rr[1] + rr[2] * rr[2]
+    near = d2 <= np.float32(h * h)
+    want = {(a, b) for a, b in zip(*np.nonzero(near & adjacent)) if a != b}
+    assert got == want
+    # the moved positions do change the list, both ways, and some pair
+    # within h at the moved positions is missed for its cells
+    orig = set(zip(tdense.pairs_of(tg).i.tolist(),
+                   tdense.pairs_of(tg).j.tolist()))
+    assert got - orig and orig - got
+    assert int((near & ~adjacent).sum()) > 0
+    np.testing.assert_array_equal(p.r.numpy(),
+                                  x[:, p.i.numpy()] - x[:, p.j.numpy()])

@@ -6,12 +6,15 @@
   package's particles;
 * the CPU path (plain twins) never touches the kernel launch counters, and
   a tensor on a device with neither a kernel nor a plain twin raises;
+* the kernel tables of engine.py (KERNELS, LAUNCHES, _SIGNATURES, the
+  ctypes mirrors) agree with the CUDA sources and with the TPU kernels they
+  name, one case per kernel;
 * building the CUDA kernels without nvcc raises with a clear message.
 """
 
-import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -40,26 +43,18 @@ PKG = ROOT / "wcsph_tpu_torch"
 
 
 def test_port_imports_no_jax():
-    """In a fresh interpreter, and in every source file of the package."""
-    code = ("import sys, wcsph_tpu_torch, wcsph_tpu_torch.bench, "
-            "wcsph_tpu_torch.engine, wcsph_tpu_torch.simulation\n"
+    """In a fresh interpreter, with every module of the package loaded (the
+    import statements of each source file: tests/test_torch_sources.py)."""
+    mods = sorted(".".join(f.relative_to(ROOT).with_suffix("").parts)
+                  for f in PKG.rglob("*.py") if f.name != "__init__.py")
+    assert "wcsph_tpu_torch.solvers.iisph" in mods
+    code = (f"import sys, wcsph_tpu_torch, {', '.join(mods)}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'wcsph_tpu')]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                    check=True, timeout=120)
-    for f in PKG.rglob("*.py"):
-        tree = ast.parse(f.read_text())
-        for node in ast.walk(tree):
-            names = []
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module]
-            for n in names:
-                assert n.split(".")[0] not in ("jax", "flax", "wcsph_tpu"), (
-                    f, n)
 
 
 def test_host_model_crosses_between_packages(tmp_path):
@@ -130,7 +125,8 @@ def _golden_sim():
                       box_extent=0.45)
     lo, hi = sc.domain(pad=4 * r)
     return wt.Simulation(sc, wt.default_config(
-        "dfsph", particle_radius=r, domain_min=lo, domain_max=hi))
+        "dfsph", particle_radius=r, domain_min=lo, domain_max=hi),
+        device="cpu")
 
 
 def test_cpu_path_counts_no_launch_and_never_falls_back():
@@ -154,6 +150,99 @@ def test_cpu_path_counts_no_launch_and_never_falls_back():
         with engine.plain_twins():
             engine.k1_div_acc(g, vel)
     assert not engine._plain_on_card
+
+
+@pytest.mark.parametrize("solver,over", [
+    ("sesph", {}), ("pcisph", {}), ("iisph", {}),
+    ("dfsph", {"tension_coff": 0.25, "tension_coff_b": 0.25})],
+    ids=["sesph", "pcisph", "iisph", "dfsph-tension"])
+def test_cpu_path_of_each_solver_counts_no_launch(solver, over):
+    engine.reset_launch_counts()
+    r = 0.025
+    sc = wt.dam_break(particle_radius=r, fluid_dims=(4, 4, 4),
+                      box_extent=0.45)
+    lo, hi = sc.domain(pad=4 * r)
+    sim = wt.Simulation(sc, wt.default_config(
+        solver, particle_radius=r, domain_min=lo, domain_max=hi, **over),
+        solver=solver, device="cpu")
+    assert sim.solver_name == solver
+    sim.run(2)
+    sim.check_health()
+    assert all(v == 0 for v in engine.LAUNCHES.values()), engine.LAUNCHES
+
+
+# the wrappers of engine.py, by name: parametrized here so that collection
+# needs no torch; test_kernel_tables_list_the_same_entries holds the list
+# against engine.KERNELS
+KERNEL_NAMES = [
+    "k1_density_alpha_drho", "k1_div_acc", "k1_visc_init", "k1_vorticity",
+    "k2_fused_kappa_drho", "k3_fused_iter_full", "k4_fused_visc_iter",
+    "k5_density_alpha", "k5_sesph_force", "k5_iisph_adv", "k5_iisph_aii",
+    "k5_iisph_force", "k6_fused_tension", "k7_fused_jacobi_iter",
+    "k8_fused_pcisph_iter"]
+
+
+def _cuda_entries():
+    """name -> (source file, parameter count) of every ``extern "C"`` entry
+    under csrc/, and the sources' text by file."""
+    src = {f: f.read_text() for f in sorted((PKG / "csrc").glob("*.cu*"))}
+    entries = {}
+    for f, text in src.items():
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            entries[m.group(1)] = (f, m.group(2).count(",") + 1)
+    return entries, src
+
+
+def test_kernel_tables_list_the_same_entries():
+    """KERNELS, LAUNCHES and _SIGNATURES have the same 15 names, and they
+    are exactly the ``extern "C"`` entries of csrc/."""
+    names = set(engine.KERNELS)
+    assert names == set(engine.LAUNCHES) == set(engine._SIGNATURES)
+    assert names == set(KERNEL_NAMES) and len(KERNEL_NAMES) == 15
+    assert set(_cuda_entries()[0]) == names
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
+def test_kernel_tables_agree_with_sources(name):
+    """The wrapper has a source, a plain twin and a ctypes signature with
+    as many parameters as its ``extern "C"`` entry; its ``replaces`` names
+    a function or emit that stands at that line of the JAX package's
+    engine."""
+    source, replaces, twin = engine.KERNELS[name]
+    assert callable(getattr(engine, name)) and callable(twin)
+    f, n_params = _cuda_entries()[0][name]
+    assert ROOT / source == f
+    assert n_params == len(engine._SIGNATURES[name])
+    jax_engine = (ROOT / "wcsph_tpu" / "pallas" / "engine.py").read_text(
+    ).splitlines()
+    cited = re.findall(r"(\d+) \((\w+)|(\w+) (\d+)\)", replaces)
+    assert cited, replaces
+    for line, what, what2, line2 in cited:
+        line, what = (line, what) if what else (line2, what2)
+        text = jax_engine[int(line) - 1]
+        assert re.match(rf"(def|class) {what}\b", text), text
+
+
+@pytest.mark.parametrize("struct,where", [
+    ("Geom", "common.cuh"), ("TensionParams", "solver_sweeps.cu")])
+def test_ctypes_mirror_follows_the_cuda_struct(struct, where):
+    """The ctypes mirror lists the fields of the CUDA struct in order."""
+    import ctypes
+
+    mirror = getattr(engine, "_" + struct)
+    body = re.search(rf"struct {struct} {{(.*?)\n}};",
+                     _cuda_entries()[1][PKG / "csrc" / where], re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    fields = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if decl:
+            ctype = (ctypes.c_void_p if "*" in decl else
+                     ctypes.c_int if decl.startswith("int") else
+                     ctypes.c_float)
+            rest = re.sub(r"^(const )?(float|int)\*?", "", decl)
+            fields += [(n.strip(" *"), ctype) for n in rest.split(",")]
+    assert fields == list(mirror._fields_)
 
 
 def test_cuda_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -63,7 +63,8 @@ def test_pressurized_steps_match_jax():
     pos = np.asarray(js.state.pos).copy()
     pos[:, 0] = np.asarray(hi, np.float32) + 0.5
     js.state = js.state.replace(vel=jnp.asarray(vel), pos=jnp.asarray(pos))
-    ts = TSim(sc, wt.config_from_dict(dataclasses.asdict(js.cfg)))
+    ts = TSim(sc, wt.config_from_dict(dataclasses.asdict(js.cfg)),
+              device="cpu")
     ts.state = wt.state_from_numpy(state_to_numpy(js.state), "cpu")
 
     iters, kmax, kvmax = [], 0.0, 0.0
@@ -105,7 +106,8 @@ def test_golden_trajectory():
                       box_extent=0.55)
     lo, hi = sc.domain(pad=4 * r)
     sim = TSim(sc, wt.default_config("dfsph", particle_radius=r,
-                                     domain_min=lo, domain_max=hi))
+                                     domain_min=lo, domain_max=hi),
+               device="cpu")
     sim.run(20)
     ref = np.load(GOLDEN)
     np.testing.assert_allclose(sim.state.pos.numpy(), ref["pos"],

@@ -1,6 +1,6 @@
-"""Throughput benchmark of the port: DFSPH dam break, particle-steps/s.
+"""Throughput benchmark of the port: dam break, particle-steps/s.
 
-    python -m wcsph_tpu_torch.bench --side 100 --steps 10
+    python -m wcsph_tpu_torch.bench --side 100 --steps 10 --solver dfsph
 
 Prints ONE JSON line shaped like the JAX package's ``bench.py``:
 ``{"metric", "value", "unit", "vs_baseline", "config"}``, where ``config``
@@ -23,19 +23,38 @@ from . import engine
 from .scene import dam_break
 from .simulation import Simulation, default_config
 
-# Stages of one step and what runs them on a CUDA device.
+_TORCH = {"bin_sort_offsets": "torch", "pack_unpack": "torch",
+          "elementwise_and_host_loop_control": "torch"}
+_VISC = {"viscosity_setup": "cuda:k1_visc_init",
+         "viscosity_iterations": "cuda:k4_fused_visc_iter"}
+# Stages of one step, per solver, and what runs them on a CUDA device.
 STAGES = {
-    "density_alpha_drho": "cuda:k1_density_alpha_drho",
-    "divergence_warm_start": "cuda:k2_fused_kappa_drho",
-    "divergence_iterations": "cuda:k3_fused_iter_full",
-    "viscosity_setup": "cuda:k1_visc_init",
-    "viscosity_iterations": "cuda:k4_fused_visc_iter",
-    "vorticity": "cuda:k1_vorticity",
-    "advected_density": "cuda:k1_div_acc",
-    "pressure_iterations": "cuda:k3_fused_iter_full",
-    "bin_sort_offsets": "torch",
-    "pack_unpack": "torch",
-    "elementwise_and_host_loop_control": "torch",
+    "dfsph": {
+        "density_alpha_drho": "cuda:k1_density_alpha_drho",
+        "divergence_warm_start": "cuda:k2_fused_kappa_drho",
+        "divergence_iterations": "cuda:k3_fused_iter_full",
+        "surface_tension_when_on": "cuda:k6_fused_tension",
+        **_VISC,
+        "vorticity": "cuda:k1_vorticity",
+        "advected_density": "cuda:k1_div_acc",
+        "pressure_iterations": "cuda:k3_fused_iter_full",
+        **_TORCH},
+    "sesph": {
+        "density": "cuda:k5_density_alpha",
+        "viscosity_and_pressure_force": "cuda:k5_sesph_force",
+        **_TORCH},
+    "pcisph": {
+        "density": "cuda:k5_density_alpha",
+        "explicit_viscosity": "cuda:k5_sesph_force",
+        "prediction_iterations": "cuda:k8_fused_pcisph_iter",
+        **_TORCH},
+    "iisph": {
+        "density": "cuda:k5_density_alpha",
+        **_VISC,
+        "advection_coefficients": "cuda:k5_iisph_adv,k5_iisph_aii",
+        "jacobi_iterations": "cuda:k7_fused_jacobi_iter",
+        "pressure_force": "cuda:k5_iisph_force",
+        **_TORCH},
 }
 
 
@@ -48,17 +67,34 @@ def card_info() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def build_sim(n_side: int, device="cuda") -> Simulation:
+def build_sim(n_side: int, device="cuda", solver: str = "dfsph",
+              **cfg_over) -> Simulation:
     """The flagship scene of the JAX package's bench.py: an n_side^3 liquid
-    block in a box shell of extent 1.35 x the block, r = 0.025."""
+    block in a box shell of extent 1.35 x the block, r = 0.025, with the
+    solver's default config (and ``cfg_over`` on top)."""
     r = 0.025
     extent = n_side * 2 * r * 1.35
     sc = dam_break(particle_radius=r, fluid_dims=(n_side,) * 3,
                    box_extent=extent)
     lo, hi = sc.domain(pad=6 * r)
-    cfg = default_config("dfsph", particle_radius=r, domain_min=lo,
-                         domain_max=hi)
-    return Simulation(sc, cfg, solver="dfsph", device=device)
+    cfg = default_config(solver, particle_radius=r, domain_min=lo,
+                         domain_max=hi, **cfg_over)
+    return Simulation(sc, cfg, solver=solver, device=device)
+
+
+def flagship_paths(n_side: int) -> dict:
+    """The paths that ``chip_smoke.py`` and ``profile_paths.py`` drive on the
+    flagship scene: name -> (solver, config overrides).  The tension path
+    takes the coefficients of examples/run_showcase.py:102, with an adhesion
+    region that meets the wall: centred on the middle of the box floor,
+    under the liquid block."""
+    extent = n_side * 2 * 0.025 * 1.35
+    tension = dict(tension_coff=0.5, tension_coff_b=0.25,
+                   adhesion_center=(0.0, -0.5 * extent, 0.0),
+                   adhesion_radius=0.25 * extent)
+    return {"dfsph": ("dfsph", {}), "sesph": ("sesph", {}),
+            "pcisph": ("pcisph", {}), "iisph": ("iisph", {}),
+            "dfsph+tension": ("dfsph", tension)}
 
 
 def measure(sim: Simulation, warmup: int, steps: int) -> dict:
@@ -131,6 +167,7 @@ def main(argv=None):
                     help="liquid cube side (100 = 1M particles)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--solver", default="dfsph", choices=sorted(STAGES))
     ap.add_argument("--profile", type=int, default=0,
                     help="after the timed steps, trace this many more under "
                          "torch.profiler and print the device breakdown to "
@@ -140,7 +177,7 @@ def main(argv=None):
         raise SystemExit("wcsph_tpu_torch.bench measures the CUDA device; "
                          "torch.cuda.is_available() is False")
     t0 = time.perf_counter()
-    sim = build_sim(args.side, "cuda")
+    sim = build_sim(args.side, "cuda", args.solver)
     build_s = time.perf_counter() - t0
     res = measure(sim, args.warmup, args.steps)
     nl = res["n_liquid"]
@@ -151,7 +188,7 @@ def main(argv=None):
               file=sys.stderr)
     value = res["particle_steps_per_s"]
     print(json.dumps({
-        "metric": f"dfsph_particle_steps_per_sec_{label}",
+        "metric": f"{args.solver}_particle_steps_per_sec_{label}",
         "value": value,
         "unit": "particle-steps/s",
         # BASELINE.json's north star, 5e8 particle-steps/s
@@ -162,7 +199,8 @@ def main(argv=None):
             "card": card_info(),
             "torch": torch.__version__,
             "cuda": torch.version.cuda,
-            "stages": STAGES,
+            "stages": STAGES[args.solver],
+            "iters": res["iters"],
             "overflow": res["telemetry"]["neighbor_overflow"],
             "build_s": build_s,
             "kernel_build_s": engine.BUILD_SECONDS,

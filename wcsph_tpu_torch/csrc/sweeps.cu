@@ -5,24 +5,14 @@
 // compute, not their TPU layout: the capacity-padded cells, 8-row rank
 // blocks, 128-lane margins, plane DMA, occupancy bitmasks and the
 // overlap-add fold of the TPU engine exist because that chip has 128-wide
-// lanes, no atomics and no cheap gathers.  Here:
+// lanes, no atomics and no cheap gathers.  Here each receiving particle gets
+// one thread that gathers its own sum over the cell-sorted rows (common.cuh:
+// geometry, pair math, neighbour loop, fixed-order global sums).
 //
-//   * rows are particles sorted by cell, with per-cell start offsets
-//     (Geom.start); cell c holds rows start[c] .. start[c + 1];
-//   * each RECEIVING particle gets one thread, which loops over its 27
-//     neighbour cells (the 3 z-neighbours of a cell are consecutive cell
-//     ids, so the loop is 9 contiguous row ranges) and accumulates in
-//     registers; r = x_i - x_j; pairs are cut to d^2 <= h^2, self excluded;
-//   * so no atomics and no capacity: no particle is ever dropped, and
-//     every sum has a fixed order (the results repeat bit for bit);
-//   * the per-receiver formulas are the one-sided __call__ bodies of the
-//     TPU emits (_DensityAlphaDrho 1981, _KappaAcc 2005, _DivAcc 2029,
-//     _ViscAcc 2053, _ViscInit 2099, _Vorticity 2145); one templated
-//     neighbour loop (for_each_neighbor) with a per-formula functor serves
-//     all of them.  W and gradW use the sqrt form of kernels.py, the same
-//     arithmetic as the plain PyTorch twins in dense_ops.py;
-//   * the library is built with -fmad=false so that each pair term rounds
-//     as the plain twin's does (only the summation order differs).
+// The per-receiver formulas are the one-sided __call__ bodies of the TPU
+// emits (_DensityAlphaDrho 1981, _KappaAcc 2005, _DivAcc 2029, _ViscAcc
+// 2053, _ViscInit 2099, _Vorticity 2145); one templated neighbour loop
+// (for_each_neighbor) with a per-formula functor serves all of them.
 //
 // What bounds these sweeps on the H100: not DRAM (each row's fields are
 // read from device memory about once per sweep, tens of MB at 1M rows) but
@@ -33,115 +23,9 @@
 // tiling of a cell block, half-window (Newton) pairs and warp-cooperative
 // culling are later work.
 //
-// Global sums (K3's error, K4's two dots) are a per-block fixed-order tree
-// of partials plus a one-block reduction kernel in fixed order; no atomics,
-// so the bits repeat from run to run.  A launch returns cudaGetLastError().
+// A launch returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-
-constexpr int kBlock = 256;        // threads per block of every row kernel
-constexpr int kReduceBlock = 1024; // threads of the partials reduction
-constexpr float kEps = 1.0e-5f;    // gradW cut-off distance (kernels._EPS)
-
-// Mirror: engine._Geom (same field order).
-struct Geom {
-  const float* pos;  // (3, M) planar positions, rows sorted by cell
-  const float* liq;  // (M,) 1.0 at liquid rows, 0.0 at boundary rows
-  const int* cell;   // (M,) cell id of each row
-  const int* start;  // (num_cells + 1,) first row of each cell
-  int M, gx, gy, gz;
-  float h, h2, vl, vs;  // support radius, h^2, liquid / boundary volume
-  float w_sigma, gs_ml; // 8 / (pi h^3), 48 / (pi h^3)
-};
-
-// ---------------------------------------------------------------------------
-// Pair math (kernels.cubic_w_scalar / cubic_grad_scale)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float kernel_w(const Geom& g, float d2) {
-  const float dist = sqrtf(fmaxf(d2, 0.0f));
-  const float q = dist / g.h;
-  const float inner = 6.0f * q * q * q - 6.0f * q * q + 1.0f;
-  const float f = 1.0f - q;
-  const float outer = 2.0f * f * f * f;
-  const float w = q <= 0.5f ? inner : outer;
-  return q <= 1.0f ? g.w_sigma * w : 0.0f;
-}
-
-__device__ __forceinline__ float kernel_gs(const Geom& g, float d2) {
-  const float dist = sqrtf(fmaxf(d2, 0.0f));
-  const float q = dist / g.h;
-  const float inner = g.gs_ml * (3.0f * q - 2.0f) / g.h2;
-  const float outer =
-      -g.gs_ml * (1.0f - q) * (1.0f - q) / (fmaxf(dist, kEps) * g.h);
-  const float s = q <= 0.5f ? inner : outer;
-  return (dist > kEps && q <= 1.0f) ? s : 0.0f;
-}
-
-__device__ __forceinline__ float volume(const Geom& g, int j) {
-  return g.liq[j] != 0.0f ? g.vl : g.vs;
-}
-
-// Calls f(j, rx, ry, rz, d2) for every neighbour j of row i with
-// d2 <= h^2, j != i, in a fixed order (dx, dy, then rows ascending).
-template <class F>
-__device__ __forceinline__ void for_each_neighbor(const Geom& g, int i,
-                                                  F& f) {
-  const int M = g.M;
-  const float xi = g.pos[i], yi = g.pos[M + i], zi = g.pos[2 * M + i];
-  const int c = g.cell[i];
-  const int cz = c % g.gz;
-  const int cy = (c / g.gz) % g.gy;
-  const int cx = c / (g.gz * g.gy);
-  const int z0 = max(cz - 1, 0);
-  const int z1 = min(cz + 1, g.gz - 1);
-  for (int dx = -1; dx <= 1; ++dx) {
-    const int nx = cx + dx;
-    if (nx < 0 || nx >= g.gx) continue;
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int ny = cy + dy;
-      if (ny < 0 || ny >= g.gy) continue;
-      const int base = (nx * g.gy + ny) * g.gz;
-      const int jb = g.start[base + z0];
-      const int je = g.start[base + z1 + 1];
-      for (int j = jb; j < je; ++j) {
-        if (j == i) continue;
-        const float rx = xi - g.pos[j];
-        const float ry = yi - g.pos[M + j];
-        const float rz = zi - g.pos[2 * M + j];
-        const float d2 = rx * rx + ry * ry + rz * rz;
-        if (d2 <= g.h2) f(j, rx, ry, rz, d2);
-      }
-    }
-  }
-}
-
-// Fixed-order tree over one block; thread 0 stores the block's partial.
-__device__ __forceinline__ void block_partial(float v, float* partials) {
-  __shared__ float sh[kBlock];
-  sh[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = kBlock / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) partials[blockIdx.x] = sh[0];
-}
-
-// out[0] = add + sum(partials[0..n)), one block, fixed order.
-__global__ void reduce_partials_kernel(const float* __restrict__ partials,
-                                       int n, float add, float* out) {
-  __shared__ float sh[kReduceBlock];
-  float s = 0.0f;
-  for (int k = threadIdx.x; k < n; k += kReduceBlock) s += partials[k];
-  sh[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = kReduceBlock / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[0] = add + sh[0];
-}
+#include "common.cuh"
 
 // sum_j V_j gs (v_i - v_j).r  (_DivAcc)
 __device__ __forceinline__ float div_sum(const Geom& g, int i,
@@ -509,10 +393,6 @@ __global__ void k4_direction_kernel(int M, const float* __restrict__ liq,
 // Plain C entry points (bound with ctypes by engine.py).  Each returns the
 // first cudaError_t of its launches (0 = all launched).
 // ---------------------------------------------------------------------------
-
-static inline int blocks_of(int m) {
-  return m > 0 ? (m + kBlock - 1) / kBlock : 1;
-}
 
 extern "C" int k1_density_alpha_drho(const Geom* g, const float* vel,
                                      float* out, void* stream) {

@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the pair sweeps on the DFSPH main path.
+"""Plain PyTorch versions of the pair sweeps of the four solvers.
 
-Each function here is the twin of one hand kernel in ``csrc/sweeps.cu``
+Each function here is the twin of one hand kernel in ``csrc/``
 (same arguments, same outputs; ``engine.py`` picks between them by the
 tensors' device).  They run on an explicit pair list: for every particle,
 the candidates in its 27 neighbour cells cut to d^2 <= h^2, self excluded.
@@ -8,8 +8,8 @@ Per-receiver sums are ``index_add_`` over the pair list.  The per-receiver
 formulas are the one-sided bodies of the TPU engine's emits
 (``wcsph_tpu/pallas/engine.py``: ``_DensityAlphaDrho`` 1981, ``_KappaAcc``
 2005, ``_DivAcc`` 2029, ``_ViscAcc`` 2053, ``_ViscInit`` 2099,
-``_Vorticity`` 2145); r = x_i - x_j points from the neighbour j to the
-receiver i.
+``_Vorticity`` 2145, and for K5-K8 the emits named at each twin below);
+r = x_i - x_j points from the neighbour j to the receiver i.
 
 Receivers: the density sweep runs at every in-domain particle; every other
 sweep at liquid receivers only (0 at boundary rows), since its outputs are
@@ -41,11 +41,18 @@ class Pairs:
     vol_j: torch.Tensor  # (P,) rest volume of j
 
 
-def build_pairs(grid: Grid) -> Pairs:
+def build_pairs(grid: Grid, pos: torch.Tensor | None = None) -> Pairs:
     """All pairs with d^2 <= h^2 (self excluded).  The z-neighbours of a
     cell are consecutive cell ids, so each (dx, dy) column is one
-    contiguous row range: 9 ranges per particle."""
+    contiguous row range: 9 ranges per particle.
+
+    With ``pos`` (3, M), moved positions of the same rows: the candidates
+    stay those of the grid's cells (the binning of ``grid.pos``), while the
+    cut and the pair geometry are taken at ``pos``.  A pair that comes within
+    h only at ``pos`` but whose cells are not adjacent is not found; one
+    within h at ``grid.pos`` but beyond h at ``pos`` is cut."""
     cfg = grid.cfg
+    pos = grid.pos if pos is None else pos
     gx, gy, gz = cfg.grid_res
     dev = grid.device
     m = grid.n
@@ -73,14 +80,14 @@ def build_pairs(grid: Grid) -> Pairs:
             k = torch.arange(total, device=dev)
             j = (torch.repeat_interleave(jb - first, cnt, output_size=total)
                  + k)
-            r = grid.pos[:, i] - grid.pos[:, j]
+            r = pos[:, i] - pos[:, j]
             d2 = r[0] * r[0] + r[1] * r[1] + r[2] * r[2]
             keep = (d2 <= h2) & (i != j)
             ii.append(i[keep])
             jj.append(j[keep])
     i = torch.cat(ii)
     j = torch.cat(jj)
-    r = grid.pos[:, i] - grid.pos[:, j]
+    r = pos[:, i] - pos[:, j]
     d2 = r[0] * r[0] + r[1] * r[1] + r[2] * r[2]
     dist = torch.sqrt(torch.clamp(d2, min=0.0))
     liq_j = grid.liq[j]
@@ -265,3 +272,204 @@ def fused_visc_iter(grid: Grid, x: torch.Tensor, r: torch.Tensor,
     delta_new = torch.sum(liq * (r[0] * s[0] + r[1] * s[1] + r[2] * s[2]))
     d.copy_(liq * (s + (delta_new / delta) * d))
     return torch.stack([d_ad, delta_new])
+
+
+# ---------------------------------------------------------------------------
+# K5: the one-sided sweep, five emits
+# ---------------------------------------------------------------------------
+
+def density_alpha(grid: Grid) -> torch.Tensor:
+    """(2, M) at every receiver: [sum V_j W, count] (``_DensityAlpha`` 1920
+    without the alpha sums)."""
+    p = pairs_of(grid)
+    return _sum(p, grid.n, torch.stack([p.vol_j * p.w, torch.ones_like(p.w)]))
+
+
+def explicit_visc_consts(cfg):
+    """(a_liq, b_sol) of the explicit viscosity: dim nu m and dim nu_b V_b."""
+    return (cfg.dim_coff * cfg.explicit_viscosity * cfg.liquid_mass,
+            cfg.dim_coff * cfg.explicit_viscosity_b * cfg.solid_volume)
+
+
+def sesph_force(grid: Grid, vel: torch.Tensor, rinv: torch.Tensor,
+                rr: torch.Tensor, pi: torch.Tensor,
+                pr: torch.Tensor) -> torch.Tensor:
+    """(3, M) at liquid receivers: explicit viscosity + symmetric
+    Tait-pressure acceleration (``_SesphForce`` 2214), with
+    rinv = 1 / max(rho, 1), rr = rho / rho0, pi = p rinv^2 prepared by the
+    caller and ``pr`` the pressure."""
+    p = pairs_of(grid)
+    cfg = grid.cfg
+    rho0 = cfg.rest_density
+    h = cfg.support_radius
+    a_liq, b_sol = explicit_visc_consts(cfg)
+    lj = p.liq_j
+    sj = 1.0 - lj
+    rd = 1.0 / (p.d2 + 0.01 * h * h)
+    vi = vel[:, p.i]
+    vh_dot = vi[0] * p.r[0] + vi[1] * p.r[1] + vi[2] * p.r[2]
+    rj = rinv[p.j]
+    pi_i = pi[p.i]
+    visc = (lj * a_liq * rj * _dot_r(p, vel)
+            + sj * b_sol * rr[p.i] * vh_dot) * rd
+    pres = -rho0 * (cfg.liquid_volume * lj * (pi_i + pr[p.j] * rj * rj)
+                    + cfg.solid_volume * sj
+                    * (pi_i + pr[p.i] / (rho0 * rho0)))
+    return _sum(p, grid.n, (visc + pres) * p.gs * p.r) * grid.liq
+
+
+def iisph_adv(grid: Grid, vel: torch.Tensor) -> torch.Tensor:
+    """(5, M) at liquid receivers: [-sum V_j gs r (3),
+    sum V_j gs (v_i - v_j).r, sum V_j gs^2 d2] (``_IisphAdv`` 2337)."""
+    p = pairs_of(grid)
+    vgs = p.vol_j * p.gs
+    vals = torch.cat([-(vgs * p.r),
+                      torch.stack([vgs * _dot_r(p, vel), vgs * p.gs * p.d2])])
+    return _sum(p, grid.n, vals) * grid.liq
+
+
+def _dot_own(p: Pairs, a: torch.Tensor) -> torch.Tensor:
+    """a_i . r per pair for a planar (3, M) field."""
+    ai = a[:, p.i]
+    return ai[0] * p.r[0] + ai[1] * p.r[1] + ai[2] * p.r[2]
+
+
+def _dot_nbr(p: Pairs, a: torch.Tensor) -> torch.Tensor:
+    """a_j . r per pair for a planar (3, M) field."""
+    aj = a[:, p.j]
+    return aj[0] * p.r[0] + aj[1] * p.r[1] + aj[2] * p.r[2]
+
+
+def iisph_aii(grid: Grid, dii: torch.Tensor) -> torch.Tensor:
+    """(M,) at liquid receivers: sum V_j gs (d_ii_i . r), the receiver's own
+    d_ii (``_IisphAii`` 2374)."""
+    p = pairs_of(grid)
+    return _sum(p, grid.n, p.vol_j * (p.gs * _dot_own(p, dii))) * grid.liq
+
+
+def iisph_force(grid: Grid, dpi: torch.Tensor) -> torch.Tensor:
+    """(3, M) at liquid receivers: -sum c gs r with c = V0 (dpi_i + dpi_j)
+    for a liquid neighbour and Vs dpi_i for a boundary one
+    (``_IisphForce`` 2466); dpi = p / den^2."""
+    p = pairs_of(grid)
+    cfg = grid.cfg
+    di = dpi[p.i]
+    c = (p.liq_j * (cfg.liquid_volume * (di + dpi[p.j]))
+         + (1.0 - p.liq_j) * cfg.solid_volume * di)
+    return -_sum(p, grid.n, c * p.gs * p.r) * grid.liq
+
+
+# ---------------------------------------------------------------------------
+# K6-K8: surface tension and the fused IISPH / PCISPH iterations
+# ---------------------------------------------------------------------------
+
+def tension_consts(cfg) -> dict:
+    """Constants of the tension sweep (``_TensionAccel._shared`` 2526)."""
+    h = cfg.support_radius
+    return dict(coh=-cfg.tension_coff * cfg.liquid_mass,
+                adh=-cfg.tension_coff_b * cfg.rest_density * cfg.solid_volume,
+                curv=-cfg.tension_coff, rho0x2=2.0 * cfg.rest_density,
+                coh_k=32.0 / (np.pi * h ** 9), coh_c=h ** 6 / 64.0,
+                adh_k=0.007 / h ** 3.25)
+
+
+def fused_tension(grid: Grid, ril: torch.Tensor, rho: torch.Tensor):
+    """(normals, acc), both (3, M) at liquid receivers.
+    normals_i = h sum_j m ril_j gs r with ril = liq / max(rho, 1)
+    (``_SurfaceNormals`` 2498, h-scaled); acc is Akinci cohesion, curvature
+    and boundary adhesion on those normals (``_TensionAccel`` 2519): the
+    cohesion and curvature gates need a liquid neighbour and d^2 > eps, the
+    adhesion gate a boundary neighbour whose own position lies within
+    adhesion_radius of adhesion_center."""
+    p = pairs_of(grid)
+    cfg = grid.cfg
+    h = cfg.support_radius
+    t = tension_consts(cfg)
+    liq = grid.liq
+    n = h * _sum(p, grid.n, cfg.liquid_mass * ril[p.j] * p.gs * p.r) * liq
+
+    dist = torch.sqrt(torch.clamp(p.d2, min=1e-12))
+    inv_dist = 1.0 / torch.clamp(dist, min=cfg.eps)
+    pair_ok = p.d2 > cfg.eps
+    k_ij = t["rho0x2"] / torch.clamp(rho[p.i] + rho[p.j], min=1.0)
+    gate = torch.where(pair_ok, p.liq_j * k_ij, 0.0)
+    w_coh = kernels.cohesion_w_scalar(dist, h)
+    w_adh = kernels.adhesion_w_scalar(dist, h)
+    centre = torch.tensor(cfg.adhesion_center, dtype=torch.float32,
+                          device=grid.device)
+    e = grid.pos[:, p.j] - centre[:, None]
+    in_region = (e[0] * e[0] + e[1] * e[1] + e[2] * e[2]
+                 < cfg.adhesion_radius ** 2)
+    adh_gate = torch.where(pair_ok & in_region, 1.0 - p.liq_j, 0.0)
+    c_rad = (t["coh"] * w_coh * inv_dist * gate
+             + t["adh"] * w_adh * inv_dist * adh_gate)
+    vals = c_rad * p.r + gate * t["curv"] * (n[:, p.i] - n[:, p.j])
+    return n, _sum(p, grid.n, vals) * liq
+
+
+def fused_jacobi_iter(grid: Grid, dii: torch.Tensor, deninv: torch.Tensor,
+                      aii: torch.Tensor, b: torch.Tensor, pr: torch.Tensor,
+                      dt):
+    """One relaxed-Jacobi iteration of IISPH (``_IisphDij`` 2397,
+    ``_IisphS`` 2417, the update of solvers/iisph.py ``_jacobi_tail``):
+    dij_i = sum_j fac_j gs r with fac = -liq deninv p; s_i from the finished
+    dij with p_liq = liq p and g = deninv p; then
+    p' = ok ? max((1 - w) p + w / (a_ii dt^2) (b - dt^2 s), 0) : 0 with
+    ok = |a_ii dt^2| > eps.  Updates ``pr`` in place; returns (dij (3, M),
+    s (M,), the 0-dim residual sum of liq ((a_ii p' + s) dt^2 - b) over the
+    rows with p' != 0)."""
+    p = pairs_of(grid)
+    cfg = grid.cfg
+    liq = grid.liq
+    lj = p.liq_j
+    fac = -liq * deninv * pr
+    dij = _sum(p, grid.n, fac[p.j] * p.gs * p.r) * liq
+
+    gs = p.gs
+    dij_dot_i = gs * _dot_own(p, dij)
+    dii_j_dot = gs * (lj * pr[p.j]) * _dot_nbr(p, dii)
+    dij_j_dot = gs * _dot_nbr(p, dij)
+    dji_pi_dot = (deninv * pr)[p.i] * gs * gs * p.d2
+    term_liq = cfg.liquid_volume * (dij_dot_i - dii_j_dot - dij_j_dot
+                                    + dji_pi_dot)
+    term_sol = cfg.solid_volume * dij_dot_i
+    s = _sum(p, grid.n, lj * term_liq + (1.0 - lj) * term_sol) * liq
+
+    h2 = float(np.float32(dt) * np.float32(dt))
+    omega = cfg.iisph_omega
+    denom = aii * h2
+    ok = torch.abs(denom) > cfg.eps
+    p_new = torch.clamp((1.0 - omega) * pr
+                        + omega / torch.where(ok, denom, 1.0) * (b - h2 * s),
+                        min=0.0)
+    p_new = torch.where(ok, p_new, 0.0)
+    resid = torch.where(p_new != 0.0, (aii * p_new + s) * h2 - b, 0.0)
+    pr.copy_(p_new)
+    return dij, s, torch.sum(liq * resid)
+
+
+def fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, pr: torch.Tensor,
+                      dt, factor):
+    """One PCISPH prediction iteration at the starred positions
+    x* = x + liq v* dt (``_PcisphAdvPart`` 2310, ``_PcisphAccPart`` 2323).
+    The pair candidates are those of the ORIGINAL binning; a pair is cut by
+    its distance at x* (``build_pairs`` with ``pos``).
+    adv_i = sum_j V_j W at x*; p' = p + factor (max(w0 + adv, 1) - 1) with
+    factor = pci_coff / dt^2 and w0 = V0 W(0); acc = -sum c gs r at x* with
+    c = V0 (p'_i + p'_j) for a liquid neighbour, Vs p'_i for a boundary
+    one.  Updates ``pr`` in place; returns (adv (M,), acc (3, M), the 0-dim
+    error sum of liq (max(w0 + adv, 1) - 1))."""
+    cfg = grid.cfg
+    liq = grid.liq
+    xs = torch.where(grid.liquid[None], grid.pos + vel_star * float(dt),
+                     grid.pos)
+    p = build_pairs(grid, xs)
+    adv = _sum(p, grid.n, p.vol_j * p.w) * liq
+    w0 = cfg.liquid_volume * kernels.cubic_w0(cfg.support_radius)
+    over = torch.clamp(w0 + adv, min=1.0) - 1.0
+    pr += float(factor) * over
+    pi = pr[p.i]
+    c = (p.liq_j * cfg.liquid_volume * (pi + pr[p.j])
+         + (1.0 - p.liq_j) * cfg.solid_volume * pi)
+    acc = -_sum(p, grid.n, c * p.gs * p.r) * liq
+    return adv, acc, torch.sum(liq * over)

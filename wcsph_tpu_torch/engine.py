@@ -1,20 +1,20 @@
-"""The hand kernels of the DFSPH main path, their plain twins, and the build.
+"""The hand kernels of the port, their plain twins, and the build.
 
 Every wrapper below has one plain PyTorch twin in ``dense_ops.py`` with the
 same arguments and outputs.  The wrapper picks by the tensors' device:
 
 * CPU tensors go to the plain twin (the CPU tests);
-* CUDA tensors go to the kernel in ``csrc/sweeps.cu``.  If the kernel
-  cannot be built or launched the wrapper raises; nothing falls back.
+* CUDA tensors go to the kernel in ``csrc/``.  If the kernel cannot be
+  built or launched the wrapper raises; nothing falls back.
   Only inside ``plain_twins()``, the one explicit switch, do they go to the
   plain twin instead: the oracle that ``chip_smoke.py`` holds the kernels
   against on the card.
 
 Each wrapper adds one to its launch counter (``LAUNCHES``) where it
 launches its kernel on the card, and nowhere else, so a run can show that
-its main path went through the kernels.
+its path went through the kernels.
 
-The kernels (K1-K4, one per Pallas kernel of ``wcsph_tpu/pallas/engine.py``):
+The kernels (K1-K8, one per Pallas kernel of ``wcsph_tpu/pallas/engine.py``):
 
 =====  ==========================  =========================================
 K1     ``k1_density_alpha_drho``,  pair sweep, one launch per call
@@ -24,11 +24,20 @@ K1     ``k1_density_alpha_drho``,  pair sweep, one launch per call
 K2     ``k2_fused_kappa_drho``     gated kappa sweep, then divergence sweep
 K3     ``k3_fused_iter_full``      whole divergence / pressure iteration
 K4     ``k4_fused_visc_iter``      whole viscosity-PCG iteration
+K5     ``k5_density_alpha``,       one-sided sweep templated on its emit,
+       ``k5_sesph_force``,         one launch per call
+       ``k5_iisph_adv``,
+       ``k5_iisph_aii``,
+       ``k5_iisph_force``
+K6     ``k6_fused_tension``        surface normals, then tension on them
+K7     ``k7_fused_jacobi_iter``    whole IISPH relaxed-Jacobi iteration
+K8     ``k8_fused_pcisph_iter``    whole PCISPH prediction iteration
 =====  ==========================  =========================================
 
-The library is built at first use on CUDA: ``nvcc`` compiles
-``csrc/*.cu`` for ``sm_90a`` into ``_build/``, keyed by a hash of the
-sources and flags, and the plain C entry points are bound with ``ctypes``.
+The libraries are built at first use on CUDA: one ``nvcc`` per
+``csrc/*.cu``, all started together, for ``sm_90a`` into ``_build/``, keyed
+by a hash of the sources and flags, and the plain C entry points are bound
+with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -58,7 +67,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 _SRC = "wcsph_tpu_torch/csrc/sweeps.cu"
-_SYM = "wcsph_tpu/pallas/engine.py:441 (_build_sweep_sym, emit "
+_SRC2 = "wcsph_tpu_torch/csrc/solver_sweeps.cu"
+_ENG = "wcsph_tpu/pallas/engine.py:"
+_SYM = _ENG + "441 (_build_sweep_sym, emit "
+_ONE = _ENG + "279 (_build_sweep, emit "
 # wrapper name -> (kernel source, TPU kernel it replaces, plain twin)
 KERNELS = {
     "k1_density_alpha_drho": (_SRC, _SYM + "_DensityAlphaDrho 1973)",
@@ -66,18 +78,29 @@ KERNELS = {
     "k1_div_acc": (_SRC, _SYM + "_DivAcc 2023)", dense_ops.div_acc),
     "k1_visc_init": (_SRC, _SYM + "_ViscInit 2092)", dense_ops.visc_init),
     "k1_vorticity": (_SRC, _SYM + "_Vorticity 2133)", dense_ops.vorticity),
-    "k2_fused_kappa_drho": (
-        _SRC, "wcsph_tpu/pallas/engine.py:736 (_build_fused_iter)",
-        dense_ops.fused_kappa_drho),
-    "k3_fused_iter_full": (
-        _SRC, "wcsph_tpu/pallas/engine.py:1041 (_build_fused_iter_full)",
-        dense_ops.fused_iter_full),
-    "k4_fused_visc_iter": (
-        _SRC, "wcsph_tpu/pallas/engine.py:1677 (_build_fused_visc_iter)",
-        dense_ops.fused_visc_iter),
+    "k2_fused_kappa_drho": (_SRC, _ENG + "736 (_build_fused_iter)",
+                            dense_ops.fused_kappa_drho),
+    "k3_fused_iter_full": (_SRC, _ENG + "1041 (_build_fused_iter_full)",
+                           dense_ops.fused_iter_full),
+    "k4_fused_visc_iter": (_SRC, _ENG + "1677 (_build_fused_visc_iter)",
+                           dense_ops.fused_visc_iter),
+    "k5_density_alpha": (_SRC2, _ONE + "_DensityAlpha 1920)",
+                         dense_ops.density_alpha),
+    "k5_sesph_force": (_SRC2, _ONE + "_SesphForce 2214)",
+                       dense_ops.sesph_force),
+    "k5_iisph_adv": (_SRC2, _ONE + "_IisphAdv 2337)", dense_ops.iisph_adv),
+    "k5_iisph_aii": (_SRC2, _ONE + "_IisphAii 2374)", dense_ops.iisph_aii),
+    "k5_iisph_force": (_SRC2, _ONE + "_IisphForce 2466)",
+                       dense_ops.iisph_force),
+    "k6_fused_tension": (_SRC2, _ENG + "904 (_build_fused_tension)",
+                         dense_ops.fused_tension),
+    "k7_fused_jacobi_iter": (_SRC2, _ENG + "1238 (_build_fused_iisph_iter)",
+                             dense_ops.fused_jacobi_iter),
+    "k8_fused_pcisph_iter": (_SRC2, _ENG + "1466 (_build_fused_pcisph_iter)",
+                             dense_ops.fused_pcisph_iter),
 }
 LAUNCHES = {name: 0 for name in KERNELS}
-BLOCK = 256          # threads per block of every sweep (csrc/sweeps.cu)
+BLOCK = 256          # threads per block of every sweep (csrc/common.cuh)
 
 
 def reset_launch_counts() -> None:
@@ -90,7 +113,7 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 class _Geom(ctypes.Structure):
-    """Mirror of ``struct Geom`` in csrc/sweeps.cu (same field order)."""
+    """Mirror of ``struct Geom`` in csrc/common.cuh (same field order)."""
 
     _fields_ = [("pos", ctypes.c_void_p), ("liq", ctypes.c_void_p),
                 ("cell", ctypes.c_void_p), ("start", ctypes.c_void_p),
@@ -101,8 +124,17 @@ class _Geom(ctypes.Structure):
                 ("w_sigma", ctypes.c_float), ("gs_ml", ctypes.c_float)]
 
 
+class _TensionParams(ctypes.Structure):
+    """Mirror of ``struct TensionParams`` in csrc/solver_sweeps.cu."""
+
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "coh", "adh", "curv", "rho0x2", "eps", "coh_k", "coh_c", "adh_k",
+        "cx", "cy", "cz", "radius2")]
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _G = ctypes.POINTER(_Geom)
+_T = ctypes.POINTER(_TensionParams)
 _SIGNATURES = {
     "k1_density_alpha_drho": [_G, _P, _P, _P],
     "k1_div_acc": [_G, _P, _P, _P],
@@ -112,6 +144,15 @@ _SIGNATURES = {
     "k3_fused_iter_full": [_G, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P],
     "k4_fused_visc_iter": [_G, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F,
                            _P, _P, _P, _P, _P],
+    "k5_density_alpha": [_G, _P, _P],
+    "k5_sesph_force": [_G, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _P],
+    "k5_iisph_adv": [_G, _P, _P, _P],
+    "k5_iisph_aii": [_G, _P, _P, _P],
+    "k5_iisph_force": [_G, _P, _P, _P],
+    "k6_fused_tension": [_G, _P, _P, _T, _F, _P, _P, _P],
+    "k7_fused_jacobi_iter": [_G, _P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _P,
+                             _P, _P],
+    "k8_fused_pcisph_iter": [_G, _P, _P, _F, _F, _F, _P, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -127,43 +168,62 @@ def _nvcc() -> str | None:
     return str(cand) if cand.is_file() else None
 
 
-def build_library(build_dir: Path | None = None):
-    """Compile csrc/*.cu (once per source hash) and load the library.
-    Raises RuntimeError, with nvcc's output, when nvcc is missing or the
-    build fails."""
+def build_library(build_dir: Path | None = None) -> dict:
+    """Compile every csrc/*.cu into a shared library of its own (one nvcc
+    per source, all started together; once per hash of the sources and
+    flags), load them and return {entry point name: bound function}.
+    Raises RuntimeError, with nvcc's output, when nvcc is missing or a build
+    fails."""
     build_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
-    srcs = sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+    cus = sorted(SRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in cus + sorted(SRC_DIR.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    lib_path = build_dir / f"libwcsph_sweeps_{h.hexdigest()[:16]}.so"
-    if not lib_path.exists():
+    tag = h.hexdigest()[:16]
+    libs = [build_dir / f"libwcsph_{s.stem}_{tag}.so" for s in cus]
+    todo = [(s, lib) for s, lib in zip(cus, libs) if not lib.exists()]
+    if todo:
         nvcc = _nvcc()
         if nvcc is None:
             raise RuntimeError(
                 "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
                 "wcsph_tpu_torch are built from csrc/ at first use on CUDA")
         build_dir.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in srcs if s.suffix == ".cu"]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        (build_dir / (lib_path.stem + ".ptxas.txt")).write_text(proc.stderr)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    for name, args in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    return lib
+        running = []
+        for s, lib in todo:
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            report = build_dir / (lib.stem + ".ptxas.txt")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(s)]
+            with open(report, "w") as out:
+                running.append((cmd, tmp, lib, report, subprocess.Popen(
+                    cmd, stdout=out, stderr=subprocess.STDOUT)))
+        failed = []
+        for cmd, tmp, lib, report, proc in running:
+            if proc.wait() != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{report.read_text()}")
+            else:
+                os.replace(tmp, lib)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    fns = {}
+    for lib_path in libs:
+        lib = ctypes.CDLL(str(lib_path))
+        for name, args in _SIGNATURES.items():
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+    missing = sorted(set(_SIGNATURES) - set(fns))
+    if missing:
+        raise RuntimeError(f"no source under {SRC_DIR} defines {missing}")
+    return fns
 
 
 def library():
-    """The loaded kernel library, built on first call."""
+    """The kernels' entry points by name, built on first call."""
     global _lib, BUILD_SECONDS
     if _lib is None:
         t0 = time.perf_counter()
@@ -200,7 +260,7 @@ def _check(*tensors, shapes):
 
 
 def _launch(name: str, *args) -> None:
-    rc = getattr(library(), name)(*args)
+    rc = library()[name](*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -357,6 +417,122 @@ def k4_fused_visc_iter(grid: Grid, x: torch.Tensor, r: torch.Tensor,
     return scal
 
 
+def _sweep(name: str, grid: Grid, operands, shapes, n_out, *consts):
+    """Launch a K5 entry: checked operands, then constants, then the
+    (n_out, M) output."""
+    _check(*operands, shapes=shapes)
+    out = torch.empty((n_out, grid.n), dtype=torch.float32,
+                      device=grid.device)
+    _launch(name, ctypes.byref(_geom(grid)),
+            *[t.data_ptr() for t in operands], *consts, out.data_ptr(),
+            _stream())
+    return out
+
+
+def k5_density_alpha(grid: Grid) -> torch.Tensor:
+    if not _route(grid.pos):
+        return dense_ops.density_alpha(grid)
+    return _sweep("k5_density_alpha", grid, [], [], 2)
+
+
+def k5_sesph_force(grid: Grid, vel: torch.Tensor, rinv: torch.Tensor,
+                   rr: torch.Tensor, pi: torch.Tensor,
+                   p: torch.Tensor) -> torch.Tensor:
+    if not _route(vel):
+        return dense_ops.sesph_force(grid, vel, rinv, rr, pi, p)
+    m = grid.n
+    cfg = grid.cfg
+    a_liq, b_sol = dense_ops.explicit_visc_consts(cfg)
+    h = cfg.support_radius
+    return _sweep("k5_sesph_force", grid, [vel, rinv, rr, pi, p],
+                  [(3, m), (m,), (m,), (m,), (m,)], 3, a_liq, b_sol,
+                  0.01 * h * h, cfg.rest_density)
+
+
+def k5_iisph_adv(grid: Grid, vel: torch.Tensor) -> torch.Tensor:
+    if not _route(vel):
+        return dense_ops.iisph_adv(grid, vel)
+    return _sweep("k5_iisph_adv", grid, [vel], [(3, grid.n)], 5)
+
+
+def k5_iisph_aii(grid: Grid, dii: torch.Tensor) -> torch.Tensor:
+    if not _route(dii):
+        return dense_ops.iisph_aii(grid, dii)
+    return _sweep("k5_iisph_aii", grid, [dii], [(3, grid.n)], 1)[0]
+
+
+def k5_iisph_force(grid: Grid, dpi: torch.Tensor) -> torch.Tensor:
+    if not _route(dpi):
+        return dense_ops.iisph_force(grid, dpi)
+    return _sweep("k5_iisph_force", grid, [dpi], [(grid.n,)], 3)
+
+
+def k6_fused_tension(grid: Grid, ril: torch.Tensor, rho: torch.Tensor):
+    """(h-scaled surface normals (3, M), tension acceleration (3, M)) at
+    liquid rows (see dense_ops.fused_tension)."""
+    if not _route(rho):
+        return dense_ops.fused_tension(grid, ril, rho)
+    m = grid.n
+    cfg = grid.cfg
+    _check(ril, rho, shapes=[(m,), (m,)])
+    normals = torch.empty((3, m), dtype=torch.float32, device=rho.device)
+    acc = torch.empty((3, m), dtype=torch.float32, device=rho.device)
+    t = dense_ops.tension_consts(cfg)
+    params = _TensionParams(
+        t["coh"], t["adh"], t["curv"], t["rho0x2"], cfg.eps, t["coh_k"],
+        t["coh_c"], t["adh_k"], *cfg.adhesion_center,
+        cfg.adhesion_radius ** 2)
+    _launch("k6_fused_tension", ctypes.byref(_geom(grid)), ril.data_ptr(),
+            rho.data_ptr(), ctypes.byref(params), cfg.liquid_mass,
+            normals.data_ptr(), acc.data_ptr(), _stream())
+    return normals, acc
+
+
+def k7_fused_jacobi_iter(grid: Grid, dii: torch.Tensor, deninv: torch.Tensor,
+                         aii: torch.Tensor, b: torch.Tensor, p: torch.Tensor,
+                         dt):
+    """In place on p; returns (dij (3, M), s (M,), 0-dim residual sum) (see
+    dense_ops.fused_jacobi_iter)."""
+    if not _route(p):
+        return dense_ops.fused_jacobi_iter(grid, dii, deninv, aii, b, p, dt)
+    m = grid.n
+    cfg = grid.cfg
+    _check(dii, deninv, aii, b, p, shapes=[(3, m), (m,), (m,), (m,), (m,)])
+    dij = torch.empty((3, m), dtype=torch.float32, device=p.device)
+    s = torch.empty((m,), dtype=torch.float32, device=p.device)
+    partials = torch.empty((_nblocks(m),), dtype=torch.float32,
+                           device=p.device)
+    resid = torch.empty((), dtype=torch.float32, device=p.device)
+    _launch("k7_fused_jacobi_iter", ctypes.byref(_geom(grid)),
+            dii.data_ptr(), deninv.data_ptr(), aii.data_ptr(), b.data_ptr(),
+            p.data_ptr(), float(dt), cfg.iisph_omega, cfg.eps,
+            dij.data_ptr(), s.data_ptr(), partials.data_ptr(),
+            resid.data_ptr(), _stream())
+    return dij, s, resid
+
+
+def k8_fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, p: torch.Tensor,
+                         dt, factor):
+    """In place on p; returns (adv (M,), acc (3, M), 0-dim error sum) (see
+    dense_ops.fused_pcisph_iter)."""
+    if not _route(p):
+        return dense_ops.fused_pcisph_iter(grid, vel_star, p, dt, factor)
+    m = grid.n
+    cfg = grid.cfg
+    _check(vel_star, p, shapes=[(3, m), (m,)])
+    adv = torch.empty((m,), dtype=torch.float32, device=p.device)
+    acc = torch.empty((3, m), dtype=torch.float32, device=p.device)
+    partials = torch.empty((_nblocks(m),), dtype=torch.float32,
+                           device=p.device)
+    err = torch.empty((), dtype=torch.float32, device=p.device)
+    _launch("k8_fused_pcisph_iter", ctypes.byref(_geom(grid)),
+            vel_star.data_ptr(), p.data_ptr(), float(dt), float(factor),
+            cfg.liquid_volume * kernels.cubic_w0(cfg.support_radius),
+            adv.data_ptr(), acc.data_ptr(), partials.data_ptr(),
+            err.data_ptr(), _stream())
+    return adv, acc, err
+
+
 # ---------------------------------------------------------------------------
 # Engine front end: the caller-side combinations of the sweep channels
 # (twins of SweepEngine's methods in wcsph_tpu/pallas/engine.py)
@@ -417,3 +593,44 @@ def vorticity(grid: Grid, vel: torch.Tensor, om: torch.Tensor,
            + c_vo * c_in * inv_rho_i[None] * st
            + damp * om * count.to(torch.float32)[None])
     return dv, om + dom * float(dt)
+
+
+def density(grid: Grid):
+    """(rho, count) at every row (SweepEngine.density_alpha with
+    ``with_alpha=False``): rho = rho0 (V0 W0 + sum V_j W)."""
+    cfg = grid.cfg
+    out = k5_density_alpha(grid)
+    w0 = cfg.liquid_volume * kernels.cubic_w0(cfg.support_radius)
+    return cfg.rest_density * (w0 + out[0]), out[1].to(torch.int32)
+
+
+def sesph_force(grid: Grid, vel: torch.Tensor, rho: torch.Tensor,
+                p: torch.Tensor) -> torch.Tensor:
+    """Explicit viscosity + Tait-pressure acceleration
+    (SweepEngine.sesph_force)."""
+    rinv = rho_inv(rho)
+    return k5_sesph_force(grid, vel, rinv, rho / grid.cfg.rest_density,
+                          p * rinv * rinv, p)
+
+
+def iisph_adv(grid: Grid, vel: torch.Tensor):
+    """(d_ii raw (3, M), advection sum, d_ji sum) (SweepEngine.iisph_adv)."""
+    out = k5_iisph_adv(grid, vel)
+    return out[0:3], out[3], out[4]
+
+
+def fused_tension(grid: Grid, rho: torch.Tensor):
+    """(h-scaled normals, cohesion + curvature + adhesion acceleration)
+    (PaddedEngine.fused_tension)."""
+    ril = torch.where(grid.liquid, rho_inv(rho), 0.0)
+    return k6_fused_tension(grid, ril, rho)
+
+
+def fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, p: torch.Tensor,
+                      dt, coff):
+    """One PCISPH prediction iteration (PaddedEngine.fused_pcisph_iter):
+    the stiffness factor coff / dt^2 in float32, as the JAX package forms
+    it."""
+    dt = np.float32(dt)
+    return k8_fused_pcisph_iter(grid, vel_star, p, dt,
+                                np.float32(coff) / (dt * dt))

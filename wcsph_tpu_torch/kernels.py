@@ -1,7 +1,8 @@
 """SPH smoothing kernels on tensors (twin of ``wcsph_tpu/kernels.py``).
 
 Cubic spline W and the scalar gradient factor ``gs`` with
-gradW(r) = gs(|r|) * r (reference kernels/CubicKernel.py:20-54).  Branches
+gradW(r) = gs(|r|) * r (reference kernels/CubicKernel.py:20-54), and the
+Akinci cohesion and adhesion splines of the surface tension.  Branches
 are ``torch.where`` selections; every function takes the support radius
 ``h`` explicitly.
 """
@@ -47,3 +48,35 @@ def cubic_grad_scale(dist: torch.Tensor, h: float) -> torch.Tensor:
     outer = -m_l * (1.0 - q) * (1.0 - q) / (torch.clamp(dist, min=_EPS) * h)
     s = torch.where(q <= 0.5, inner, outer)
     return torch.where((dist > _EPS) & (q <= 1.0), s, 0.0)
+
+
+def cohesion_w_scalar(dist: torch.Tensor, h: float) -> torch.Tensor:
+    """Akinci cohesion spline (CohesionKernel.py:17-29):
+    k (h - r)^3 r^3 for h/2 < r <= h, 2 k (h - r)^3 r^3 - h^6/64 for
+    r <= h/2, 0 beyond, with k = 32 / (pi h^9).  The inner branch's offset
+    sits outside the k factor, as in the reference.  Cubes are written as
+    products, the arithmetic of the CUDA kernel."""
+    m_k = 32.0 / (math.pi * h ** 9)
+    hd = h - dist
+    base = hd * hd * hd * (dist * dist * dist)
+    w = torch.where(dist > 0.5 * h, m_k * base,
+                    2.0 * m_k * base - h ** 6 / 64.0)
+    return torch.where(dist * dist <= h * h, w, 0.0)
+
+
+def cohesion_w(r: torch.Tensor, h: float) -> torch.Tensor:
+    return cohesion_w_scalar(torch.linalg.norm(r, dim=-1), h)
+
+
+def adhesion_w_scalar(dist: torch.Tensor, h: float) -> torch.Tensor:
+    """Akinci adhesion spline (AdhesionKernel.py:20-29):
+    0.007 / h^3.25 (-4 r^2 / h + 6 r - 2 h)^(1/4) for h/2 < r <= h, else
+    0.  The fourth root is two square roots, as in the CUDA kernel."""
+    m_k = 0.007 / h ** 3.25
+    arg = torch.clamp(-4.0 * dist * dist / h + 6.0 * dist - 2.0 * h, min=0.0)
+    inside = (dist > 0.5 * h) & (dist * dist <= h * h)
+    return torch.where(inside, m_k * torch.sqrt(torch.sqrt(arg)), 0.0)
+
+
+def adhesion_w(r: torch.Tensor, h: float) -> torch.Tensor:
+    return adhesion_w_scalar(torch.linalg.norm(r, dim=-1), h)

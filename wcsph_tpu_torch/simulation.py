@@ -1,10 +1,10 @@
-"""High-level simulation entry point (port of ``wcsph_tpu/simulation.py``,
-DFSPH only).
+"""High-level simulation entry point (port of ``wcsph_tpu/simulation.py``).
 
-``Simulation(scene, cfg, solver="dfsph", device=...)`` owns the config and
-the state on ``device``.  On a CUDA device every pair sweep of the step runs
-a hand kernel (``engine.py``); on the CPU the same step runs their plain
-PyTorch twins.  Asking for CUDA where there is none raises, as PyTorch does.
+``Simulation(scene, cfg, solver="dfsph", device="cuda")`` owns the config
+and the state on ``device``, the card unless the caller asks for the CPU.
+On a CUDA device every pair sweep of the step runs a hand kernel
+(``engine.py``); on the CPU the same step runs their plain PyTorch twins.
+Asking for CUDA where there is none raises, as PyTorch does.
 """
 
 from __future__ import annotations
@@ -17,27 +17,31 @@ import torch
 from .boundary import akinci_solid_volume_scale
 from .config import SimConfig
 from .scene import Scene
-from .solvers import dfsph
+from .solvers import dfsph, iisph, pcisph, sesph
 from .state import FluidState, has_nan, init_state
 
+_SOLVERS = {"sesph": sesph, "pcisph": pcisph, "iisph": iisph, "dfsph": dfsph}
 
-def _check_solver(name: str) -> None:
-    if name != "dfsph":
-        raise ValueError(f"unknown solver {name!r}: the port has only "
-                         f"'dfsph' so far (ROADMAP queue 1)")
+
+def get_solver(name: str):
+    try:
+        return _SOLVERS[name]
+    except KeyError:
+        raise ValueError(f"unknown solver {name!r}; choose from "
+                         f"{sorted(_SOLVERS)}") from None
 
 
 def default_config(solver: str = "dfsph", **overrides) -> SimConfig:
-    _check_solver(solver)
-    return dfsph.default_config(**overrides)
+    return get_solver(solver).default_config(**overrides)
 
 
 class Simulation:
     """Owns (config, solver, state on ``device``) for a run."""
 
     def __init__(self, scene: Scene, cfg: SimConfig, solver: str = "dfsph",
-                 device="cpu"):
-        _check_solver(solver)
+                 device="cuda"):
+        self.solver_name = solver
+        self._solver = get_solver(solver)
         self.device = torch.device(device)
         if cfg.solid_volume_auto and scene.n_solid > 0:
             # boundary volume from the ACTUAL shell sampling (Akinci 2012)
@@ -52,7 +56,7 @@ class Simulation:
         self.state = state.replace(dt=np.float32(cfg.dt_init))
 
     def step(self) -> FluidState:
-        self.state = dfsph.step(self.state, self.cfg)
+        self.state = self._solver.step(self.state, self.cfg)
         return self.state
 
     def run(self, n_steps: int) -> FluidState:

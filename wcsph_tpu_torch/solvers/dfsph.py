@@ -3,10 +3,10 @@
 
 One step: sort + pack -> density + DFSPH factor alpha (+ warm-start drho,
 one K1 sweep) -> divergence solve (warm start K2, iterations K3 mode 0) ->
-non-pressure forces (gravity, implicit-viscosity PCG: K1 + K4, micropolar
-vorticity: K1) -> adaptive CFL dt -> velocity update -> constant-density
-solve (advected density K1, iterations K3 mode 1) -> unpack + position
-update.
+non-pressure forces (gravity, surface tension when on: K6,
+implicit-viscosity PCG: K1 + K4, micropolar vorticity: K1) -> adaptive CFL
+dt -> velocity update -> constant-density solve (advected density K1,
+iterations K3 mode 1) -> unpack + position update.
 
 The solver loops end on the host: each iteration's error is read back and
 tested there, with the JAX package's loop contracts and float32 scalar
@@ -25,6 +25,7 @@ from .. import engine, viscosity
 from ..config import SimConfig
 from ..grid import Grid, build_grid, pack, unpack
 from ..state import FluidState, StepDiagnostics
+from .common import liquid_sum
 
 f32 = np.float32
 
@@ -50,10 +51,6 @@ class _SolveResult(NamedTuple):
     iters: int
     err: np.float32
     err_pre: np.float32      # error BEFORE the first correction
-
-
-def _lsum(grid: Grid, x: torch.Tensor) -> np.float32:
-    return f32(torch.sum(torch.where(grid.liquid, x, 0.0)).item())
 
 
 def divergence_solve(grid: Grid, velp, kvp, alphap, cntp, dt,
@@ -128,7 +125,7 @@ def pressure_solve(grid: Grid, velp, kp, alphap, rhop, dt) -> _SolveResult:
     kp = torch.zeros_like(kp)
     n_liq = f32(grid.n_liquid)
     adv = adv.contiguous()
-    err_pre = _lsum(grid, adv - 1.0) / n_liq
+    err_pre = liquid_sum(grid, adv - 1.0) / n_liq
     err, it = f32(0.0), 0
     while ((err > f32(cfg.dfsph_tol)) or (it < cfg.dfsph_min_iters)) \
             and it < cfg.dfsph_max_iters:
@@ -163,9 +160,6 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, omegap, vgp, kp, kvp, dt,
                 last_pressure_iters: int) -> MidResult:
     """The whole per-step solve on the sorted layout (everything between
     sort/pack and unpack/position update)."""
-    if cfg.tension_coff != 0.0 or cfg.tension_coff_b != 0.0:
-        raise NotImplementedError(
-            "surface tension is not ported yet (ROADMAP queue 1)")
     dt = f32(dt)
     liq = grid.liquid
     rhop, alphap, cntp, div_acc = engine.density_alpha(grid, velp)
@@ -184,6 +178,10 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, omegap, vgp, kp, kvp, dt,
     # rows keep d_vel = 0 (they feed (v_i - v_j) pair terms)
     g = torch.tensor(cfg.gravity, dtype=torch.float32, device=velp.device)
     d_vel = torch.where(liq[None], g[:, None], 0.0)
+    if cfg.tension_coff != 0.0 or cfg.tension_coff_b != 0.0:
+        # surface normals + cohesion, curvature and adhesion: one K6 call
+        _, dv_t = engine.fused_tension(grid, rhop)
+        d_vel = d_vel + torch.where(liq[None], dv_t, 0.0)
     visc = viscosity.solve_dense(grid, velp, vgp, rhop, dt)
     d_vel = d_vel + (visc.vel_new - velp) / float(dt)    # end_viscosity
     if cfg.enable_vorticity:

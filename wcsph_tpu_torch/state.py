@@ -43,7 +43,7 @@ class FluidState:
     vel: torch.Tensor          # (3, n_liquid)
     omega: torch.Tensor        # (3, n_liquid) micropolar angular velocity
     vel_guess: torch.Tensor    # (3, n_liquid) viscosity-PCG warm start
-    pressure: torch.Tensor     # (n_liquid,) unused by DFSPH, kept for parity
+    pressure: torch.Tensor     # (n_liquid,) SESPH / PCISPH / IISPH pressure
     kappa: torch.Tensor        # (n_liquid,) density warm start (x dt^2)
     kappa_v: torch.Tensor      # (n_liquid,) divergence warm start (x dt)
     dt: np.float32
