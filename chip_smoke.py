@@ -14,7 +14,9 @@ its own lines and raising on failure:
 2. each kernel (K1-K8, every entry point) against its plain PyTorch twin on
    the card, at the shapes of a squeezed side-24 dam break with a
    converging velocity, numpy-seeded k / S / pressure fields, tension and
-   adhesion on;
+   adhesion on; first the neighbour list that K2, K3 and ``k1_div_acc``
+   walk: the fill kernel's list equals the plain list slot for slot, and
+   those three raise on a grid without one;
 3. whole steps: the 20-step golden scene of each of the four solvers on
    CUDA against ``tests/golden/<solver>_golden.npz``, and 3 steps of the
    pressurized side-8 scene, per solver and for DFSPH with tension, with
@@ -24,9 +26,10 @@ its own lines and raising on failure:
    DFSPH (the first slice's main path), then SESPH, PCISPH, IISPH and DFSPH
    with surface tension; for each, warm-up steps, launch counters reset,
    timed steps, health check, overflow 0, every kernel of the path
-   launched; then each kernel against its plain twin again and timed
-   beside it at those shapes, with the least time the card could take
-   for the same work (``bound_ms``).
+   launched (the list fill once per DFSPH step); then the list and each
+   kernel against its plain twin again and timed beside it at those
+   shapes, with the least time the card could take for the same work
+   (``bound_ms``).
 
 The line before the last is one JSON object with the per-kernel record;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -280,38 +283,92 @@ def check_kernels(grid, cases, chk):
     engine.LAUNCHES.update(saved)     # check launches are not main-path
 
 
-def time_call(fn, make_args, reps):
-    """Mean ms of fn(*make_args()) over reps launches, each between CUDA
-    events (operands re-made, untimed, before every call)."""
+def check_list(grid, vel, chk):
+    """Build the grid's neighbour list with the fill kernel (kept as
+    ``grid.nbr``) from the density kernel's counts and hold it against the
+    plain list slot for slot; returns the counts."""
     import torch
 
-    fn(*make_args())
-    torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(reps):
-        args = make_args()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn(*args)
-        b.record()
-        b.synchronize()
-        total += a.elapsed_time(b)
-    return total / reps
-
-
-def time_kernels(grid, cases, reps_kernel=20, reps_plain=5):
-    """(kernel ms, plain ms) per kernel (K3 timed in mode 1, the pressure
-    iteration, which the main path runs most)."""
-    from wcsph_tpu_torch import engine
+    from wcsph_tpu_torch import dense_ops, engine
 
     saved = dict(engine.LAUNCHES)
+    count = engine.k1_density_alpha_drho(grid, vel)[1].to(torch.int32)
+    want = dense_ops.neighbor_list(grid, count)
+    got = engine.nbr_list_fill(grid, count)
+    torch.cuda.synchronize()
+    if not torch.equal(got.off, want.off):
+        raise AssertionError("nbr_list_fill: slice offsets differ")
+    if not torch.equal(got.idx, want.idx):
+        raise AssertionError(
+            f"nbr_list_fill: {int((got.idx != want.idx).sum())} of "
+            f"{got.idx.numel()} slots differ from the plain list")
+    err = float((got.idx - want.idx).abs().max()) if got.idx.numel() else 0.0
+    chk.max_abs["nbr_list_fill"] = max(chk.max_abs.get("nbr_list_fill", 0.0),
+                                       err)
+    width = got.width
+    log(f"  nbr_list_fill: list equals the plain list slot for slot: "
+        f"{got.idx.numel()} slots ({got.idx.numel() * 4 / 2 ** 20:.1f} MiB) "
+        f"over {width.numel()} slices, width max {int(width.max())}, "
+        f"{int((got.idx >= 0).sum())} pairs")
+    engine.LAUNCHES.update(saved)     # check launches are not main-path
+    return count
+
+
+def check_list_required(grid, inp, count):
+    """K2, K3 and k1_div_acc raise on a grid whose step built no list, and
+    the fill raises on a count below the pairs within h (it would drop a
+    neighbour) rather than leave a short list."""
+    import dataclasses
+
+    import torch
+
+    from wcsph_tpu_torch import engine
+
+    bare = dataclasses.replace(grid, nbr=None)
+    saved = dict(engine.LAUNCHES)
+    try:
+        engine.nbr_list_fill(bare, torch.clamp(count - 1, min=0))
+    except ValueError as e:
+        if "count differs" not in str(e):
+            raise
+    else:
+        raise AssertionError("nbr_list_fill took a count below the pairs")
+    engine.LAUNCHES.update(saved)     # check launches are not main-path
+    calls = [("k1_div_acc", (bare, inp["vel"])),
+             ("k2_fused_kappa_drho", (bare, inp["vel"].clone(), inp["kf"],
+                                      inp["gate"], inp["kf"].clone())),
+             ("k3_fused_iter_full", (bare, inp["vel"].clone(),
+                                     inp["kv"].clone(), inp["s1"].clone(),
+                                     inp["a1"], inp["paux1"], inp["dt"], 1))]
+    for name, args in calls:
+        try:
+            getattr(engine, name)(*args)
+        except ValueError as e:
+            if "neighbour list" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} ran on a grid with no list")
+    log("  k1_div_acc, k2_fused_kappa_drho, k3_fused_iter_full raise on a "
+        "grid with no neighbour list; nbr_list_fill raises on a short count")
+
+
+def time_kernels(grid, cases, count, reps_kernel=20, reps_plain=5):
+    """(kernel ms, plain ms) per kernel (K3 timed in mode 1, the pressure
+    iteration, which the main path runs most), and for the list fill
+    (the whole wrapper: slice offsets, two host reads, the fill; its plain
+    twin's time excludes the pair list it reads)."""
+    from wcsph_tpu_torch import engine
+    from wcsph_tpu_torch.bench import time_call
+
+    saved = dict(engine.LAUNCHES)
+    twins = {**engine.KERNELS, **engine.OWN_KERNELS}
     times = {}
-    for name, label, make, _, _ in cases:
+    for name, label, make, _, _ in [
+            *cases, ("nbr_list_fill", "", lambda: (grid, count), 0, 0)]:
         if label == "mode 0":
             continue
         times[name] = (time_call(getattr(engine, name), make, reps_kernel),
-                       time_call(engine.KERNELS[name][2], make, reps_plain))
+                       time_call(twins[name][2], make, reps_plain))
         log(f"  {name}: kernel {times[name][0]:.4f} ms, plain "
             f"{times[name][1]:.4f} ms (M={grid.n})")
     engine.LAUNCHES.update(saved)     # timing launches are not main-path
@@ -323,9 +380,12 @@ def time_kernels(grid, cases, reps_kernel=20, reps_plain=5):
 # ---------------------------------------------------------------------------
 
 # name -> (float32 words read per row, words written per row, operations as
-# a function of the pair counts P and the rows M).  Words: the kernel's
-# operand list, each input read once and each output written once; scratch
-# that a kernel keeps between its own launches is not counted.  Every sweep
+# a function of the pair counts P and the rows M[, other words moved as a
+# function of P and M]).  Words: the kernel's operand list, each input read
+# once and each output written once; scratch that a kernel keeps between
+# its own launches is not counted, nor is the neighbour list that K2, K3
+# and k1_div_acc read (the functions they compute do not need it; the fill
+# that writes it has its own row).  Every sweep
 # also reads the geometry once (positions 3, liquid flag 1, cell id 1 per
 # row, and the cell offsets).  Operations: float32 adds, multiplies,
 # divides and square roots of the one-sided formula per directed pair
@@ -335,7 +395,8 @@ def time_kernels(grid, cases, reps_kernel=20, reps_plain=5):
 # not counted.  P["all"]: every pair; P["liq"]: pairs with a liquid
 # receiver; P["gate"]: pairs whose receiver passes K2's gate of this run's
 # inputs; P["star"]: pairs with a liquid receiver at PCISPH's moved
-# positions of this run's inputs.
+# positions of this run's inputs; P["slots"]: the slots of the neighbour
+# list (int32 words), which the fill writes, with its slice offsets.
 WORK = {
     "k1_density_alpha_drho": (3, 7, lambda P, M: 45 * P["all"]),
     "k1_div_acc": (3, 1, lambda P, M: 26 * P["liq"]),
@@ -355,6 +416,8 @@ WORK = {
                              lambda P, M: (24 + 48) * P["liq"] + 15 * M),
     "k8_fused_pcisph_iter": (4, 5,
                              lambda P, M: (24 + 35) * P["star"] + 5 * M),
+    "nbr_list_fill": (0, 0, lambda P, M: 8 * P["liq"],
+                      lambda P, M: P["slots"] + 2 * (-(-M // 32) + 1)),
 }
 
 
@@ -372,7 +435,8 @@ def pair_counts(grid, inp):
     return {"all": int(p.i.shape[0]),
             "liq": int(grid.liquid[p.i].sum()),
             "gate": int((inp["gate"][p.i] != 0).sum()),
-            "star": int(grid.liquid[star.i].sum())}
+            "star": int(grid.liquid[star.i].sum()),
+            "slots": int(grid.nbr.idx.numel())}
 
 
 def bounds(grid, counts):
@@ -381,8 +445,11 @@ def bounds(grid, counts):
     m = grid.n
     geom_words = 5 * m + grid.cfg.num_cells + 1
     out = {}
-    for name, (n_in, n_out, ops) in WORK.items():
-        t_bytes = 4 * (geom_words + (n_in + n_out) * m) / PEAK_BYTES_PER_S
+    for name, (n_in, n_out, ops, *more) in WORK.items():
+        words = geom_words + (n_in + n_out) * m
+        if more:
+            words += more[0](counts, m)
+        t_bytes = 4 * words / PEAK_BYTES_PER_S
         t_ops = ops(counts, m) / PEAK_FP32_FLOPS
         out[name] = (max(t_bytes, t_ops) * 1e3,
                      "bytes" if t_bytes >= t_ops else "operations")
@@ -439,8 +506,11 @@ def main():
     log(f"[phase 2] side {side} squeezed 0.92: M={grid.n} rows, "
         f"{grid.n_liquid} liquid")
     chk = KernelCheck()
-    cases = kernel_cases(grid, kernel_inputs(
-        grid, sc.positions[: sc.n_liquid], np.random.RandomState(0)))
+    inp = kernel_inputs(grid, sc.positions[: sc.n_liquid],
+                        np.random.RandomState(0))
+    count = check_list(grid, inp["vel"], chk)
+    check_list_required(grid, inp, count)
+    cases = kernel_cases(grid, inp)
     if {c[0] for c in cases} != set(engine.KERNELS):
         raise AssertionError("a kernel entry has no case")
     check_kernels(grid, cases, chk)
@@ -511,8 +581,9 @@ def main():
     # ---- phase 4: the paths at full width -----------------------------------
     # the kernels each path must launch
     visc = ("k1_visc_init", "k4_fused_visc_iter")
-    dfsph_kernels = ("k1_density_alpha_drho", "k1_div_acc", "k1_vorticity",
-                     "k2_fused_kappa_drho", "k3_fused_iter_full") + visc
+    dfsph_kernels = ("k1_density_alpha_drho", "nbr_list_fill", "k1_div_acc",
+                     "k1_vorticity", "k2_fused_kappa_drho",
+                     "k3_fused_iter_full") + visc
     must_launch = {
         "dfsph": dfsph_kernels,
         "sesph": ("k5_density_alpha", "k5_sesph_force"),
@@ -523,7 +594,7 @@ def main():
         "dfsph+tension": dfsph_kernels + ("k6_fused_tension",),
     }
     paths = bench.flagship_paths(MAIN_SIDE)
-    launches = {name: 0 for name in engine.KERNELS}
+    launches = {name: 0 for name in engine.LAUNCHES}
     path_records = {}
     mstate = None
     for path, (solver, over) in paths.items():
@@ -553,6 +624,10 @@ def main():
             raise AssertionError(f"{path} did not launch {missing}")
         if tel["neighbor_overflow"] != 0:
             raise AssertionError(f"{path}: overflow != 0")
+        if solver == "dfsph" and res["launches"]["nbr_list_fill"] != res[
+                "steps"]:
+            raise AssertionError(f"{path}: the list fill did not run once "
+                                 f"per step")
         for k, v in res["launches"].items():
             launches[k] += v
         path_records[path] = {
@@ -579,10 +654,12 @@ def main():
         f"pairs, built in {(time.perf_counter() - t0) * 1e3:.1f} ms")
     liq_pos = mstate.pos[:, : mstate.n_liquid].T.cpu().numpy()
     minp = kernel_inputs(mgrid, liq_pos, np.random.RandomState(1))
+    mcount = check_list(mgrid, minp["vel"], chk)
     cases = kernel_cases(mgrid, minp)
     check_kernels(mgrid, cases, chk)
-    log(f"[phase 4] every kernel agrees with its plain twin at M={mgrid.n}")
-    times = time_kernels(mgrid, cases)
+    log(f"[phase 4] the list and every kernel agree with their plain twins "
+        f"at M={mgrid.n}")
+    times = time_kernels(mgrid, cases, mcount)
     counts = pair_counts(mgrid, minp)
     bound = bounds(mgrid, counts)
     log(f"[phase 4] pairs within h at M={mgrid.n}: {counts}")
@@ -590,15 +667,18 @@ def main():
         log(f"  {name}: bound {ms:.4f} ms by {by}; kernel "
             f"{times[name][0] / ms:.1f}x its bound")
 
-    # no single PyTorch call computes a neighbour sweep over a cell list, so
-    # no kernel has a library yardstick
+    # no single PyTorch call computes a neighbour sweep over a cell list (or
+    # the list itself), so no kernel has a library yardstick
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": chk.max_abs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bound[name][0], "bound_by": bound[name][1],
          "library_ms": None}
-        for name, (src, rep, _) in engine.KERNELS.items()],
+        for name, (src, rep, _) in [
+            *engine.KERNELS.items(),
+            *[(n, (src, "none: " + what, tw))
+              for n, (src, what, tw) in engine.OWN_KERNELS.items()]]],
         "card": card, "rows": mgrid.n, "pairs": counts,
         "paths": path_records}
     log(json.dumps(record))

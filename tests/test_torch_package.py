@@ -6,9 +6,9 @@
   package's particles;
 * the CPU path (plain twins) never touches the kernel launch counters, and
   a tensor on a device with neither a kernel nor a plain twin raises;
-* the kernel tables of engine.py (KERNELS, LAUNCHES, _SIGNATURES, the
-  ctypes mirrors) agree with the CUDA sources and with the TPU kernels they
-  name, one case per kernel;
+* the kernel tables of engine.py (KERNELS, OWN_KERNELS, LAUNCHES,
+  _SIGNATURES, the ctypes mirrors) agree with the CUDA sources and with the
+  TPU kernels they name, one case per kernel;
 * building the CUDA kernels without nvcc raises with a clear message.
 """
 
@@ -138,7 +138,8 @@ def test_cpu_path_counts_no_launch_and_never_falls_back():
     sim.check_health()
     assert sim.telemetry()["neighbor_overflow"] == 0
     assert all(v == 0 for v in engine.LAUNCHES.values()), engine.LAUNCHES
-    assert set(engine.LAUNCHES) == set(engine.KERNELS)
+    assert set(engine.LAUNCHES) == set(engine.KERNELS) | set(
+        engine.OWN_KERNELS)
 
     g = tgrid.build_grid(sim.state.pos, sim.state.n_liquid, sim.cfg)
     vel = torch.zeros((3, g.n), device="meta")
@@ -194,12 +195,21 @@ def _cuda_entries():
 
 
 def test_kernel_tables_list_the_same_entries():
-    """KERNELS, LAUNCHES and _SIGNATURES have the same 15 names, and they
-    are exactly the ``extern "C"`` entries of csrc/."""
-    names = set(engine.KERNELS)
+    """KERNELS has the 15 counterparts of TPU kernels and OWN_KERNELS the
+    port's own (the neighbour-list fill); LAUNCHES and _SIGNATURES have
+    the names of both, and they are exactly the ``extern "C"`` entries of
+    csrc/."""
+    assert set(engine.KERNELS) == set(KERNEL_NAMES)
+    assert len(KERNEL_NAMES) == 15
+    assert set(engine.OWN_KERNELS) == {"nbr_list_fill"}
+    names = set(KERNEL_NAMES) | set(engine.OWN_KERNELS)
     assert names == set(engine.LAUNCHES) == set(engine._SIGNATURES)
-    assert names == set(KERNEL_NAMES) and len(KERNEL_NAMES) == 15
     assert set(_cuda_entries()[0]) == names
+    source, _, twin = engine.OWN_KERNELS["nbr_list_fill"]
+    assert ROOT / source == _cuda_entries()[0]["nbr_list_fill"][0]
+    assert callable(engine.nbr_list_fill) and callable(twin)
+    assert (_cuda_entries()[0]["nbr_list_fill"][1]
+            == len(engine._SIGNATURES["nbr_list_fill"]))
 
 
 @pytest.mark.parametrize("name", KERNEL_NAMES)

@@ -18,6 +18,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCES = [
     "chip_smoke.py",
     "wcsph_tpu_torch/__init__.py",
+    "wcsph_tpu_torch/ab_list.py",
     "wcsph_tpu_torch/bench.py",
     "wcsph_tpu_torch/boundary.py",
     "wcsph_tpu_torch/config.py",

@@ -31,6 +31,7 @@ _VISC = {"viscosity_setup": "cuda:k1_visc_init",
 STAGES = {
     "dfsph": {
         "density_alpha_drho": "cuda:k1_density_alpha_drho",
+        "neighbor_list": "cuda:nbr_list_fill",
         "divergence_warm_start": "cuda:k2_fused_kappa_drho",
         "divergence_iterations": "cuda:k3_fused_iter_full",
         "surface_tension_when_on": "cuda:k6_fused_tension",
@@ -128,6 +129,25 @@ def measure(sim: Simulation, warmup: int, steps: int) -> dict:
             "n_liquid": nl, "n_total": sim.state.n_total,
             "iters": iters, "launches": launches, "step_ms": step_ms,
             "telemetry": sim.telemetry()}
+
+
+def time_call(fn, make_args, reps: int) -> float:
+    """Mean ms of fn(*make_args()) over reps calls, each between CUDA
+    events, after one untimed call (operands re-made, untimed, before
+    every call)."""
+    fn(*make_args())
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        args = make_args()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(*args)
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
 
 
 def profile(sim: Simulation, steps: int) -> dict:

@@ -7,6 +7,9 @@
 //     neighbour cells (the 3 z-neighbours of a cell are consecutive cell
 //     ids, so the loop is 9 contiguous row ranges) and accumulates in
 //     registers; r = x_i - x_j; pairs are cut to d^2 <= h^2, self excluded;
+//   * or, where the step has built its neighbour list (Geom.nl_idx, see
+//     for_each_listed), walks that list: the same pairs in the same order,
+//     with no candidate to cut;
 //   * so no atomics and no capacity: no particle is ever dropped, and
 //     every sum has a fixed order (the results repeat bit for bit);
 //   * W and gradW use the sqrt form of kernels.py, the same arithmetic as
@@ -35,6 +38,12 @@ struct Geom {
   int M, gx, gy, gz;
   float h, h2, vl, vs;  // support radius, h^2, liquid / boundary volume
   float w_sigma, gs_ml; // 8 / (pi h^3), 48 / (pi h^3)
+  // The step's neighbour list (sliced ELL), or null where none was built:
+  // slice s holds rows 32 s .. 32 s + 31; the k-th neighbour of row i is
+  // nl_idx[nl_off[s] + 32 k + i % 32], k < (nl_off[s + 1] - nl_off[s]) / 32,
+  // and -1 marks a padding slot.
+  const int* nl_idx;
+  const int* nl_off;
 };
 
 // ---------------------------------------------------------------------------
@@ -96,6 +105,33 @@ __device__ __forceinline__ void for_each_neighbor(const Geom& g, int i,
         if (d2 <= g.h2) f(j, rx, ry, rz, d2);
       }
     }
+  }
+}
+
+// Calls f(j, rx, ry, rz, d2) for every listed neighbour j of row i, in the
+// list's order, which is the order of for_each_neighbor (the fill,
+// nbr_list_fill in sweeps.cu, writes what that loop finds): the pair
+// geometry is the same arithmetic on the same pairs, so a sum over the list
+// has the bits of the same sum over the cells.  Thread t of a warp reads
+// slot 32 k + t of its slice, so each k is one coalesced line; padding
+// slots are skipped, never summed as zero terms (+0.0 is not neutral at
+// -0.0).
+template <class F>
+__device__ __forceinline__ void for_each_listed(const Geom& g, int i, F& f) {
+  const int M = g.M;
+  const float xi = g.pos[i], yi = g.pos[M + i], zi = g.pos[2 * M + i];
+  const int b = g.nl_off[i >> 5];
+  const int n = (g.nl_off[(i >> 5) + 1] - b) >> 5;
+  const int* slot = g.nl_idx + b + (i & 31);
+#pragma unroll 4
+  for (int k = 0; k < n; ++k) {
+    const int j = __ldg(slot + 32 * k);
+    if (j < 0) continue;
+    const float rx = xi - __ldg(g.pos + j);
+    const float ry = yi - __ldg(g.pos + M + j);
+    const float rz = zi - __ldg(g.pos + 2 * M + j);
+    const float d2 = rx * rx + ry * ry + rz * rz;
+    f(j, rx, ry, rz, d2);
   }
 }
 

@@ -12,22 +12,28 @@
 // The per-receiver formulas are the one-sided __call__ bodies of the TPU
 // emits (_DensityAlphaDrho 1981, _KappaAcc 2005, _DivAcc 2029, _ViscAcc
 // 2053, _ViscInit 2099, _Vorticity 2145); one templated neighbour loop
-// (for_each_neighbor) with a per-formula functor serves all of them.
+// with a per-formula functor serves all of them.
 //
-// What bounds these sweeps on the H100: not DRAM (each row's fields are
-// read from device memory about once per sweep, tens of MB at 1M rows) but
-// the candidate loop itself, ~200 candidates per receiver of which ~15% lie
-// within h, with their neighbour rows coming from L1/L2.  The design keeps
-// neighbouring threads on neighbouring rows of one cell, so a warp walks
-// nearly the same candidate ranges and those rows stay in L1; shared-memory
-// tiling of a cell block, half-window (Newton) pairs and warp-cooperative
-// culling are later work.
+// What bounds the cell-loop sweeps (K1's density, visc-init and vorticity
+// emits, K4) on the H100: not DRAM (each row's fields are read from device
+// memory about once per sweep, tens of MB at 1M rows) but the candidate
+// loop itself (for_each_neighbor), ~216 candidates per receiver of which
+// ~15% lie within h, each costing its loads and its cut.
+//
+// The DFSPH solver sweeps (K2, K3 and the _DivAcc entry, which shares K2's
+// divergence launch) run up to a dozen times per step on positions that do
+// not move between the sort and the position update.  So the step builds a
+// neighbour list once, right after its density sweep (nbr_list_fill: one
+// cell-loop pass that writes what the loop finds, in its order), and these
+// sweeps walk it (for_each_listed): ~30 listed pairs per receiver, no cut,
+// each slot a coalesced read.  They need the list: there is no cell-loop
+// form of them.
 //
 // A launch returns cudaGetLastError().
 
 #include "common.cuh"
 
-// sum_j V_j gs (v_i - v_j).r  (_DivAcc)
+// sum_j V_j gs (v_i - v_j).r  (_DivAcc), over the list
 __device__ __forceinline__ float div_sum(const Geom& g, int i,
                                          const float* __restrict__ vel) {
   const int M = g.M;
@@ -38,7 +44,7 @@ __device__ __forceinline__ float div_sum(const Geom& g, int i,
                      (vz - vel[2 * M + j]) * rz;
     acc += volume(g, j) * kernel_gs(g, d2) * dv;
   };
-  for_each_neighbor(g, i, f);
+  for_each_listed(g, i, f);
   return acc;
 }
 
@@ -58,7 +64,7 @@ struct KFromS {
   }
 };
 
-// sum_j V_j (k'_i + k'_j) gs r  (_KappaAcc)
+// sum_j V_j (k'_i + k'_j) gs r  (_KappaAcc), over the list
 template <class K>
 __device__ __forceinline__ void kappa_sum(const Geom& g, int i, const K& k,
                                           float& ax, float& ay, float& az) {
@@ -69,7 +75,7 @@ __device__ __forceinline__ void kappa_sum(const Geom& g, int i, const K& k,
     ay += c * ry;
     az += c * rz;
   };
-  for_each_neighbor(g, i, f);
+  for_each_listed(g, i, f);
 }
 
 // Weiler viscosity pair coefficient seen from receiver i (_ViscAcc).
@@ -129,7 +135,8 @@ __global__ void k1_density_kernel(Geom g, const float* __restrict__ vel,
   out[6 * M + i] = div;
 }
 
-// _DivAcc at liquid receivers (0 elsewhere).  Also K2's second launch.
+// _DivAcc at liquid receivers (0 elsewhere), over the list.  Also K2's
+// second launch.
 __global__ void k1_div_kernel(Geom g, const float* __restrict__ vel,
                               float* __restrict__ out) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
@@ -225,6 +232,7 @@ __global__ void k1_vorticity_kernel(Geom g, const float* __restrict__ vel,
 //      (safe: this sweep reads neighbours' k', never their velocity);
 //   2. the divergence sweep of the updated velocity (k1_div_kernel), which
 //      reads neighbours' velocities and so must follow launch 1.
+// Both walk the step's neighbour list.
 // ---------------------------------------------------------------------------
 
 __global__ void k2_kappa_kernel(Geom g, float* __restrict__ vel,
@@ -255,6 +263,8 @@ __global__ void k2_kappa_kernel(Geom g, float* __restrict__ vel,
 //   3. one block sums the partials in a fixed order.  No atomics: a fixed
 //      order keeps the error, and so the iteration count, identical from
 //      run to run.
+// Launches 1 and 2 walk the step's neighbour list; a call runs 2 walks of
+// ~30 slots per receiver where the cell loop scanned ~216 candidates twice.
 // ---------------------------------------------------------------------------
 
 __global__ void k3_kappa_kernel(Geom g, float* __restrict__ vel,
@@ -289,6 +299,41 @@ __global__ void k3_div_kernel(Geom g, const float* __restrict__ vel,
     part = lq * (sn - static_cast<float>(mode));
   }
   block_partial(part, partials);
+}
+
+// ---------------------------------------------------------------------------
+// The step's neighbour list (no TPU counterpart: the TPU engine cuts the
+// candidates again in every sweep, since it has no cheap gather).  One
+// thread per row runs the cell loop once and writes each neighbour it
+// finds, in the loop's order (ascending j), into its slots of the sliced
+// ELL layout (common.cuh, Geom.nl_idx); the rest of its slots, and every
+// slot of a boundary row, take the padding sentinel -1.  The slice widths
+// come from the density sweep's count of the same pairs under the same
+// cut, so a liquid row's neighbours fill exactly its first count slots.  A
+// row that finds more neighbours than its slice has slots (a count below
+// the pairs within h) sets *overflow, which the wrapper reads and raises on:
+// a list that drops a pair is never walked.
+// Bound: the slots it writes (~4 bytes x 32 per row).
+// ---------------------------------------------------------------------------
+
+__global__ void nbr_list_fill_kernel(Geom g, const int* __restrict__ off,
+                                     int* __restrict__ idx,
+                                     int* __restrict__ overflow) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= g.M) return;
+  const int b = off[i >> 5];
+  const int n = (off[(i >> 5) + 1] - b) >> 5;
+  int* slot = idx + b + (i & 31);
+  int k = 0;
+  if (g.liq[i] != 0.0f) {
+    auto f = [&](int j, float, float, float, float) {
+      if (k < n) slot[32 * k] = j;
+      ++k;
+    };
+    for_each_neighbor(g, i, f);
+  }
+  if (k > n) *overflow = 1;
+  for (; k < n; ++k) slot[32 * k] = -1;
 }
 
 // ---------------------------------------------------------------------------
@@ -450,6 +495,13 @@ extern "C" int k3_fused_iter_full(const Geom* g, float* vel, float* kv,
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   reduce_partials_kernel<<<1, kReduceBlock, 0, st>>>(partials, nb, 0.0f, err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nbr_list_fill(const Geom* g, const int* off, int* idx,
+                             int* overflow, void* stream) {
+  nbr_list_fill_kernel<<<blocks_of(g->M), kBlock, 0, (cudaStream_t)stream>>>(
+      *g, off, idx, overflow);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .grid import Grid
+from .grid import SLICE, Grid, NeighborList, slice_offsets
 
 
 @dataclasses.dataclass
@@ -85,22 +85,79 @@ def build_pairs(grid: Grid, pos: torch.Tensor | None = None) -> Pairs:
             keep = (d2 <= h2) & (i != j)
             ii.append(i[keep])
             jj.append(j[keep])
-    i = torch.cat(ii)
-    j = torch.cat(jj)
-    r = pos[:, i] - pos[:, j]
-    d2 = r[0] * r[0] + r[1] * r[1] + r[2] * r[2]
-    dist = torch.sqrt(torch.clamp(d2, min=0.0))
-    liq_j = grid.liq[j]
-    vol_j = torch.where(grid.liquid[j], cfg.liquid_volume, cfg.solid_volume)
-    return Pairs(i=i, j=j, r=r, d2=d2, w=kernels.cubic_w_scalar(dist, h),
-                 gs=kernels.cubic_grad_scale(dist, h), liq_j=liq_j,
-                 vol_j=vol_j)
+    return _pairs_at(grid, torch.cat(ii), torch.cat(jj), pos)
 
 
 def pairs_of(grid: Grid) -> Pairs:
     if grid.pairs is None:
         grid.pairs = build_pairs(grid)
     return grid.pairs
+
+
+def _pairs_at(grid: Grid, i: torch.Tensor, j: torch.Tensor,
+              pos: torch.Tensor | None = None) -> Pairs:
+    """The pairs (i, j) in the given order, with their geometry at ``pos``
+    (default ``grid.pos``)."""
+    cfg = grid.cfg
+    h = cfg.support_radius
+    pos = grid.pos if pos is None else pos
+    r = pos[:, i] - pos[:, j]
+    d2 = r[0] * r[0] + r[1] * r[1] + r[2] * r[2]
+    dist = torch.sqrt(torch.clamp(d2, min=0.0))
+    return Pairs(i=i, j=j, r=r, d2=d2, w=kernels.cubic_w_scalar(dist, h),
+                 gs=kernels.cubic_grad_scale(dist, h), liq_j=grid.liq[j],
+                 vol_j=torch.where(grid.liquid[j], cfg.liquid_volume,
+                                   cfg.solid_volume))
+
+
+# ---------------------------------------------------------------------------
+# The step's neighbour list (twin of the fill kernel, nbr_list_fill)
+# ---------------------------------------------------------------------------
+
+def neighbor_list(grid: Grid, count: torch.Tensor) -> NeighborList:
+    """The sliced-ELL list (``grid.NeighborList``) of the pairs within h of
+    each liquid row, from the pair list: sorted by receiver, then neighbour
+    (the kernels' order), each pair written to slot ``off[i // 32] + 32 k +
+    i % 32`` with k its rank among its receiver's pairs.  ``count`` is the
+    density sweep's count per row; the widths follow from it, and it must
+    equal the pairs found at every liquid row."""
+    p = pairs_of(grid)
+    m = grid.n
+    off, total = slice_offsets(count, grid.liquid)
+    keep = grid.liquid[p.i]
+    order = torch.argsort(p.i[keep] * m + p.j[keep])
+    i, j = p.i[keep][order], p.j[keep][order]
+    n_i = torch.bincount(i, minlength=m)
+    if not torch.equal(n_i[grid.liquid],
+                       count[grid.liquid].to(n_i.dtype)):
+        raise ValueError("count differs from the pairs within h")
+    k = torch.arange(i.shape[0], device=i.device) - (torch.cumsum(n_i, 0)
+                                                     - n_i)[i]
+    idx = torch.full((total,), -1, dtype=torch.int32, device=grid.device)
+    idx[off[i // SLICE].to(torch.int64) + SLICE * k + i % SLICE] = (
+        j.to(torch.int32))
+    return NeighborList(idx=idx, off=off)
+
+
+def list_pairs(grid: Grid, nl: NeighborList) -> Pairs:
+    """The plain walk of the list: every listed pair, with its geometry, in
+    the order a kernel's receiver adds them (slot k ascending; padding
+    skipped).  A twin run on these pairs (``grid.pairs``) sums each
+    receiver's terms in that order."""
+    m = grid.n
+    rows = torch.arange(m, device=grid.device)
+    s = rows // SLICE
+    width = nl.width[s].to(torch.int64)
+    base = nl.off[s].to(torch.int64) + rows % SLICE
+    ii, jj = [], []
+    for k in range(int(width.max()) if m else 0):
+        live = rows[k < width]
+        j = nl.idx[base[live] + SLICE * k].to(torch.int64)
+        ii.append(live[j >= 0])
+        jj.append(j[j >= 0])
+    empty = torch.zeros(0, dtype=torch.int64, device=grid.device)
+    return _pairs_at(grid, torch.cat(ii) if ii else empty,
+                     torch.cat(jj) if jj else empty)
 
 
 def _sum(p: Pairs, m: int, vals: torch.Tensor) -> torch.Tensor:

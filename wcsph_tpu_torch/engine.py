@@ -34,6 +34,13 @@ K7     ``k7_fused_jacobi_iter``    whole IISPH relaxed-Jacobi iteration
 K8     ``k8_fused_pcisph_iter``    whole PCISPH prediction iteration
 =====  ==========================  =========================================
 
+K2, K3 and ``k1_div_acc`` (which shares K2's divergence launch) walk the
+step's neighbour list (``grid.NeighborList``) instead of the 27 cells: a
+DFSPH step builds it once, right after its density sweep, with
+``nbr_list_fill``, a kernel of the port's own design that no TPU kernel
+corresponds to (``OWN_KERNELS``).  On the card these three raise where the
+grid has no list; their plain twins need none.
+
 The libraries are built at first use on CUDA: one ``nvcc`` per
 ``csrc/*.cu``, all started together, for ``sm_90a`` into ``_build/``, keyed
 by a hash of the sources and flags, and the plain C entry points are bound
@@ -56,7 +63,7 @@ import numpy as np
 import torch
 
 from . import dense_ops, kernels
-from .grid import Grid
+from .grid import Grid, NeighborList, slice_offsets
 from .utils import mat3
 
 _PKG = Path(__file__).resolve().parent
@@ -99,7 +106,13 @@ KERNELS = {
     "k8_fused_pcisph_iter": (_SRC2, _ENG + "1466 (_build_fused_pcisph_iter)",
                              dense_ops.fused_pcisph_iter),
 }
-LAUNCHES = {name: 0 for name in KERNELS}
+# kernels of the port's own design, counterparts of no TPU kernel:
+# wrapper name -> (kernel source, what it serves, plain twin)
+OWN_KERNELS = {
+    "nbr_list_fill": (_SRC, "the neighbour list that K2, K3 and k1_div_acc "
+                      "walk", dense_ops.neighbor_list),
+}
+LAUNCHES = {name: 0 for name in (*KERNELS, *OWN_KERNELS)}
 BLOCK = 256          # threads per block of every sweep (csrc/common.cuh)
 
 
@@ -121,7 +134,8 @@ class _Geom(ctypes.Structure):
                 ("gy", ctypes.c_int), ("gz", ctypes.c_int),
                 ("h", ctypes.c_float), ("h2", ctypes.c_float),
                 ("vl", ctypes.c_float), ("vs", ctypes.c_float),
-                ("w_sigma", ctypes.c_float), ("gs_ml", ctypes.c_float)]
+                ("w_sigma", ctypes.c_float), ("gs_ml", ctypes.c_float),
+                ("nl_idx", ctypes.c_void_p), ("nl_off", ctypes.c_void_p)]
 
 
 class _TensionParams(ctypes.Structure):
@@ -153,6 +167,7 @@ _SIGNATURES = {
     "k7_fused_jacobi_iter": [_G, _P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _P,
                              _P, _P],
     "k8_fused_pcisph_iter": [_G, _P, _P, _F, _F, _F, _P, _P, _P, _P, _P],
+    "nbr_list_fill": [_G, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -232,11 +247,20 @@ def library():
     return _lib
 
 
-def _geom(grid: Grid) -> _Geom:
+def _geom(grid: Grid, listed: bool = False) -> _Geom:
+    """The grid's geometry for a launch; ``listed``: the kernel walks the
+    step's neighbour list, which must exist."""
     cfg = grid.cfg
     gx, gy, gz = cfg.grid_res
     h = cfg.support_radius
-    for t in (grid.pos, grid.liq, grid.cell, grid.cell_start):
+    nl = grid.nbr
+    if listed and nl is None:
+        raise ValueError("this sweep walks the step's neighbour list: build "
+                         "it first (engine.nbr_list_fill)")
+    tensors = [grid.pos, grid.liq, grid.cell, grid.cell_start]
+    if nl is not None:
+        tensors += [nl.idx, nl.off]
+    for t in tensors:
         if not t.is_contiguous() or t.device.type != "cuda":
             raise ValueError("grid tensors must be contiguous, on the card")
     if 9 * grid.n >= 2 ** 31:
@@ -246,7 +270,9 @@ def _geom(grid: Grid) -> _Geom:
                  grid.cell.data_ptr(), grid.cell_start.data_ptr(),
                  grid.n, gx, gy, gz, h, h * h, cfg.liquid_volume,
                  cfg.solid_volume, kernels.cubic_w0(h),
-                 48.0 / (math.pi * h * h * h))
+                 48.0 / (math.pi * h * h * h),
+                 nl.idx.data_ptr() if nl is not None else None,
+                 nl.off.data_ptr() if nl is not None else None)
 
 
 def _check(*tensors, shapes):
@@ -321,8 +347,8 @@ def k1_div_acc(grid: Grid, vel: torch.Tensor) -> torch.Tensor:
     m = grid.n
     _check(vel, shapes=[(3, m)])
     out = torch.empty((m,), dtype=torch.float32, device=vel.device)
-    _launch("k1_div_acc", ctypes.byref(_geom(grid)), vel.data_ptr(),
-            out.data_ptr(), _stream())
+    _launch("k1_div_acc", ctypes.byref(_geom(grid, listed=True)),
+            vel.data_ptr(), out.data_ptr(), _stream())
     return out
 
 
@@ -364,7 +390,7 @@ def k2_fused_kappa_drho(grid: Grid, vel: torch.Tensor, kf: torch.Tensor,
         return dense_ops.fused_kappa_drho(grid, vel, kf, gate, acc)
     m = grid.n
     _check(vel, kf, gate, acc, shapes=[(3, m), (m,), (m,), (m,)])
-    _launch("k2_fused_kappa_drho", ctypes.byref(_geom(grid)),
+    _launch("k2_fused_kappa_drho", ctypes.byref(_geom(grid, listed=True)),
             vel.data_ptr(), kf.data_ptr(), gate.data_ptr(), acc.data_ptr(),
             _stream())
     return vel, acc
@@ -382,7 +408,7 @@ def k3_fused_iter_full(grid: Grid, vel: torch.Tensor, kv: torch.Tensor,
     partials = torch.empty((_nblocks(m),), dtype=torch.float32,
                            device=vel.device)
     err = torch.empty((), dtype=torch.float32, device=vel.device)
-    _launch("k3_fused_iter_full", ctypes.byref(_geom(grid)),
+    _launch("k3_fused_iter_full", ctypes.byref(_geom(grid, listed=True)),
             vel.data_ptr(), kv.data_ptr(), s.data_ptr(), a.data_ptr(),
             paux.data_ptr(), float(dt), int(mode), partials.data_ptr(),
             err.data_ptr(), _stream())
@@ -415,6 +441,31 @@ def k4_fused_visc_iter(grid: Grid, x: torch.Tensor, r: torch.Tensor,
             0.01 * h * h, ad.data_ptr(), s.data_ptr(), partials.data_ptr(),
             scal.data_ptr(), _stream())
     return scal
+
+
+def nbr_list_fill(grid: Grid, count: torch.Tensor) -> NeighborList:
+    """Build the neighbour list of the grid's positions, keep it as
+    ``grid.nbr`` and return it.  ``count`` (M,) is the density sweep's
+    neighbour count of each row; the slice widths follow from it (torch
+    ops and one host read of the number of slots), then the fill kernel
+    writes the slots.  Raises ValueError, after a second host read, where
+    a liquid row has more pairs within h than its slice has slots (a
+    count too low), as the plain twin does."""
+    if not _route(count):
+        grid.nbr = dense_ops.neighbor_list(grid, count)
+        return grid.nbr
+    if count.shape != (grid.n,) or count.device.type != "cuda":
+        raise ValueError("count must be (M,), on the card")
+    off, total = slice_offsets(count, grid.liquid)
+    idx = torch.empty((total,), dtype=torch.int32, device=count.device)
+    overflow = torch.zeros((), dtype=torch.int32, device=count.device)
+    _launch("nbr_list_fill", ctypes.byref(_geom(grid)), off.data_ptr(),
+            idx.data_ptr(), overflow.data_ptr(), _stream())
+    if overflow.item():
+        raise ValueError("count differs from the pairs within h: a row has "
+                         "more neighbours than its slots")
+    grid.nbr = NeighborList(idx=idx, off=off)
+    return grid.nbr
 
 
 def _sweep(name: str, grid: Grid, operands, shapes, n_out, *consts):

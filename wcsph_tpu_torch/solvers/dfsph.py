@@ -2,11 +2,12 @@
 ``wcsph_tpu/solvers/dfsph.py``, fused forms only).
 
 One step: sort + pack -> density + DFSPH factor alpha (+ warm-start drho,
-one K1 sweep) -> divergence solve (warm start K2, iterations K3 mode 0) ->
-non-pressure forces (gravity, surface tension when on: K6,
-implicit-viscosity PCG: K1 + K4, micropolar vorticity: K1) -> adaptive CFL
-dt -> velocity update -> constant-density solve (advected density K1,
-iterations K3 mode 1) -> unpack + position update.
+one K1 sweep) -> the step's neighbour list (one fill kernel; the K2, K3
+and advected-density sweeps below walk it) -> divergence solve (warm start
+K2, iterations K3 mode 0) -> non-pressure forces (gravity, surface tension
+when on: K6, implicit-viscosity PCG: K1 + K4, micropolar vorticity: K1) ->
+adaptive CFL dt -> velocity update -> constant-density solve (advected
+density K1, iterations K3 mode 1) -> unpack + position update.
 
 The solver loops end on the host: each iteration's error is read back and
 tested there, with the JAX package's loop contracts and float32 scalar
@@ -163,6 +164,9 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, omegap, vgp, kp, kvp, dt,
     dt = f32(dt)
     liq = grid.liquid
     rhop, alphap, cntp, div_acc = engine.density_alpha(grid, velp)
+    # positions stay put until the position update: one list serves every
+    # solver sweep of the step
+    engine.nbr_list_fill(grid, cntp)
     drho0 = None
     if cfg.divergence_warm_start:
         drho0 = torch.where(cntp < cfg.min_div_neighbors, 0.0,
