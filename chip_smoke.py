@@ -14,9 +14,10 @@ its own lines and raising on failure:
 2. each kernel (K1-K8, every entry point) against its plain PyTorch twin on
    the card, at the shapes of a squeezed side-24 dam break with a
    converging velocity, numpy-seeded k / S / pressure fields, tension and
-   adhesion on; first the neighbour list that K2, K3 and ``k1_div_acc``
-   walk: the fill kernel's list equals the plain list slot for slot, and
-   those three raise on a grid without one;
+   adhesion on; first the neighbour list that K2, K3, K4, ``k1_div_acc``
+   and ``k1_vorticity`` walk: the fill kernel's list and its per-row
+   records equal the plain build bit for bit, and those five raise on a
+   grid without one;
 3. whole steps: the 20-step golden scene of each of the four solvers on
    CUDA against ``tests/golden/<solver>_golden.npz``, and 3 steps of the
    pressurized side-8 scene, per solver and for DFSPH with tension, with
@@ -26,9 +27,9 @@ its own lines and raising on failure:
    DFSPH (the first slice's main path), then SESPH, PCISPH, IISPH and DFSPH
    with surface tension; for each, warm-up steps, launch counters reset,
    timed steps, health check, overflow 0, every kernel of the path
-   launched (the list fill once per DFSPH step); then the list and each
-   kernel against its plain twin again and timed beside it at those
-   shapes, with the least time the card could take for the same work
+   launched (the list fill once per DFSPH and IISPH step); then the list
+   and each kernel against its plain twin again and timed beside it at
+   those shapes, with the least time the card could take for the same work
    (``bound_ms``).
 
 The line before the last is one JSON object with the per-kernel record;
@@ -286,7 +287,7 @@ def check_kernels(grid, cases, chk):
 def check_list(grid, vel, chk):
     """Build the grid's neighbour list with the fill kernel (kept as
     ``grid.nbr``) from the density kernel's counts and hold it against the
-    plain list slot for slot; returns the counts."""
+    plain list slot for slot and record for record; returns the counts."""
     import torch
 
     from wcsph_tpu_torch import dense_ops, engine
@@ -302,11 +303,16 @@ def check_list(grid, vel, chk):
         raise AssertionError(
             f"nbr_list_fill: {int((got.idx != want.idx).sum())} of "
             f"{got.idx.numel()} slots differ from the plain list")
+    if not torch.equal(got.rec, want.rec):
+        raise AssertionError(
+            f"nbr_list_fill: {int((got.rec != want.rec).any(1).sum())} of "
+            f"{grid.n} records differ from the plain build")
     err = float((got.idx - want.idx).abs().max()) if got.idx.numel() else 0.0
     chk.max_abs["nbr_list_fill"] = max(chk.max_abs.get("nbr_list_fill", 0.0),
                                        err)
     width = got.width
-    log(f"  nbr_list_fill: list equals the plain list slot for slot: "
+    log(f"  nbr_list_fill: list equals the plain list slot for slot and "
+        f"record for record ({grid.n} records): "
         f"{got.idx.numel()} slots ({got.idx.numel() * 4 / 2 ** 20:.1f} MiB) "
         f"over {width.numel()} slices, width max {int(width.max())}, "
         f"{int((got.idx >= 0).sum())} pairs")
@@ -315,9 +321,9 @@ def check_list(grid, vel, chk):
 
 
 def check_list_required(grid, inp, count):
-    """K2, K3 and k1_div_acc raise on a grid whose step built no list, and
-    the fill raises on a count below the pairs within h (it would drop a
-    neighbour) rather than leave a short list."""
+    """K2, K3, K4, k1_div_acc and k1_vorticity raise on a grid whose step
+    built no list, and the fill raises on a count below the pairs within h
+    (it would drop a neighbour) rather than leave a short list."""
     import dataclasses
 
     import torch
@@ -334,7 +340,14 @@ def check_list_required(grid, inp, count):
     else:
         raise AssertionError("nbr_list_fill took a count below the pairs")
     engine.LAUNCHES.update(saved)     # check launches are not main-path
+    m = grid.n
     calls = [("k1_div_acc", (bare, inp["vel"])),
+             ("k1_vorticity", (bare, inp["vel"], inp["om"], inp["rinv"])),
+             ("k4_fused_visc_iter", (
+                 bare, inp["vel"].clone(), inp["r"].clone(),
+                 inp["d"].clone(), torch.ones((), device=grid.device),
+                 inp["rinv"], torch.ones((6, m), device=grid.device),
+                 inp["dt"])),
              ("k2_fused_kappa_drho", (bare, inp["vel"].clone(), inp["kf"],
                                       inp["gate"], inp["kf"].clone())),
              ("k3_fused_iter_full", (bare, inp["vel"].clone(),
@@ -348,8 +361,8 @@ def check_list_required(grid, inp, count):
                 raise
         else:
             raise AssertionError(f"{name} ran on a grid with no list")
-    log("  k1_div_acc, k2_fused_kappa_drho, k3_fused_iter_full raise on a "
-        "grid with no neighbour list; nbr_list_fill raises on a short count")
+    log(f"  {', '.join(name for name, _ in calls)} raise on a grid with no "
+        "neighbour list; nbr_list_fill raises on a short count")
 
 
 def time_kernels(grid, cases, count, reps_kernel=20, reps_plain=5):
@@ -383,20 +396,21 @@ def time_kernels(grid, cases, count, reps_kernel=20, reps_plain=5):
 # a function of the pair counts P and the rows M[, other words moved as a
 # function of P and M]).  Words: the kernel's operand list, each input read
 # once and each output written once; scratch that a kernel keeps between
-# its own launches is not counted, nor is the neighbour list that K2, K3
-# and k1_div_acc read (the functions they compute do not need it; the fill
-# that writes it has its own row).  Every sweep
-# also reads the geometry once (positions 3, liquid flag 1, cell id 1 per
-# row, and the cell offsets).  Operations: float32 adds, multiplies,
-# divides and square roots of the one-sided formula per directed pair
-# WITHIN h (not per 27-cell candidate: scanning candidates is the
-# implementation's cost), with the pair geometry 8, W 8, gradW factor 7
+# its own launches is not counted, nor is the neighbour list that K2, K3,
+# K4, k1_div_acc and k1_vorticity read (the functions they compute do not
+# need it; the fill that writes it, slots and records, has its own row).
+# Every sweep also reads the geometry once (positions 3, liquid flag 1,
+# cell id 1 per row, and the cell offsets).  Operations: float32 adds,
+# multiplies, divides and square roots of the one-sided formula per
+# directed pair WITHIN h (not per 27-cell candidate: scanning candidates is
+# the implementation's cost), with the pair geometry 8, W 8, gradW factor 7
 # (13 for both), taking the outer spline branch; selects and compares are
 # not counted.  P["all"]: every pair; P["liq"]: pairs with a liquid
 # receiver; P["gate"]: pairs whose receiver passes K2's gate of this run's
 # inputs; P["star"]: pairs with a liquid receiver at PCISPH's moved
 # positions of this run's inputs; P["slots"]: the slots of the neighbour
-# list (int32 words), which the fill writes, with its slice offsets.
+# list (int32 words), which the fill writes, with its slice offsets (its
+# 4 words per row written are the list's records).
 WORK = {
     "k1_density_alpha_drho": (3, 7, lambda P, M: 45 * P["all"]),
     "k1_div_acc": (3, 1, lambda P, M: 26 * P["liq"]),
@@ -416,7 +430,7 @@ WORK = {
                              lambda P, M: (24 + 48) * P["liq"] + 15 * M),
     "k8_fused_pcisph_iter": (4, 5,
                              lambda P, M: (24 + 35) * P["star"] + 5 * M),
-    "nbr_list_fill": (0, 0, lambda P, M: 8 * P["liq"],
+    "nbr_list_fill": (0, 4, lambda P, M: 8 * P["liq"],
                       lambda P, M: P["slots"] + 2 * (-(-M // 32) + 1)),
 }
 
@@ -590,7 +604,8 @@ def main():
         "pcisph": ("k5_density_alpha", "k5_sesph_force",
                    "k8_fused_pcisph_iter"),
         "iisph": ("k5_density_alpha", "k5_iisph_adv", "k5_iisph_aii",
-                  "k5_iisph_force", "k7_fused_jacobi_iter") + visc,
+                  "k5_iisph_force", "k7_fused_jacobi_iter",
+                  "nbr_list_fill") + visc,
         "dfsph+tension": dfsph_kernels + ("k6_fused_tension",),
     }
     paths = bench.flagship_paths(MAIN_SIDE)
@@ -624,8 +639,8 @@ def main():
             raise AssertionError(f"{path} did not launch {missing}")
         if tel["neighbor_overflow"] != 0:
             raise AssertionError(f"{path}: overflow != 0")
-        if solver == "dfsph" and res["launches"]["nbr_list_fill"] != res[
-                "steps"]:
+        if solver in ("dfsph", "iisph") and res["launches"][
+                "nbr_list_fill"] != res["steps"]:
             raise AssertionError(f"{path}: the list fill did not run once "
                                  f"per step")
         for k, v in res["launches"].items():

@@ -7,17 +7,20 @@ the plain walk of the layout (``dense_ops.list_pairs``) on the pressurized
 side-8 scene of tests/test_torch_step.py:
 
 * the list holds, for each liquid receiver, exactly the j with d2 <= h2,
-  j != i, in ascending order (against an O(L M) brute force);
+  j != i, in ascending order (against an O(L M) brute force), and each
+  row's record (position, liquid flag);
 * the slice widths and offsets follow from the density sweep's counts;
 * padding is never walked;
-* the twins of K3 (modes 0 and 1) and K2 run on the walked pairs give the
-  bits of the same twins on the cell-loop pair list.
+* the twins of K3 (modes 0 and 1), K2, the vorticity sweep and K4 run on
+  the walked pairs give the bits of the same twins on the cell-loop pair
+  list;
+* an IISPH step builds the list from its density sweep's counts.
 """
 
 import numpy as np
 import pytest
 
-torch = wt = dense_ops = grid_mod = None   # bound by _port
+torch = wt = dense_ops = engine = grid_mod = None   # bound by _port
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -26,27 +29,38 @@ def _port():
     at collection: pytest-xdist collects every test module in every
     worker, and a worker that runs only the JAX package's tests then
     never loads torch beside XLA."""
-    global torch, wt, dense_ops, grid_mod
+    global torch, wt, dense_ops, engine, grid_mod
     import torch
     import wcsph_tpu_torch as wt
-    from wcsph_tpu_torch import dense_ops, grid as grid_mod
+    from wcsph_tpu_torch import dense_ops, engine, grid as grid_mod
     torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def case(_port):
-    """The pressurized side-8 scene (dam break squeezed by 0.92, converging
-    velocity), sorted, with the density sweep's counts and its list."""
-    r = 0.025
-    sc = wt.dam_break(particle_radius=r, fluid_dims=(8, 8, 8),
+R = 0.025
+
+
+def _pressurized(solver):
+    """The pressurized side-8 scene (dam break squeezed by 0.92) with the
+    solver's default config, on the CPU."""
+    sc = wt.dam_break(particle_radius=R, fluid_dims=(8, 8, 8),
                       box_extent=0.9)
     liq = sc.positions[: sc.n_liquid]
     centre = liq.mean(axis=0, keepdims=True)
     sc.positions[: sc.n_liquid] = centre + (liq - centre) * 0.92
-    lo, hi = sc.domain(pad=4 * r)
+    lo, hi = sc.domain(pad=4 * R)
     sim = wt.Simulation(sc, wt.default_config(
-        "dfsph", particle_radius=r, domain_min=lo, domain_max=hi),
-        device="cpu")
+        solver, particle_radius=R, domain_min=lo, domain_max=hi),
+        solver=solver, device="cpu")
+    return sc, sim
+
+
+@pytest.fixture(scope="module")
+def case(_port):
+    """The pressurized side-8 scene (converging velocity), sorted, with the
+    density sweep's counts and its list."""
+    sc, sim = _pressurized("dfsph")
+    liq = sc.positions[: sc.n_liquid]
+    centre = liq.mean(axis=0, keepdims=True)
     g = grid_mod.build_grid(sim.state.pos, sc.n_liquid, sim.cfg)
     vel = grid_mod.pack(g, [torch.as_tensor(
         (-10.0 * (liq - centre)).T.astype(np.float32))])[0]
@@ -76,6 +90,15 @@ def test_list_holds_the_pairs_within_h_in_ascending_order(case):
         assert slots[: len(want)] == want
         assert all(j == -1 for j in slots[len(want):])
     assert int(near.sum()) > 20 * len(rows)      # a real neighbourhood
+
+
+def test_records_hold_each_rows_position_and_flag(case):
+    g, _, _, nl = case
+    assert nl.rec.dtype == torch.float32 and nl.rec.shape == (g.n, 4)
+    assert nl.rec.is_contiguous()
+    assert torch.equal(nl.rec[:, :3], g.pos.T)
+    assert torch.equal(nl.rec[:, 3], g.liq)
+    assert bool((nl.rec[:, 3] == 0).any()) and bool((nl.rec[:, 3] == 1).any())
 
 
 def test_slices_follow_the_density_counts(case):
@@ -127,9 +150,12 @@ def test_padding_is_never_walked(case):
 # twins must give the same bits on either list.  (On the card the plain
 # twin's index_add_ adds in no fixed order: chip_smoke.py compares there
 # within TOL_FUSED.)
-@pytest.mark.parametrize("which", ["k3-mode0", "k3-mode1", "k2"])
+@pytest.mark.parametrize("which",
+                         ["k3-mode0", "k3-mode1", "k2", "vorticity", "k4"])
 def test_walk_reproduces_the_fused_sweeps(case, which):
     import dataclasses
+
+    from wcsph_tpu_torch.kernels import cubic_w0
 
     g, vel, count, nl = case
     walked = dataclasses.replace(g, pairs=dense_ops.list_pairs(g, nl))
@@ -140,8 +166,31 @@ def test_walk_reproduces_the_fused_sweeps(case, which):
     def seeded(scale):
         return torch.as_tensor(rng.randn(g.n).astype(np.float32)) * scale
 
+    def seeded3(scale):
+        return torch.as_tensor(rng.randn(3, g.n).astype(np.float32)) * scale
+
     dt = np.float32(1e-3)
-    if which == "k2":
+    raw = dense_ops.density_alpha_drho(g, vel)
+    rho = cfg.rest_density * (cfg.liquid_volume * cubic_w0(
+        cfg.support_radius) + raw[0])
+    rinv = engine.rho_inv(rho)
+    if which == "vorticity":
+        om = seeded3(0.1) * liq
+        outs = [[dense_ops.vorticity(grid, vel, om, rinv)]
+                for grid in (walked, g)]
+    elif which == "k4":
+        x = vel + seeded3(0.01) * liq
+        minv, _ = engine.visc_init(g, x, rho, dt)
+        minv6 = torch.stack(list(minv)).contiguous()
+        r0, d0 = seeded3(1.0) * liq, seeded3(1.0) * liq
+        delta = torch.sum(r0 * minv.matvec(r0))
+        outs = []
+        for grid in (walked, g):
+            xs, r, d = x.clone(), r0.clone(), d0.clone()
+            scal = dense_ops.fused_visc_iter(grid, xs, r, d, delta, rinv,
+                                             minv6, dt)
+            outs.append([xs, r, d, scal])
+    elif which == "k2":
         kf = seeded(1e-2) * liq
         gate = liq * torch.as_tensor(rng.rand(g.n) > 0.3)
         outs = []
@@ -151,7 +200,6 @@ def test_walk_reproduces_the_fused_sweeps(case, which):
             outs.append([v, acc])
     else:
         mode = int(which[-1])
-        raw = dense_ops.density_alpha_drho(g, vel)
         den = raw[5] + raw[2] ** 2 + raw[3] ** 2 + raw[4] ** 2
         alpha = torch.where(den > cfg.eps, -1.0 / den, 0.0) * liq
         a = alpha / float(dt) ** (mode + 1)
@@ -169,3 +217,22 @@ def test_walk_reproduces_the_fused_sweeps(case, which):
     for got, want in zip(*outs):
         assert float(want.abs().max()) > 0
         assert torch.equal(got, want)
+
+
+def test_iisph_step_builds_the_list_from_its_density_counts(_port):
+    """IISPH's viscosity PCG (K4) walks the list on the card: its step
+    builds it right after the density sweep, from that sweep's counts."""
+    from wcsph_tpu_torch.solvers import iisph
+
+    sc, sim = _pressurized("iisph")
+    st = sim.state
+    g = grid_mod.build_grid(st.pos, st.n_liquid, sim.cfg)
+    packed = grid_mod.pack(g, [st.vel, st.vel_guess, st.pressure])
+    assert g.nbr is None
+    mid = iisph.step_middle(g, sim.cfg, *packed, st.dt)
+    assert mid.visc_iters > 0
+    _, count = engine.density(g)
+    want = dense_ops.neighbor_list(g, count)
+    for field in ("idx", "off", "rec"):
+        assert torch.equal(getattr(g.nbr, field), getattr(want, field))
+    assert int((g.nbr.idx >= 0).sum()) == int(count[g.liquid].sum()) > 0

@@ -250,7 +250,7 @@ def test_ctypes_mirror_follows_the_cuda_struct(struct, where):
             ctype = (ctypes.c_void_p if "*" in decl else
                      ctypes.c_int if decl.startswith("int") else
                      ctypes.c_float)
-            rest = re.sub(r"^(const )?(float|int)\*?", "", decl)
+            rest = re.sub(r"^(const )?(float4|float|int)\*?", "", decl)
             fields += [(n.strip(" *"), ctype) for n in rest.split(",")]
     assert fields == list(mirror._fields_)
 

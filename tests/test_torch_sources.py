@@ -5,9 +5,14 @@ No file of the port imports ``jax``, ``flax`` or the JAX package
 source file; nothing is imported here, so a worker that runs only these
 cases loads no torch.  (The same rule in a live interpreter:
 tests/test_torch_package.py::test_port_imports_no_jax.)
+
+The sweeps that run after a step's neighbour list is built walk that list
+and have no cell-loop form: one case per list-walking ``__global__`` of
+csrc/sweeps.cu, read with the device functions it calls.
 """
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -67,3 +72,47 @@ def test_source_imports_no_jax(source):
                                            "wcsph_tpu"), n
     # an __init__ may hold relative imports only
     assert seen or source.endswith("__init__.py")
+
+
+CSRC = ROOT / "wcsph_tpu_torch" / "csrc"
+# the __global__ functions of csrc/sweeps.cu that walk the step's list
+LIST_WALKERS = [
+    "k1_div_kernel", "k2_kappa_kernel", "k3_kappa_kernel", "k3_div_kernel",
+    "k1_vorticity_kernel", "k4_matvec_kernel",
+]
+
+
+def _bodies(text):
+    """name -> body text of every function defined in a CUDA source."""
+    out = {}
+    for m in re.finditer(r"^(?:template <[^>]*>\s*)?(?:static )?"
+                         r"(?:__global__|__device__)[^;{(]*?\b(\w+)\s*\(",
+                         text, re.M):
+        depth, k = 0, text.index("{", m.end())
+        for n in range(k, len(text)):
+            depth += {"{": 1, "}": -1}.get(text[n], 0)
+            if depth == 0:
+                out[m.group(1)] = text[k:n + 1]
+                break
+    return out
+
+
+@pytest.mark.parametrize("kernel", LIST_WALKERS)
+def test_list_walker_never_scans_the_cells(kernel):
+    """The kernel's body, with the device functions it calls (transitively,
+    those of sweeps.cu and common.cuh), calls for_each_listed and never
+    the cell loop."""
+    bodies = {**_bodies((CSRC / "common.cuh").read_text()),
+              **_bodies((CSRC / "sweeps.cu").read_text())}
+    seen, todo, text = set(), [kernel], ""
+    while todo:
+        name = todo.pop()
+        if name in seen or name in ("for_each_listed", "for_each_neighbor",
+                                    "for_each_neighbor_at"):
+            continue
+        seen.add(name)
+        text += bodies[name]
+        todo += [c for c in re.findall(r"\b(\w+)\s*[(<]", bodies[name])
+                 if c in bodies]
+    assert re.search(r"\bfor_each_listed\s*\(", text)
+    assert not re.search(r"\bfor_each_neighbor(_at)?\s*\(", text)

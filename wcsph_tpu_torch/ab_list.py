@@ -1,4 +1,4 @@
-"""A/B of the list-walking DFSPH sweeps against an older tree, on one card.
+"""A/B of the list-walking sweeps against an older tree, on one card.
 
     python -m wcsph_tpu_torch.ab_list --old out/old
 
@@ -20,10 +20,10 @@ one process on one card:
    with CUDA events and compared bit for bit; the list fill is timed alone
    and as its whole wrapper; ``step_calls`` sums each side's times over
    the calls that the recorded step made;
-2. steps: the DFSPH and DFSPH-with-tension paths of
+2. steps: the DFSPH, DFSPH-with-tension and IISPH paths of
    ``bench.flagship_paths``, 3 warm-up and 10 timed steps each, in child
    processes of the old tree and of this one, in turns (old, new, new,
-   old).
+   old), with each step's (divergence, pressure, viscosity) iterations.
 
 One JSON line per measurement on stdout, after a first line with the
 card's name and power limit.
@@ -46,7 +46,8 @@ import torch
 from . import bench, engine
 from .grid import slice_offsets
 
-AB_KERNELS = ("k1_div_acc", "k2_fused_kappa_drho", "k3_fused_iter_full")
+AB_KERNELS = ("k1_div_acc", "k1_vorticity", "k2_fused_kappa_drho",
+              "k3_fused_iter_full", "k4_fused_visc_iter")
 SIDE = 100         # the flagship dam break, 1M liquid particles
 REPS = 20          # timed calls per turn
 JITTER = 0.3       # of the particle radius
@@ -58,7 +59,7 @@ _STEPS = """
 import json, statistics, sys, torch
 from wcsph_tpu_torch import bench
 side = int(sys.argv[1])
-for name in ("dfsph", "dfsph+tension"):
+for name in ("dfsph", "dfsph+tension", "iisph"):
     solver, over = bench.flagship_paths(side)[name]
     res = bench.measure(bench.build_sim(side, "cuda", solver, **over), 3, 10)
     print(json.dumps({"path": name,
@@ -174,12 +175,14 @@ def kernels_ab(first, count, old) -> dict:
     grid, cnt = first["nbr_list_fill"][1]
     off, total = slice_offsets(cnt, grid.liquid)
     idx = torch.empty((total,), dtype=torch.int32, device=grid.device)
+    rec = torch.empty((grid.n, 4), dtype=torch.float32, device=grid.device)
     flag = torch.zeros((), dtype=torch.int32, device=grid.device)
     geom = engine._geom(grid)
 
     def fill():
         engine._launch("nbr_list_fill", ctypes.byref(geom), off.data_ptr(),
-                       idx.data_ptr(), flag.data_ptr(), engine._stream())
+                       idx.data_ptr(), rec.data_ptr(), flag.data_ptr(),
+                       engine._stream())
 
     out["nbr_list_fill"] = {
         "kernel_ms": bench.time_call(fill, tuple, REPS),

@@ -51,6 +51,7 @@ STAGES = {
         **_TORCH},
     "iisph": {
         "density": "cuda:k5_density_alpha",
+        "neighbor_list": "cuda:nbr_list_fill",
         **_VISC,
         "advection_coefficients": "cuda:k5_iisph_adv,k5_iisph_aii",
         "jacobi_iterations": "cuda:k7_fused_jacobi_iter",

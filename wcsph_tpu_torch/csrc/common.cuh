@@ -9,7 +9,8 @@
 //     registers; r = x_i - x_j; pairs are cut to d^2 <= h^2, self excluded;
 //   * or, where the step has built its neighbour list (Geom.nl_idx, see
 //     for_each_listed), walks that list: the same pairs in the same order,
-//     with no candidate to cut;
+//     with no candidate to cut, each neighbour's position and liquid flag
+//     read as one 16-byte record (Geom.nl_rec);
 //   * so no atomics and no capacity: no particle is ever dropped, and
 //     every sum has a fixed order (the results repeat bit for bit);
 //   * W and gradW use the sqrt form of kernels.py, the same arithmetic as
@@ -44,6 +45,10 @@ struct Geom {
   // and -1 marks a padding slot.
   const int* nl_idx;
   const int* nl_off;
+  // The list's record of every row, (x, y, z, liquid flag), written by the
+  // fill: one 16-byte load per listed neighbour where the planar arrays
+  // take four scattered 4-byte ones.
+  const float4* nl_rec;
 };
 
 // ---------------------------------------------------------------------------
@@ -70,8 +75,14 @@ __device__ __forceinline__ float kernel_gs(const Geom& g, float d2) {
   return (dist > kEps && q <= 1.0f) ? s : 0.0f;
 }
 
+// Rest volume of a row from its liquid flag lj (a list record's .w) ...
+__device__ __forceinline__ float volume_of(const Geom& g, float lj) {
+  return lj != 0.0f ? g.vl : g.vs;
+}
+
+// ... or of row j.
 __device__ __forceinline__ float volume(const Geom& g, int j) {
-  return g.liq[j] != 0.0f ? g.vl : g.vs;
+  return volume_of(g, g.liq[j]);
 }
 
 // Calls f(j, rx, ry, rz, d2) for every neighbour j of row i with
@@ -108,18 +119,18 @@ __device__ __forceinline__ void for_each_neighbor(const Geom& g, int i,
   }
 }
 
-// Calls f(j, rx, ry, rz, d2) for every listed neighbour j of row i, in the
-// list's order, which is the order of for_each_neighbor (the fill,
-// nbr_list_fill in sweeps.cu, writes what that loop finds): the pair
-// geometry is the same arithmetic on the same pairs, so a sum over the list
-// has the bits of the same sum over the cells.  Thread t of a warp reads
-// slot 32 k + t of its slice, so each k is one coalesced line; padding
-// slots are skipped, never summed as zero terms (+0.0 is not neutral at
-// -0.0).
+// Calls f(j, rx, ry, rz, d2, lj) for every listed neighbour j of row i,
+// lj its liquid flag, in the list's order, which is the order of
+// for_each_neighbor (the fill, nbr_list_fill in sweeps.cu, writes what that
+// loop finds): the pair geometry is the same arithmetic on the same pairs,
+// so a sum over the list has the bits of the same sum over the cells.
+// Thread t of a warp reads slot 32 k + t of its slice, so each k is one
+// coalesced line; the neighbour's position and flag come in one 16-byte
+// record; padding slots are skipped, never summed as zero terms (+0.0 is
+// not neutral at -0.0).
 template <class F>
 __device__ __forceinline__ void for_each_listed(const Geom& g, int i, F& f) {
-  const int M = g.M;
-  const float xi = g.pos[i], yi = g.pos[M + i], zi = g.pos[2 * M + i];
+  const float4 ri = __ldg(g.nl_rec + i);
   const int b = g.nl_off[i >> 5];
   const int n = (g.nl_off[(i >> 5) + 1] - b) >> 5;
   const int* slot = g.nl_idx + b + (i & 31);
@@ -127,11 +138,12 @@ __device__ __forceinline__ void for_each_listed(const Geom& g, int i, F& f) {
   for (int k = 0; k < n; ++k) {
     const int j = __ldg(slot + 32 * k);
     if (j < 0) continue;
-    const float rx = xi - __ldg(g.pos + j);
-    const float ry = yi - __ldg(g.pos + M + j);
-    const float rz = zi - __ldg(g.pos + 2 * M + j);
+    const float4 rj = __ldg(g.nl_rec + j);
+    const float rx = ri.x - rj.x;
+    const float ry = ri.y - rj.y;
+    const float rz = ri.z - rj.z;
     const float d2 = rx * rx + ry * ry + rz * rz;
-    f(j, rx, ry, rz, d2);
+    f(j, rx, ry, rz, d2, rj.w);
   }
 }
 

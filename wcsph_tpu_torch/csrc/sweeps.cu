@@ -14,20 +14,26 @@
 // 2053, _ViscInit 2099, _Vorticity 2145); one templated neighbour loop
 // with a per-formula functor serves all of them.
 //
-// What bounds the cell-loop sweeps (K1's density, visc-init and vorticity
-// emits, K4) on the H100: not DRAM (each row's fields are read from device
-// memory about once per sweep, tens of MB at 1M rows) but the candidate
-// loop itself (for_each_neighbor), ~216 candidates per receiver of which
-// ~15% lie within h, each costing its loads and its cut.
+// What bounds the cell-loop sweeps (K1's density and visc-init emits) on
+// the H100: not DRAM (each row's fields are read from device memory about
+// once per sweep, tens of MB at 1M rows) but the candidate loop itself
+// (for_each_neighbor), ~216 candidates per receiver of which ~15% lie
+// within h, each costing its loads and its cut.
 //
-// The DFSPH solver sweeps (K2, K3 and the _DivAcc entry, which shares K2's
-// divergence launch) run up to a dozen times per step on positions that do
-// not move between the sort and the position update.  So the step builds a
-// neighbour list once, right after its density sweep (nbr_list_fill: one
-// cell-loop pass that writes what the loop finds, in its order), and these
-// sweeps walk it (for_each_listed): ~30 listed pairs per receiver, no cut,
-// each slot a coalesced read.  They need the list: there is no cell-loop
-// form of them.
+// Positions do not move between the sort and the position update.  So the
+// DFSPH and IISPH steps build a neighbour list once, right after their
+// density sweep (nbr_list_fill: one cell-loop pass that writes what the
+// loop finds, in its order, and each row's 16-byte record of position and
+// liquid flag), and every sweep that runs after it walks the list
+// (for_each_listed): K2, K3, the _DivAcc entry (which shares K2's
+// divergence launch), the _Vorticity entry and K4's matvec.  ~30 listed
+// pairs per receiver, no cut, each slot a coalesced read and each
+// neighbour's geometry one 16-byte load.  What bounds a walk then is its
+// gathers: per listed neighbour the record and the sweep's own fields of
+// that row (vorticity: vel, om and rinv, 7 words; K4: d and rinv, 4), each
+// a scattered load served from L1/L2 since a warp's neighbours lie in 9
+// row ranges.  These sweeps need the list: there is no cell-loop form of
+// them.
 //
 // A launch returns cudaGetLastError().
 
@@ -39,10 +45,10 @@ __device__ __forceinline__ float div_sum(const Geom& g, int i,
   const int M = g.M;
   const float vx = vel[i], vy = vel[M + i], vz = vel[2 * M + i];
   float acc = 0.0f;
-  auto f = [&](int j, float rx, float ry, float rz, float d2) {
+  auto f = [&](int j, float rx, float ry, float rz, float d2, float lj) {
     const float dv = (vx - vel[j]) * rx + (vy - vel[M + j]) * ry +
                      (vz - vel[2 * M + j]) * rz;
-    acc += volume(g, j) * kernel_gs(g, d2) * dv;
+    acc += volume_of(g, lj) * kernel_gs(g, d2) * dv;
   };
   for_each_listed(g, i, f);
   return acc;
@@ -69,8 +75,8 @@ template <class K>
 __device__ __forceinline__ void kappa_sum(const Geom& g, int i, const K& k,
                                           float& ax, float& ay, float& az) {
   const float ki = k(i);
-  auto f = [&](int j, float rx, float ry, float rz, float d2) {
-    const float c = volume(g, j) * (ki + k(j)) * kernel_gs(g, d2);
+  auto f = [&](int j, float rx, float ry, float rz, float d2, float lj) {
+    const float c = volume_of(g, lj) * (ki + k(j)) * kernel_gs(g, d2);
     ax += c * rx;
     ay += c * ry;
     az += c * rz;
@@ -78,12 +84,12 @@ __device__ __forceinline__ void kappa_sum(const Geom& g, int i, const K& k,
   for_each_listed(g, i, f);
 }
 
-// Weiler viscosity pair coefficient seen from receiver i (_ViscAcc).
-__device__ __forceinline__ float visc_coeff(const Geom& g, int j, float d2,
+// Weiler viscosity pair coefficient seen from receiver i (_ViscAcc), lj
+// the neighbour's liquid flag.
+__device__ __forceinline__ float visc_coeff(float lj, int j, float d2,
                                             const float* __restrict__ rinv,
                                             float ri, float a_liq,
                                             float b_sol, float d0) {
-  const float lj = g.liq[j];
   return (lj * a_liq * rinv[j] + (1.0f - lj) * b_sol * ri) / (d2 + d0);
 }
 
@@ -158,7 +164,8 @@ __global__ void k1_visc_init_kernel(Geom g, const float* __restrict__ x,
     const float xx = x[i], xy = x[M + i], xz = x[2 * M + i];
     const float ri = rinv[i];
     auto f = [&](int j, float rx, float ry, float rz, float d2) {
-      const float c = visc_coeff(g, j, d2, rinv, ri, a_liq, b_sol, d0);
+      const float c =
+          visc_coeff(g.liq[j], j, d2, rinv, ri, a_liq, b_sol, d0);
       const float gs = kernel_gs(g, d2);
       const float cg = c * gs;
       acc[0] += cg * rx * rx;
@@ -180,7 +187,7 @@ __global__ void k1_visc_init_kernel(Geom g, const float* __restrict__ x,
   for (int k = 0; k < 9; ++k) out[k * M + i] = acc[k];
 }
 
-// _Vorticity at liquid receivers.  out (9, M):
+// _Vorticity at liquid receivers, over the list.  out (9, M):
 // [sum mass_j (d_om x r) gs (3), sum liq_j W / rho_j d_om (3),
 //  sum stretch_j (d_vel x r) gs (3)], d_q = q_i - liq_j q_j
 __global__ void k1_vorticity_kernel(Geom g, const float* __restrict__ vel,
@@ -195,8 +202,7 @@ __global__ void k1_vorticity_kernel(Geom g, const float* __restrict__ vel,
   if (g.liq[i] != 0.0f) {
     const float oi[3] = {om[i], om[M + i], om[2 * M + i]};
     const float vi[3] = {vel[i], vel[M + i], vel[2 * M + i]};
-    auto f = [&](int j, float rx, float ry, float rz, float d2) {
-      const float lj = g.liq[j];
+    auto f = [&](int j, float rx, float ry, float rz, float d2, float lj) {
       const float sj = 1.0f - lj;
       const float r[3] = {rx, ry, rz};
       float dom[3], dve[3];
@@ -217,7 +223,7 @@ __global__ void k1_vorticity_kernel(Geom g, const float* __restrict__ vel,
         acc[6 + c] += str_j * ((dve[c0] * r[c1] - dve[c1] * r[c0]) * gs);
       }
     };
-    for_each_neighbor(g, i, f);
+    for_each_listed(g, i, f);
   }
 #pragma unroll
   for (int k = 0; k < 9; ++k) out[k * M + i] = acc[k];
@@ -304,7 +310,8 @@ __global__ void k3_div_kernel(Geom g, const float* __restrict__ vel,
 // ---------------------------------------------------------------------------
 // The step's neighbour list (no TPU counterpart: the TPU engine cuts the
 // candidates again in every sweep, since it has no cheap gather).  One
-// thread per row runs the cell loop once and writes each neighbour it
+// thread per row writes its record rec[i] = (x, y, z, liquid flag)
+// (Geom.nl_rec), runs the cell loop once and writes each neighbour it
 // finds, in the loop's order (ascending j), into its slots of the sliced
 // ELL layout (common.cuh, Geom.nl_idx); the rest of its slots, and every
 // slot of a boundary row, take the padding sentinel -1.  The slice widths
@@ -313,19 +320,24 @@ __global__ void k3_div_kernel(Geom g, const float* __restrict__ vel,
 // row that finds more neighbours than its slice has slots (a count below
 // the pairs within h) sets *overflow, which the wrapper reads and raises on:
 // a list that drops a pair is never walked.
-// Bound: the slots it writes (~4 bytes x 32 per row).
+// Bound: the slots it writes (~4 bytes x 32 per row) and the records
+// (16 bytes per row).
 // ---------------------------------------------------------------------------
 
 __global__ void nbr_list_fill_kernel(Geom g, const int* __restrict__ off,
                                      int* __restrict__ idx,
+                                     float4* __restrict__ rec,
                                      int* __restrict__ overflow) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= g.M) return;
+  const int M = g.M;
+  const float li = g.liq[i];
+  rec[i] = make_float4(g.pos[i], g.pos[M + i], g.pos[2 * M + i], li);
   const int b = off[i >> 5];
   const int n = (off[(i >> 5) + 1] - b) >> 5;
   int* slot = idx + b + (i & 31);
   int k = 0;
-  if (g.liq[i] != 0.0f) {
+  if (li != 0.0f) {
     auto f = [&](int j, float, float, float, float) {
       if (k < n) slot[32 * k] = j;
       ++k;
@@ -347,7 +359,8 @@ __global__ void nbr_list_fill_kernel(Geom g, const int* __restrict__ off,
 //      r = liq (r - alpha ad); s = Minv r; partial of liq (r . s);
 //   4. delta' = sum of the partials;
 //   5. beta = delta' / delta; d = liq (s + beta d).
-// The host reads only delta' (the loop condition).
+// Launch 1 walks the step's neighbour list.  The host reads only delta'
+// (the loop condition).
 // ---------------------------------------------------------------------------
 
 __global__ void k4_matvec_kernel(Geom g, const float* __restrict__ d,
@@ -364,8 +377,9 @@ __global__ void k4_matvec_kernel(Geom g, const float* __restrict__ d,
     const float ri = rinv[i];
     float ax = 0.0f, ay = 0.0f, az = 0.0f;
     if (lq != 0.0f) {
-      auto f = [&](int j, float rx, float ry, float rz, float d2) {
-        const float c = visc_coeff(g, j, d2, rinv, ri, a_liq, b_sol, d0);
+      auto f = [&](int j, float rx, float ry, float rz, float d2,
+                   float lj) {
+        const float c = visc_coeff(lj, j, d2, rinv, ri, a_liq, b_sol, d0);
         const float dxr = (dx - d[j]) * rx + (dy - d[M + j]) * ry +
                           (dz - d[2 * M + j]) * rz;
         const float cf = c * dxr * kernel_gs(g, d2);
@@ -373,7 +387,7 @@ __global__ void k4_matvec_kernel(Geom g, const float* __restrict__ d,
         ay += cf * ry;
         az += cf * rz;
       };
-      for_each_neighbor(g, i, f);
+      for_each_listed(g, i, f);
     }
     const float sc = dt * ri;
     const float adx = dx - ax * sc, ady = dy - ay * sc, adz = dz - az * sc;
@@ -499,9 +513,9 @@ extern "C" int k3_fused_iter_full(const Geom* g, float* vel, float* kv,
 }
 
 extern "C" int nbr_list_fill(const Geom* g, const int* off, int* idx,
-                             int* overflow, void* stream) {
+                             float* rec, int* overflow, void* stream) {
   nbr_list_fill_kernel<<<blocks_of(g->M), kBlock, 0, (cudaStream_t)stream>>>(
-      *g, off, idx, overflow);
+      *g, off, idx, reinterpret_cast<float4*>(rec), overflow);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -120,7 +120,8 @@ def neighbor_list(grid: Grid, count: torch.Tensor) -> NeighborList:
     (the kernels' order), each pair written to slot ``off[i // 32] + 32 k +
     i % 32`` with k its rank among its receiver's pairs.  ``count`` is the
     density sweep's count per row; the widths follow from it, and it must
-    equal the pairs found at every liquid row."""
+    equal the pairs found at every liquid row.  ``rec`` holds each row's
+    position and liquid flag."""
     p = pairs_of(grid)
     m = grid.n
     off, total = slice_offsets(count, grid.liquid)
@@ -136,7 +137,8 @@ def neighbor_list(grid: Grid, count: torch.Tensor) -> NeighborList:
     idx = torch.full((total,), -1, dtype=torch.int32, device=grid.device)
     idx[off[i // SLICE].to(torch.int64) + SLICE * k + i % SLICE] = (
         j.to(torch.int32))
-    return NeighborList(idx=idx, off=off)
+    rec = torch.cat([grid.pos.T, grid.liq[:, None]], dim=1).contiguous()
+    return NeighborList(idx=idx, off=off, rec=rec)
 
 
 def list_pairs(grid: Grid, nl: NeighborList) -> Pairs:

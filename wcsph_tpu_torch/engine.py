@@ -34,12 +34,13 @@ K7     ``k7_fused_jacobi_iter``    whole IISPH relaxed-Jacobi iteration
 K8     ``k8_fused_pcisph_iter``    whole PCISPH prediction iteration
 =====  ==========================  =========================================
 
-K2, K3 and ``k1_div_acc`` (which shares K2's divergence launch) walk the
-step's neighbour list (``grid.NeighborList``) instead of the 27 cells: a
-DFSPH step builds it once, right after its density sweep, with
-``nbr_list_fill``, a kernel of the port's own design that no TPU kernel
-corresponds to (``OWN_KERNELS``).  On the card these three raise where the
-grid has no list; their plain twins need none.
+Five walkers read the step's neighbour list (``grid.NeighborList``)
+instead of the 27 cells: K2, K3, ``k1_div_acc`` (which shares K2's
+divergence launch), ``k1_vorticity`` and K4.  A DFSPH or IISPH step builds
+the list once, right after its density sweep, with ``nbr_list_fill``, a
+kernel of the port's own design that no TPU kernel corresponds to
+(``OWN_KERNELS``).  On the card these five raise where the grid has no
+list; their plain twins need none.
 
 The libraries are built at first use on CUDA: one ``nvcc`` per
 ``csrc/*.cu``, all started together, for ``sm_90a`` into ``_build/``, keyed
@@ -109,8 +110,8 @@ KERNELS = {
 # kernels of the port's own design, counterparts of no TPU kernel:
 # wrapper name -> (kernel source, what it serves, plain twin)
 OWN_KERNELS = {
-    "nbr_list_fill": (_SRC, "the neighbour list that K2, K3 and k1_div_acc "
-                      "walk", dense_ops.neighbor_list),
+    "nbr_list_fill": (_SRC, "the neighbour list that K2, K3, k1_div_acc, "
+                      "k1_vorticity and K4 walk", dense_ops.neighbor_list),
 }
 LAUNCHES = {name: 0 for name in (*KERNELS, *OWN_KERNELS)}
 BLOCK = 256          # threads per block of every sweep (csrc/common.cuh)
@@ -135,7 +136,8 @@ class _Geom(ctypes.Structure):
                 ("h", ctypes.c_float), ("h2", ctypes.c_float),
                 ("vl", ctypes.c_float), ("vs", ctypes.c_float),
                 ("w_sigma", ctypes.c_float), ("gs_ml", ctypes.c_float),
-                ("nl_idx", ctypes.c_void_p), ("nl_off", ctypes.c_void_p)]
+                ("nl_idx", ctypes.c_void_p), ("nl_off", ctypes.c_void_p),
+                ("nl_rec", ctypes.c_void_p)]
 
 
 class _TensionParams(ctypes.Structure):
@@ -167,7 +169,7 @@ _SIGNATURES = {
     "k7_fused_jacobi_iter": [_G, _P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _P,
                              _P, _P],
     "k8_fused_pcisph_iter": [_G, _P, _P, _F, _F, _F, _P, _P, _P, _P, _P],
-    "nbr_list_fill": [_G, _P, _P, _P, _P],
+    "nbr_list_fill": [_G, _P, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -259,10 +261,13 @@ def _geom(grid: Grid, listed: bool = False) -> _Geom:
                          "it first (engine.nbr_list_fill)")
     tensors = [grid.pos, grid.liq, grid.cell, grid.cell_start]
     if nl is not None:
-        tensors += [nl.idx, nl.off]
+        tensors += [nl.idx, nl.off, nl.rec]
     for t in tensors:
         if not t.is_contiguous() or t.device.type != "cuda":
             raise ValueError("grid tensors must be contiguous, on the card")
+    if nl is not None and nl.rec.data_ptr() % 16:
+        raise ValueError("the list's records are read as float4: 16-byte "
+                         "alignment")
     if 9 * grid.n >= 2 ** 31:
         raise ValueError("row indices of the kernels are 32-bit: "
                          f"{grid.n} rows is too many")
@@ -272,7 +277,8 @@ def _geom(grid: Grid, listed: bool = False) -> _Geom:
                  cfg.solid_volume, kernels.cubic_w0(h),
                  48.0 / (math.pi * h * h * h),
                  nl.idx.data_ptr() if nl is not None else None,
-                 nl.off.data_ptr() if nl is not None else None)
+                 nl.off.data_ptr() if nl is not None else None,
+                 nl.rec.data_ptr() if nl is not None else None)
 
 
 def _check(*tensors, shapes):
@@ -375,8 +381,8 @@ def k1_vorticity(grid: Grid, vel: torch.Tensor, om: torch.Tensor,
     _check(vel, om, rinv, shapes=[(3, m), (3, m), (m,)])
     cfg = grid.cfg
     out = torch.empty((9, m), dtype=torch.float32, device=vel.device)
-    _launch("k1_vorticity", ctypes.byref(_geom(grid)), vel.data_ptr(),
-            om.data_ptr(), rinv.data_ptr(), cfg.liquid_mass,
+    _launch("k1_vorticity", ctypes.byref(_geom(grid, listed=True)),
+            vel.data_ptr(), om.data_ptr(), rinv.data_ptr(), cfg.liquid_mass,
             cfg.rest_density * cfg.solid_volume,
             cfg.rest_density * cfg.liquid_volume, out.data_ptr(), _stream())
     return out
@@ -435,11 +441,11 @@ def k4_fused_visc_iter(grid: Grid, x: torch.Tensor, r: torch.Tensor,
     partials = torch.empty((_nblocks(m),), dtype=torch.float32,
                            device=x.device)
     scal = torch.empty((2,), dtype=torch.float32, device=x.device)
-    _launch("k4_fused_visc_iter", ctypes.byref(_geom(grid)), x.data_ptr(),
-            r.data_ptr(), d.data_ptr(), rinv.data_ptr(), minv6.data_ptr(),
-            delta.data_ptr(), float(dt), cfg.eps, a_liq, b_sol,
-            0.01 * h * h, ad.data_ptr(), s.data_ptr(), partials.data_ptr(),
-            scal.data_ptr(), _stream())
+    _launch("k4_fused_visc_iter", ctypes.byref(_geom(grid, listed=True)),
+            x.data_ptr(), r.data_ptr(), d.data_ptr(), rinv.data_ptr(),
+            minv6.data_ptr(), delta.data_ptr(), float(dt), cfg.eps, a_liq,
+            b_sol, 0.01 * h * h, ad.data_ptr(), s.data_ptr(),
+            partials.data_ptr(), scal.data_ptr(), _stream())
     return scal
 
 
@@ -448,9 +454,9 @@ def nbr_list_fill(grid: Grid, count: torch.Tensor) -> NeighborList:
     ``grid.nbr`` and return it.  ``count`` (M,) is the density sweep's
     neighbour count of each row; the slice widths follow from it (torch
     ops and one host read of the number of slots), then the fill kernel
-    writes the slots.  Raises ValueError, after a second host read, where
-    a liquid row has more pairs within h than its slice has slots (a
-    count too low), as the plain twin does."""
+    writes the slots and each row's record.  Raises ValueError, after a
+    second host read, where a liquid row has more pairs within h than its
+    slice has slots (a count too low), as the plain twin does."""
     if not _route(count):
         grid.nbr = dense_ops.neighbor_list(grid, count)
         return grid.nbr
@@ -458,13 +464,14 @@ def nbr_list_fill(grid: Grid, count: torch.Tensor) -> NeighborList:
         raise ValueError("count must be (M,), on the card")
     off, total = slice_offsets(count, grid.liquid)
     idx = torch.empty((total,), dtype=torch.int32, device=count.device)
+    rec = torch.empty((grid.n, 4), dtype=torch.float32, device=count.device)
     overflow = torch.zeros((), dtype=torch.int32, device=count.device)
     _launch("nbr_list_fill", ctypes.byref(_geom(grid)), off.data_ptr(),
-            idx.data_ptr(), overflow.data_ptr(), _stream())
+            idx.data_ptr(), rec.data_ptr(), overflow.data_ptr(), _stream())
     if overflow.item():
         raise ValueError("count differs from the pairs within h: a row has "
                          "more neighbours than its slots")
-    grid.nbr = NeighborList(idx=idx, off=off)
+    grid.nbr = NeighborList(idx=idx, off=off, rec=rec)
     return grid.nbr
 
 

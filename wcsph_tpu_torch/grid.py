@@ -17,9 +17,9 @@ Fields move between the per-particle layout and the sorted layout with
 so a boundary neighbour contributes a zero velocity, kappa or omega, as the
 reference's ``j >= liquid_count`` branches do.
 
-A DFSPH step also keeps a neighbour list of its sorted positions
+A DFSPH or IISPH step also keeps a neighbour list of its sorted positions
 (``NeighborList``, built by ``engine.nbr_list_fill`` right after the
-density sweep), which its solver sweeps walk instead of the 27 cells.
+density sweep), which the sweeps after it walk instead of the 27 cells.
 """
 
 from __future__ import annotations
@@ -46,10 +46,13 @@ class NeighborList:
     i % SLICE]``, so the rows of one slice store their k-th neighbours side
     by side; neighbours are in ascending row order, and the slots past a
     row's count, like every slot of a boundary row, hold -1.  About 4 bytes
-    x 32 slots per liquid row (118 MiB for the 1M dam break)."""
+    x 32 slots per liquid row (118 MiB for the 1M dam break), and a
+    16-byte record per row, ``rec[i] = (x, y, z, liquid flag)``, from which
+    a walk reads a neighbour's geometry in one load."""
 
     idx: torch.Tensor   # (off[-1],) int32 neighbour row, or -1
     off: torch.Tensor   # (S + 1,) int32 first slot of each slice
+    rec: torch.Tensor   # (M, 4) float32 (x, y, z, liquid flag) of each row
 
     @property
     def width(self) -> torch.Tensor:
@@ -89,7 +92,7 @@ class Grid:
     liq_src: torch.Tensor      # (L,) int64 their particle indices
     n_liquid: int              # L: liquid particles inside the domain
     pairs: object = None       # dense_ops.Pairs, built on first plain sweep
-    nbr: NeighborList | None = None   # engine.nbr_list_fill, DFSPH steps
+    nbr: NeighborList | None = None   # engine.nbr_list_fill, DFSPH, IISPH
 
     @property
     def n(self) -> int:

@@ -2,10 +2,11 @@
 ``wcsph_tpu/solvers/dfsph.py``, fused forms only).
 
 One step: sort + pack -> density + DFSPH factor alpha (+ warm-start drho,
-one K1 sweep) -> the step's neighbour list (one fill kernel; the K2, K3
-and advected-density sweeps below walk it) -> divergence solve (warm start
-K2, iterations K3 mode 0) -> non-pressure forces (gravity, surface tension
-when on: K6, implicit-viscosity PCG: K1 + K4, micropolar vorticity: K1) ->
+one K1 sweep) -> the step's neighbour list (one fill kernel; the K2, K3,
+K4, vorticity and advected-density sweeps below walk it) -> divergence
+solve (warm start K2, iterations K3 mode 0) -> non-pressure forces
+(gravity, surface tension when on: K6, implicit-viscosity PCG: K1 + K4,
+micropolar vorticity: K1) ->
 adaptive CFL dt -> velocity update -> constant-density solve (advected
 density K1, iterations K3 mode 1) -> unpack + position update.
 

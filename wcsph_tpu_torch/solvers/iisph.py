@@ -1,8 +1,9 @@
 """IISPH: implicit incompressible SPH with a relaxed-Jacobi pressure solve
 (port of ``wcsph_tpu/solvers/iisph.py``, engine branch in its fused form).
 
-One step: sort + pack -> density (K5 ``_DensityAlpha``) -> implicit
-viscosity (block-Jacobi PCG: K1 + K4, ``viscosity.py``) -> advection
+One step: sort + pack -> density (K5 ``_DensityAlpha``) -> the step's
+neighbour list from its counts (one fill kernel; K4 below walks it) ->
+implicit viscosity (block-Jacobi PCG: K1 + K4, ``viscosity.py``) -> advection
 coefficients d_ii, a_ii, advected density (K5 ``_IisphAdv``, ``_IisphAii``),
 pressure warm start 0.5 p -> relaxed-Jacobi loop, one K7 call per iteration
 -> pressure force (K5 ``_IisphForce``) -> integrate.  As in the JAX package,
@@ -61,7 +62,10 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, vgp, pp, dt) -> MidResult:
     dt = f32(dt)
     liq3 = grid.liquid[None]
 
-    rhop, _ = engine.density(grid)                      # iisph.py:254-268
+    rhop, cntp = engine.density(grid)                   # iisph.py:254-268
+    # positions stay put until the position update: the viscosity PCG's
+    # matvec (K4) walks this list
+    engine.nbr_list_fill(grid, cntp)
 
     # implicit viscosity; velocity updates are liquid-masked so boundary
     # rows keep velocity 0 exactly (they feed (v_i - v_j) pair terms)
