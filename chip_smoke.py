@@ -14,10 +14,12 @@ its own lines and raising on failure:
 2. each kernel (K1-K8, every entry point) against its plain PyTorch twin on
    the card, at the shapes of a squeezed side-24 dam break with a
    converging velocity, numpy-seeded k / S / pressure fields, tension and
-   adhesion on; first the neighbour list that K2, K3, K4, ``k1_div_acc``
-   and ``k1_vorticity`` walk: the fill kernel's list and its per-row
-   records equal the plain build bit for bit, and those five raise on a
-   grid without one;
+   adhesion on; first the neighbour list that K2, K3, K4, ``k1_div_acc``,
+   ``k1_visc_init`` and ``k1_vorticity`` walk: the fill kernel's list and
+   its per-row records equal the plain build bit for bit, and those six
+   raise on a grid without one; last the density sweep on a block squeezed
+   to 0.6 of its spacing, where receivers have more hits than the sweep's
+   per-thread buffer (``engine.CUT_SLOTS``) and so sum it more than once;
 3. whole steps: the 20-step golden scene of each of the four solvers on
    CUDA against ``tests/golden/<solver>_golden.npz``, and 3 steps of the
    pressurized side-8 scene, per solver and for DFSPH with tension, with
@@ -321,8 +323,8 @@ def check_list(grid, vel, chk):
 
 
 def check_list_required(grid, inp, count):
-    """K2, K3, K4, k1_div_acc and k1_vorticity raise on a grid whose step
-    built no list, and the fill raises on a count below the pairs within h
+    """K2, K3, K4, k1_div_acc, k1_visc_init and k1_vorticity raise on a
+    grid whose step built no list, and the fill raises on a count below the pairs within h
     (it would drop a neighbour) rather than leave a short list."""
     import dataclasses
 
@@ -342,6 +344,7 @@ def check_list_required(grid, inp, count):
     engine.LAUNCHES.update(saved)     # check launches are not main-path
     m = grid.n
     calls = [("k1_div_acc", (bare, inp["vel"])),
+             ("k1_visc_init", (bare, inp["vel"], inp["rinv"])),
              ("k1_vorticity", (bare, inp["vel"], inp["om"], inp["rinv"])),
              ("k4_fused_visc_iter", (
                  bare, inp["vel"].clone(), inp["r"].clone(),
@@ -363,6 +366,34 @@ def check_list_required(grid, inp, count):
             raise AssertionError(f"{name} ran on a grid with no list")
     log(f"  {', '.join(name for name, _ in calls)} raise on a grid with no "
         "neighbour list; nbr_list_fill raises on a short count")
+
+
+def check_dense(cfg, side, chk):
+    """The density sweep where receivers have more hits than its buffer:
+    the liquid block squeezed to 0.6 of its spacing (up to ~170
+    neighbours a receiver against CUT_SLOTS), against its plain twin."""
+    import torch
+
+    from wcsph_tpu_torch import dense_ops, engine
+    from wcsph_tpu_torch.grid import build_grid, pack
+
+    r = cfg.particle_radius
+    sc = squeezed_dam_break(side, 0.6, box_extent=side * 2 * r * 1.35)
+    dev = torch.device("cuda")
+    grid = build_grid(torch.as_tensor(np.ascontiguousarray(
+        sc.positions.T.astype(np.float32)), device=dev), sc.n_liquid, cfg)
+    vel = pack(grid, [torch.as_tensor(converging_velocity(
+        sc.positions[: sc.n_liquid]), device=dev)])[0].contiguous()
+    case = ("k1_density_alpha_drho", "dense", lambda: (grid, vel),
+            lambda a, out: list(torch.split(out, (1, 1, 3, 1, 1))),
+            TOL_SWEEP)
+    check_kernels(grid, [case], chk)
+    most = int(dense_ops.density_alpha_drho(grid, vel)[1].max())
+    log(f"  dense block (squeeze 0.6, M={grid.n}): max count {most} against "
+        f"{engine.CUT_SLOTS} slots a receiver")
+    if most <= engine.CUT_SLOTS:
+        raise AssertionError("the dense case never fills the density "
+                             "sweep's buffer")
 
 
 def time_kernels(grid, cases, count, reps_kernel=20, reps_plain=5):
@@ -397,8 +428,9 @@ def time_kernels(grid, cases, count, reps_kernel=20, reps_plain=5):
 # function of P and M]).  Words: the kernel's operand list, each input read
 # once and each output written once; scratch that a kernel keeps between
 # its own launches is not counted, nor is the neighbour list that K2, K3,
-# K4, k1_div_acc and k1_vorticity read (the functions they compute do not
-# need it; the fill that writes it, slots and records, has its own row).
+# K4, k1_div_acc, k1_visc_init and k1_vorticity read (the functions they
+# compute do not need it; the fill that writes it, slots and records, has
+# its own row), nor the shared-memory hit buffer of the density sweep.
 # Every sweep also reads the geometry once (positions 3, liquid flag 1,
 # cell id 1 per row, and the cell offsets).  Operations: float32 adds,
 # multiplies, divides and square roots of the one-sided formula per
@@ -528,6 +560,7 @@ def main():
     if {c[0] for c in cases} != set(engine.KERNELS):
         raise AssertionError("a kernel entry has no case")
     check_kernels(grid, cases, chk)
+    check_dense(sim.cfg, side, chk)
     log("[phase 2] every kernel agrees with its plain twin")
 
     # ---- phase 3: whole steps -------------------------------------------

@@ -1,7 +1,8 @@
 """The DFSPH step's neighbour list (wcsph_tpu_torch, CPU plain versions).
 
-K2, K3 and the advected-density sweep walk a per-step neighbour list in
-sliced ELL (``grid.NeighborList``) on the card.  The fill kernel cannot run
+K2, K3, K4 and K1's advected-density, visc-init and vorticity sweeps walk
+a per-step neighbour list in sliced ELL (``grid.NeighborList``) on the
+card.  The fill kernel cannot run
 here, so these cases hold its plain twin (``dense_ops.neighbor_list``) and
 the plain walk of the layout (``dense_ops.list_pairs``) on the pressurized
 side-8 scene of tests/test_torch_step.py:
@@ -11,9 +12,9 @@ side-8 scene of tests/test_torch_step.py:
   row's record (position, liquid flag);
 * the slice widths and offsets follow from the density sweep's counts;
 * padding is never walked;
-* the twins of K3 (modes 0 and 1), K2, the vorticity sweep and K4 run on
-  the walked pairs give the bits of the same twins on the cell-loop pair
-  list;
+* the twins of K3 (modes 0 and 1), K2, the visc-init and vorticity
+  sweeps and K4 run on the walked pairs give the bits of the same twins on
+  the cell-loop pair list;
 * an IISPH step builds the list from its density sweep's counts.
 """
 
@@ -151,7 +152,8 @@ def test_padding_is_never_walked(case):
 # twin's index_add_ adds in no fixed order: chip_smoke.py compares there
 # within TOL_FUSED.)
 @pytest.mark.parametrize("which",
-                         ["k3-mode0", "k3-mode1", "k2", "vorticity", "k4"])
+                         ["k3-mode0", "k3-mode1", "k2", "visc_init",
+                          "vorticity", "k4"])
 def test_walk_reproduces_the_fused_sweeps(case, which):
     import dataclasses
 
@@ -174,7 +176,10 @@ def test_walk_reproduces_the_fused_sweeps(case, which):
     rho = cfg.rest_density * (cfg.liquid_volume * cubic_w0(
         cfg.support_radius) + raw[0])
     rinv = engine.rho_inv(rho)
-    if which == "vorticity":
+    if which == "visc_init":
+        x = vel + seeded3(0.01) * liq
+        outs = [[dense_ops.visc_init(grid, x, rinv)] for grid in (walked, g)]
+    elif which == "vorticity":
         om = seeded3(0.1) * liq
         outs = [[dense_ops.vorticity(grid, vel, om, rinv)]
                 for grid in (walked, g)]

@@ -78,7 +78,7 @@ CSRC = ROOT / "wcsph_tpu_torch" / "csrc"
 # the __global__ functions of csrc/sweeps.cu that walk the step's list
 LIST_WALKERS = [
     "k1_div_kernel", "k2_kappa_kernel", "k3_kappa_kernel", "k3_div_kernel",
-    "k1_vorticity_kernel", "k4_matvec_kernel",
+    "k1_visc_init_kernel", "k1_vorticity_kernel", "k4_matvec_kernel",
 ]
 
 

@@ -1,4 +1,4 @@
-"""A/B of the list-walking sweeps against an older tree, on one card.
+"""A/B of the DFSPH step's sweeps against an older tree, on one card.
 
     python -m wcsph_tpu_torch.ab_list --old out/old
 
@@ -46,8 +46,9 @@ import torch
 from . import bench, engine
 from .grid import slice_offsets
 
-AB_KERNELS = ("k1_div_acc", "k1_vorticity", "k2_fused_kappa_drho",
-              "k3_fused_iter_full", "k4_fused_visc_iter")
+AB_KERNELS = ("k1_density_alpha_drho", "k1_div_acc", "k1_visc_init",
+              "k1_vorticity", "k2_fused_kappa_drho", "k3_fused_iter_full",
+              "k4_fused_visc_iter")
 SIDE = 100         # the flagship dam break, 1M liquid particles
 REPS = 20          # timed calls per turn
 JITTER = 0.3       # of the particle radius

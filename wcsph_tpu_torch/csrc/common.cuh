@@ -1,5 +1,5 @@
 // Shared by every kernel source of this directory: the grid geometry, the
-// pair math, the neighbour loop and the fixed-order global sum.
+// pair math, the neighbour loops and the fixed-order global sum.
 //
 //   * rows are particles sorted by cell, with per-cell start offsets
 //     (Geom.start); cell c holds rows start[c] .. start[c + 1];
@@ -7,6 +7,10 @@
 //     neighbour cells (the 3 z-neighbours of a cell are consecutive cell
 //     ids, so the loop is 9 contiguous row ranges) and accumulates in
 //     registers; r = x_i - x_j; pairs are cut to d^2 <= h^2, self excluded;
+//   * the density sweep of DFSPH runs that loop in two phases
+//     (for_each_neighbor_cut): it first cuts the candidates, keeping the
+//     rows within h in a per-thread buffer of shared memory, and then sums
+//     the pair terms over its own hits only, in the same order;
 //   * or, where the step has built its neighbour list (Geom.nl_idx, see
 //     for_each_listed), walks that list: the same pairs in the same order,
 //     with no candidate to cut, each neighbour's position and liquid flag
@@ -29,6 +33,9 @@
 constexpr int kBlock = 256;        // threads per block of every row kernel
 constexpr int kReduceBlock = 1024; // threads of the partials reduction
 constexpr float kEps = 1.0e-5f;    // gradW cut-off distance (kernels._EPS)
+// Hits a receiver of for_each_neighbor_cut keeps before it sums them
+// (engine.CUT_SLOTS): 40 x 256 x 4 bytes = 40 KB of shared memory a block.
+constexpr int kCutSlots = 40;
 
 // Mirror: engine._Geom (same field order).
 struct Geom {
@@ -117,6 +124,65 @@ __device__ __forceinline__ void for_each_neighbor(const Geom& g, int i,
       }
     }
   }
+}
+
+// The same calls as for_each_neighbor, in the same order and with the same
+// pair arithmetic, but the cut and the pair body run apart.  In the single
+// loop a warp's 32 receivers (about 4 cells) scan different windows of ~216
+// candidates each, and the body runs whenever ANY lane has a hit there, so
+// every lane pays the body on most candidates though it keeps ~12% of
+// them.  Here the thread first cuts (d2 <= h^2, j != i) and appends each
+// row it keeps to its own slots of a shared buffer, `slot` (slot k at
+// slot[k * kBlock]: each lane in its own bank); then it runs f over its own
+// hits, recomputing the geometry from the same loads (same bits).  Lanes
+// then diverge only on their hit counts (~27), not on the union of the
+// warp's hits.  A receiver with more than kCutSlots hits sums the full
+// buffer when the next hit comes and carries on cutting: no hit is
+// dropped, none added twice, the order is kept.
+template <class F>
+__device__ __forceinline__ void for_each_neighbor_cut(const Geom& g, int i,
+                                                      int* slot, F& f) {
+  const int M = g.M;
+  const float xi = g.pos[i], yi = g.pos[M + i], zi = g.pos[2 * M + i];
+  int n = 0;
+  auto sum = [&]() {
+    for (int k = 0; k < n; ++k) {
+      const int j = slot[k * kBlock];
+      const float rx = xi - __ldg(g.pos + j);
+      const float ry = yi - __ldg(g.pos + M + j);
+      const float rz = zi - __ldg(g.pos + 2 * M + j);
+      f(j, rx, ry, rz, rx * rx + ry * ry + rz * rz);
+    }
+    n = 0;
+  };
+  const int c = g.cell[i];
+  const int cz = c % g.gz;
+  const int cy = (c / g.gz) % g.gy;
+  const int cx = c / (g.gz * g.gy);
+  const int z0 = max(cz - 1, 0);
+  const int z1 = min(cz + 1, g.gz - 1);
+  for (int dx = -1; dx <= 1; ++dx) {
+    const int nx = cx + dx;
+    if (nx < 0 || nx >= g.gx) continue;
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int ny = cy + dy;
+      if (ny < 0 || ny >= g.gy) continue;
+      const int base = (nx * g.gy + ny) * g.gz;
+      const int jb = g.start[base + z0];
+      const int je = g.start[base + z1 + 1];
+      for (int j = jb; j < je; ++j) {
+        if (j == i) continue;
+        const float rx = xi - __ldg(g.pos + j);
+        const float ry = yi - __ldg(g.pos + M + j);
+        const float rz = zi - __ldg(g.pos + 2 * M + j);
+        if (rx * rx + ry * ry + rz * rz <= g.h2) {
+          if (n == kCutSlots) sum();
+          slot[n++ * kBlock] = j;
+        }
+      }
+    }
+  }
+  sum();
 }
 
 // Calls f(j, rx, ry, rz, d2, lj) for every listed neighbour j of row i,

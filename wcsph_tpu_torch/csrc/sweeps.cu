@@ -14,11 +14,14 @@
 // 2053, _ViscInit 2099, _Vorticity 2145); one templated neighbour loop
 // with a per-formula functor serves all of them.
 //
-// What bounds the cell-loop sweeps (K1's density and visc-init emits) on
-// the H100: not DRAM (each row's fields are read from device memory about
-// once per sweep, tens of MB at 1M rows) but the candidate loop itself
-// (for_each_neighbor), ~216 candidates per receiver of which ~15% lie
-// within h, each costing its loads and its cut.
+// What bounds a cell-loop sweep on the H100: not DRAM (each row's fields
+// are read from device memory about once per sweep, tens of MB at 1M rows)
+// but the candidate loop itself (for_each_neighbor), ~216 candidates per
+// receiver of which ~12% lie within h, each costing its loads and its cut,
+// and a pair body that the whole warp runs wherever any of its lanes has a
+// hit.  K1's density sweep, which runs before the step's list exists,
+// splits the two: for_each_neighbor_cut cuts first into a per-thread
+// buffer of shared memory, then sums over its own hits.
 //
 // Positions do not move between the sort and the position update.  So the
 // DFSPH and IISPH steps build a neighbour list once, right after their
@@ -26,14 +29,14 @@
 // loop finds, in its order, and each row's 16-byte record of position and
 // liquid flag), and every sweep that runs after it walks the list
 // (for_each_listed): K2, K3, the _DivAcc entry (which shares K2's
-// divergence launch), the _Vorticity entry and K4's matvec.  ~30 listed
-// pairs per receiver, no cut, each slot a coalesced read and each
-// neighbour's geometry one 16-byte load.  What bounds a walk then is its
-// gathers: per listed neighbour the record and the sweep's own fields of
-// that row (vorticity: vel, om and rinv, 7 words; K4: d and rinv, 4), each
-// a scattered load served from L1/L2 since a warp's neighbours lie in 9
-// row ranges.  These sweeps need the list: there is no cell-loop form of
-// them.
+// divergence launch), the _ViscInit and _Vorticity entries and K4's
+// matvec.  ~30 listed pairs per receiver, no cut, each slot a coalesced
+// read and each neighbour's geometry one 16-byte load.  What bounds a walk
+// then is its gathers: per listed neighbour the record and the sweep's own
+// fields of that row (vorticity: vel, om and rinv, 7 words; visc-init: x
+// and rinv, 4; K4: d and rinv, 4), each a scattered load served from L1/L2
+// since a warp's neighbours lie in 9 row ranges.  These sweeps need the
+// list: there is no cell-loop form of them.
 //
 // A launch returns cudaGetLastError().
 
@@ -105,8 +108,17 @@ __device__ __forceinline__ float visc_coeff(float lj, int j, float d2,
 // _DensityAlphaDrho: every in-domain receiver.  out (7, M):
 // [sum V_j W, count, sum V_j gs r (3), sum_liq (V0 gs)^2 d2,
 //  sum V_j gs (v_i - v_j).r]
+// It runs before the step's list exists (its counts size the list), so it
+// scans the cells.  Bound: the candidate loop, not bytes.  In a single
+// loop a warp's lanes, spread over ~4 cells, ran the two-sqrt,
+// two-division pair body on the union of their hits; for_each_neighbor_cut
+// cuts into kCutSlots hit slots per thread (40 KB of shared memory per
+// block) and then sums each receiver's own hits in the loop's order, so
+// the outputs keep the single loop's bits.  Replaces _build_sweep_sym
+// (engine.py:441) with the emit _DensityAlphaDrho.
 __global__ void k1_density_kernel(Geom g, const float* __restrict__ vel,
                                   float* __restrict__ out) {
+  __shared__ int hits[kCutSlots * kBlock];
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= g.M) return;
   const int M = g.M;
@@ -131,7 +143,7 @@ __global__ void k1_density_kernel(Geom g, const float* __restrict__ vel,
                      (vz - vel[2 * M + j]) * rz;
     div += vgs * dv;
   };
-  for_each_neighbor(g, i, f);
+  for_each_neighbor_cut(g, i, hits + threadIdx.x, f);
   out[i] = rho;
   out[M + i] = cnt;
   out[2 * M + i] = sgx;
@@ -150,8 +162,8 @@ __global__ void k1_div_kernel(Geom g, const float* __restrict__ vel,
   out[i] = g.liq[i] != 0.0f ? div_sum(g, i, vel) : 0.0f;
 }
 
-// _ViscInit at liquid receivers.  out (9, M): [sum c gs r_a r_b for
-// (xx, xy, xz, yy, yz, zz), sum c gs (x_i - x_j).r r (3)]
+// _ViscInit at liquid receivers, over the list.  out (9, M): [sum c gs
+// r_a r_b for (xx, xy, xz, yy, yz, zz), sum c gs (x_i - x_j).r r (3)]
 __global__ void k1_visc_init_kernel(Geom g, const float* __restrict__ x,
                                     const float* __restrict__ rinv,
                                     float a_liq, float b_sol, float d0,
@@ -163,9 +175,8 @@ __global__ void k1_visc_init_kernel(Geom g, const float* __restrict__ x,
   if (g.liq[i] != 0.0f) {
     const float xx = x[i], xy = x[M + i], xz = x[2 * M + i];
     const float ri = rinv[i];
-    auto f = [&](int j, float rx, float ry, float rz, float d2) {
-      const float c =
-          visc_coeff(g.liq[j], j, d2, rinv, ri, a_liq, b_sol, d0);
+    auto f = [&](int j, float rx, float ry, float rz, float d2, float lj) {
+      const float c = visc_coeff(lj, j, d2, rinv, ri, a_liq, b_sol, d0);
       const float gs = kernel_gs(g, d2);
       const float cg = c * gs;
       acc[0] += cg * rx * rx;
@@ -181,7 +192,7 @@ __global__ void k1_visc_init_kernel(Geom g, const float* __restrict__ x,
       acc[7] += cf * ry;
       acc[8] += cf * rz;
     };
-    for_each_neighbor(g, i, f);
+    for_each_listed(g, i, f);
   }
 #pragma unroll
   for (int k = 0; k < 9; ++k) out[k * M + i] = acc[k];

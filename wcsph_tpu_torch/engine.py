@@ -34,13 +34,18 @@ K7     ``k7_fused_jacobi_iter``    whole IISPH relaxed-Jacobi iteration
 K8     ``k8_fused_pcisph_iter``    whole PCISPH prediction iteration
 =====  ==========================  =========================================
 
-Five walkers read the step's neighbour list (``grid.NeighborList``)
+Six walkers read the step's neighbour list (``grid.NeighborList``)
 instead of the 27 cells: K2, K3, ``k1_div_acc`` (which shares K2's
-divergence launch), ``k1_vorticity`` and K4.  A DFSPH or IISPH step builds
-the list once, right after its density sweep, with ``nbr_list_fill``, a
-kernel of the port's own design that no TPU kernel corresponds to
-(``OWN_KERNELS``).  On the card these five raise where the grid has no
-list; their plain twins need none.
+divergence launch), ``k1_visc_init``, ``k1_vorticity`` and K4.  A DFSPH or
+IISPH step builds the list once, right after its density sweep, with
+``nbr_list_fill``, a kernel of the port's own design that no TPU kernel
+corresponds to (``OWN_KERNELS``).  On the card these six raise where the
+grid has no list; their plain twins need none.
+
+``k1_density_alpha_drho`` runs before the list exists (its counts size
+it), so it scans the cells, in two phases: each receiver first cuts its
+candidates into ``CUT_SLOTS`` slots of shared memory, then sums the pair
+terms over its own hits, in the single loop's order and with its bits.
 
 The libraries are built at first use on CUDA: one ``nvcc`` per
 ``csrc/*.cu``, all started together, for ``sm_90a`` into ``_build/``, keyed
@@ -111,10 +116,13 @@ KERNELS = {
 # wrapper name -> (kernel source, what it serves, plain twin)
 OWN_KERNELS = {
     "nbr_list_fill": (_SRC, "the neighbour list that K2, K3, k1_div_acc, "
-                      "k1_vorticity and K4 walk", dense_ops.neighbor_list),
+                      "k1_visc_init, k1_vorticity and K4 walk",
+                      dense_ops.neighbor_list),
 }
 LAUNCHES = {name: 0 for name in (*KERNELS, *OWN_KERNELS)}
 BLOCK = 256          # threads per block of every sweep (csrc/common.cuh)
+CUT_SLOTS = 40       # hits the density sweep's receiver keeps before it
+                     # sums them (kCutSlots, csrc/common.cuh)
 
 
 def reset_launch_counts() -> None:
@@ -367,9 +375,9 @@ def k1_visc_init(grid: Grid, x: torch.Tensor,
     _check(x, rinv, shapes=[(3, m), (m,)])
     h = grid.cfg.support_radius
     out = torch.empty((9, m), dtype=torch.float32, device=x.device)
-    _launch("k1_visc_init", ctypes.byref(_geom(grid)), x.data_ptr(),
-            rinv.data_ptr(), a_liq, b_sol, 0.01 * h * h, out.data_ptr(),
-            _stream())
+    _launch("k1_visc_init", ctypes.byref(_geom(grid, listed=True)),
+            x.data_ptr(), rinv.data_ptr(), a_liq, b_sol, 0.01 * h * h,
+            out.data_ptr(), _stream())
     return out
 
 

@@ -4,10 +4,10 @@ Port of ``wcsph_tpu/viscosity.py:solve_dense`` in its fused form: Weiler
 2018 implicit viscosity, (I - dt/rho L_visc) v' = v, with a 3x3
 block-Jacobi preconditioner (Sym3 components).  The setup (preconditioner
 sums + A x0) is one K1 sweep; each PCG iteration is one K4 call, whose two
-global dots stay on the device and whose matvec walks the step's neighbour
-list (built by the solver before it calls here; on the card K4 raises
-without one).  The loop ends on the host: it reads delta' after each
-iteration.
+global dots stay on the device.  Both the setup sweep and K4's matvec walk
+the step's neighbour list (built by the solver before it calls here; on
+the card both raise without one).  The loop ends on the host: it reads
+delta' after each iteration.
 
 Warm start: the previous frame's delta-v lives in vel_guess and the
 initial guess is vel_guess + vel; on return vel_guess holds the new
