@@ -14,25 +14,37 @@ its own lines and raising on failure:
 2. each kernel (K1-K8, every entry point) against its plain PyTorch twin on
    the card, at the shapes of a squeezed side-24 dam break with a
    converging velocity, numpy-seeded k / S / pressure fields, tension and
-   adhesion on; first the neighbour list that K2, K3, K4, ``k1_div_acc``,
-   ``k1_visc_init`` and ``k1_vorticity`` walk: the fill kernel's list and
-   its per-row records equal the plain build bit for bit, and those six
-   raise on a grid without one; last the density sweep on a block squeezed
-   to 0.6 of its spacing, where receivers have more hits than the sweep's
-   per-thread buffer (``engine.CUT_SLOTS``) and so sum it more than once;
+   adhesion on; first the grid stage, with three particles moved outside
+   the domain: the bin's permutation, offsets and rows equal the plain
+   stable sort's, and pack and unpack equal their twins; then the
+   neighbour list that K2, K3, K4, ``k1_div_acc``, ``k1_visc_init`` and
+   ``k1_vorticity`` walk: its slice offsets (whole and clamped to a short
+   buffer), the fill kernel's list and its per-row records equal the plain
+   build bit for bit, a fill into a short buffer is clamped and flagged as
+   the twin's, those six raise on a grid without a list, and a short count
+   raises at the grid's first read; last the density sweep on a block
+   squeezed to 0.6 of its spacing, where receivers have more hits than the
+   sweep's per-thread buffer (``engine.CUT_SLOTS``) and so sum it more than
+   once;
 3. whole steps: the 20-step golden scene of each of the four solvers on
    CUDA against ``tests/golden/<solver>_golden.npz``, and 3 steps of the
    pressurized side-8 scene, per solver and for DFSPH with tension, with
    the kernels against the plain twins on the card (per-step iteration
-   counts equal);
+   counts equal); then one DFSPH and one IISPH step with the list's
+   buffer forced to 64 slots, which replay once to the unforced bits;
 4. the paths at full width, a dam break at side 100 (1M liquid particles):
    DFSPH (the first slice's main path), then SESPH, PCISPH, IISPH and DFSPH
    with surface tension; for each, warm-up steps, launch counters reset,
-   timed steps, health check, overflow 0, every kernel of the path
-   launched (the list fill once per DFSPH and IISPH step); then the list
-   and each kernel against its plain twin again and timed beside it at
-   those shapes, with the least time the card could take for the same work
-   (``bound_ms``).
+   timed steps, health check, overflow 0, no list replay, every kernel of
+   the path launched (the bin, pack and unpack once per step, the list's
+   offsets and fill once per DFSPH and IISPH step); then the step's stage
+   from the bin through the filled list (SESPH, PCISPH: through the pack)
+   under ``torch.cuda.set_sync_debug_mode("error")``, and the host
+   synchronizations of one step counted under ``"warn"``; then the grid
+   stage, the list and each kernel against its plain twin again and timed
+   beside it at those shapes, with the least time the card could take for
+   the same work (``bound_ms``) and, for the grid stage, one PyTorch call
+   that computes its core (``library_ms``).
 
 The line before the last is one JSON object with the per-kernel record;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -309,6 +321,9 @@ def check_list(grid, vel, chk):
         raise AssertionError(
             f"nbr_list_fill: {int((got.rec != want.rec).any(1).sum())} of "
             f"{grid.n} records differ from the plain build")
+    if (int(got.need) != int(want.need) or int(got.flag) != 0
+            or int(want.flag) != 0):
+        raise AssertionError("nbr_list_fill: need or flag differ")
     err = float((got.idx - want.idx).abs().max()) if got.idx.numel() else 0.0
     chk.max_abs["nbr_list_fill"] = max(chk.max_abs.get("nbr_list_fill", 0.0),
                                        err)
@@ -324,8 +339,9 @@ def check_list(grid, vel, chk):
 
 def check_list_required(grid, inp, count):
     """K2, K3, K4, k1_div_acc, k1_visc_init and k1_vorticity raise on a
-    grid whose step built no list, and the fill raises on a count below the pairs within h
-    (it would drop a neighbour) rather than leave a short list."""
+    grid whose step built no list, and a fill from a count below the pairs
+    within h (it would drop a neighbour) flags it, so that the grid's first
+    host read raises rather than the step walk a short list."""
     import dataclasses
 
     import torch
@@ -334,8 +350,11 @@ def check_list_required(grid, inp, count):
 
     bare = dataclasses.replace(grid, nbr=None)
     saved = dict(engine.LAUNCHES)
+    short = dataclasses.replace(grid, nbr=None)
     try:
-        engine.nbr_list_fill(bare, torch.clamp(count - 1, min=0))
+        # the kernel flags it for the read; a plain twin raises at once
+        engine.nbr_list_fill(short, torch.clamp(count - 1, min=0))
+        short.read(torch.zeros((), device=grid.device))
     except ValueError as e:
         if "count differs" not in str(e):
             raise
@@ -365,7 +384,7 @@ def check_list_required(grid, inp, count):
         else:
             raise AssertionError(f"{name} ran on a grid with no list")
     log(f"  {', '.join(name for name, _ in calls)} raise on a grid with no "
-        "neighbour list; nbr_list_fill raises on a short count")
+        "neighbour list; a fill from a short count raises at the first read")
 
 
 def check_dense(cfg, side, chk):
@@ -396,19 +415,297 @@ def check_dense(cfg, side, chk):
                              "sweep's buffer")
 
 
+# ---------------------------------------------------------------------------
+# The grid stage: bin, pack, unpack and the list's offsets, exactly
+# ---------------------------------------------------------------------------
+
+BIN_OUTPUTS = ("order", "row_of", "cell", "cell_start", "pos", "liquid",
+               "liq", "n_liquid")
+
+
+def with_outside(pos, cfg):
+    """The planar positions with liquid particles 0 and 1 past the
+    domain's top corner and the last particle (boundary) below its
+    floor."""
+    import torch
+
+    out = pos.clone()
+    hi = torch.tensor(cfg.domain_max, dtype=torch.float32)
+    out[:, 0] = (hi + 0.3).to(out.device)
+    out[:, 1] = (hi + 0.7).to(out.device)
+    out[1, -1] = float(cfg.domain_min[1]) - 0.2
+    return out
+
+
+def step_fields(nl, dev, rng):
+    """DFSPH's five per-liquid fields (vel, omega, vel_guess, kappa,
+    kappa_v), numpy-seeded."""
+    import torch
+
+    return [torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+            for shape in ((3, nl), (3, nl), (3, nl), (nl,), (nl,))]
+
+
+def check_grid_stage(pos, n_liquid, cfg, chk, rng):
+    """The bin, pack and unpack kernels against their plain twins, every
+    output equal; returns the kernel-built grid."""
+    import torch
+
+    from wcsph_tpu_torch import dense_ops, engine
+    from wcsph_tpu_torch.grid import Grid
+
+    saved = dict(engine.LAUNCHES)
+    got = engine.bin_cells(pos, n_liquid, cfg)
+    want = dense_ops.bin_cells(pos, n_liquid, cfg)
+    torch.cuda.synchronize()
+    for name, a, b in zip(BIN_OUTPUTS, got, want):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"bin_cells: {name} differs from the plain "
+                                 "stable sort")
+    grid = Grid(cfg, *got)
+    m_in = int(grid.cell_start[-1])
+    fields = step_fields(n_liquid, pos.device, rng)
+    packed = engine.pack_rows(grid, fields)
+    for a, b in zip(packed, dense_ops.pack_rows(grid, fields)):
+        if not torch.equal(a, b):
+            raise AssertionError("pack_rows differs from its plain twin")
+    defaults = step_fields(n_liquid, pos.device, rng)
+    back = engine.unpack_rows(grid, packed, defaults)
+    for a, b in zip(back, dense_ops.unpack_rows(grid, packed, defaults)):
+        if not torch.equal(a, b):
+            raise AssertionError("unpack_rows differs from its plain twin")
+    out = grid.row_of[:n_liquid] < 0
+    for a, x, d in zip(back, fields, defaults):
+        if not torch.equal(torch.where(out, d, x), a):
+            raise AssertionError("pack then unpack lost a field")
+    for name in ("bin_cells", "pack_rows", "unpack_rows"):
+        chk.max_abs[name] = 0.0
+    log(f"  bin_cells: order, offsets, cells, rows, positions, flags and "
+        f"the liquid count equal to the plain stable sort ({grid.n} rows, "
+        f"{grid.n - m_in} outside the domain, last); pack_rows and "
+        f"unpack_rows of DFSPH's five fields equal to their twins, and "
+        f"{int(out.sum())} liquid particles outside kept their defaults")
+    engine.LAUNCHES.update(saved)     # check launches are not main-path
+    return grid
+
+
+def check_list_capacity(grid, count, chk):
+    """The list's slice offsets against their twin, whole and clamped to a
+    capacity of half the slots needed, and the fill into that short buffer:
+    the same clamped offsets, need and flag, and the same slots."""
+    import dataclasses
+
+    import torch
+
+    from wcsph_tpu_torch import dense_ops, engine
+    from wcsph_tpu_torch.grid import ListSlots
+
+    saved = dict(engine.LAUNCHES)
+    need = int(dense_ops.list_offsets(count, grid.liquid)[1])
+    short = ListSlots(need // 2)
+    for cap in (2 ** 31 - 1, short.capacity):
+        got = engine.nbr_list_offsets(count, grid.liq, cap)
+        want = dense_ops.list_offsets(count, grid.liquid, cap)
+        if not (torch.equal(got[0], want[0]) and int(got[1]) == need
+                and int(want[1]) == need):
+            raise AssertionError(f"nbr_list_offsets differs at capacity "
+                                 f"{cap}")
+    # on a copy of the grid: the fill keeps its list as the grid's, and the
+    # walkers checked after this must walk the whole one
+    got = engine.nbr_list_fill(dataclasses.replace(grid), count, short)
+    want = dense_ops.neighbor_list(grid, count, ListSlots(need // 2))
+    live = int(got.off[-1])
+    if not (live == short.capacity and torch.equal(got.off, want.off)
+            and torch.equal(got.idx[:live], want.idx[:live])
+            and torch.equal(got.rec, want.rec) and int(got.need) == need
+            and int(got.flag) == 1 and int(want.flag) == 1):
+        raise AssertionError("nbr_list_fill into a short buffer differs "
+                             "from its plain twin")
+    chk.max_abs["nbr_list_offsets"] = 0.0
+    log(f"  nbr_list_offsets: equal to the twin, whole ({need} slots) and "
+        f"clamped to {short.capacity}; the fill into that buffer is clamped "
+        f"and flagged as the twin's, its {live} slots equal")
+    engine.LAUNCHES.update(saved)
+
+
+def check_replay(solver, dev):
+    """One step of the pressurized side-8 scene with the list's buffer
+    forced to 64 slots: it replays once and gives the bits of the step
+    with an unforced buffer."""
+    import torch
+
+    from wcsph_tpu_torch import engine
+    from wcsph_tpu_torch.grid import ListSlots
+    from wcsph_tpu_torch.simulation import Simulation, default_config
+
+    r = 0.025
+    sc = squeezed_dam_break(8, 0.92, box_extent=0.9)
+    lo, hi = sc.domain(pad=4 * r)
+    sim = Simulation(sc, default_config(solver, particle_radius=r,
+                                        domain_min=lo, domain_max=hi),
+                     solver=solver, device=dev)
+    state = sim.state.replace(vel=torch.as_tensor(converging_velocity(
+        sc.positions[: sc.n_liquid]), device=dev))
+    before = engine.LIST_REPLAYS
+    want = sim._solver.step(state, sim.cfg, ListSlots())
+    forced = ListSlots(64)
+    got = sim._solver.step(state, sim.cfg, forced)
+    replays = engine.LIST_REPLAYS - before
+    fields = ("pos", "vel", "omega", "vel_guess", "pressure", "kappa",
+              "kappa_v")
+    same = all(torch.equal(getattr(got, f), getattr(want, f))
+               for f in fields) and got.diag == want.diag
+    log(f"[phase 3] {solver}: a step with 64 list slots replayed {replays} "
+        f"time(s) (buffer grown to {forced.capacity}) and "
+        f"{'equals' if same else 'DIFFERS FROM'} the unforced step bit for "
+        f"bit")
+    if replays != 1 or not same:
+        raise AssertionError(f"{solver}: the forced-capacity step did not "
+                             "replay to the same bits")
+
+
+def stage_without_sync(sim, solver):
+    """The step's stage from the bin through the filled list (SESPH and
+    PCISPH: through the pack), the solver's own functions, under
+    torch.cuda.set_sync_debug_mode("error"): any host read raises."""
+    import torch
+
+    from wcsph_tpu_torch.solvers import dfsph, iisph, pcisph, sesph
+
+    mod = {"dfsph": dfsph, "iisph": iisph, "sesph": sesph,
+           "pcisph": pcisph}[solver]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grid, packed = mod.bin_and_pack(sim.state, sim.cfg)
+        if solver == "dfsph":
+            dfsph.density_and_list(grid, packed[0], sim.list_slots)
+        elif solver == "iisph":
+            iisph.density_and_list(grid, sim.list_slots)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if solver in ("dfsph", "iisph"):
+        if grid.nbr.idx.data_ptr() != sim.list_slots.idx.data_ptr():
+            raise AssertionError("the fill did not use the kept buffer")
+        grid.read(torch.zeros((), device=grid.device))   # status: no raise
+    return "bin, pack" + (", density, list offsets and fill"
+                          if solver in ("dfsph", "iisph") else "")
+
+
+def host_syncs(sim):
+    """The host synchronizations of one step, counted under
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sim.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def time_grid_stage(grid, pos, n_liquid, count, rng, reps_kernel=20,
+                    reps_plain=5):
+    """(kernel ms, plain ms, library ms) of the bin, pack, unpack and list
+    offsets at the grid's shapes.  Library: the one PyTorch call that
+    computes the same function's core: torch.sort(stable=True) of the cell
+    keys for the bin, one gather (index_select of the stacked field rows)
+    for pack and unpack, torch.cumsum of the slice widths for the
+    offsets."""
+    import torch
+
+    from wcsph_tpu_torch import dense_ops, engine
+    from wcsph_tpu_torch.bench import time_call
+    from wcsph_tpu_torch.grid import ListSlots
+
+    cfg = grid.cfg
+    saved = dict(engine.LAUNCHES)
+    fields = step_fields(n_liquid, pos.device, rng)
+    defaults = step_fields(n_liquid, pos.device, rng)
+    packed = engine.pack_rows(grid, fields)
+    keys = torch.where(grid.row_of >= 0, 0, cfg.num_cells).to(torch.int64)
+    keys[grid.order[: int(grid.cell_start[-1])]] = (
+        grid.cell[: int(grid.cell_start[-1])].to(torch.int64))
+    rows11 = torch.cat([f.reshape(-1, n_liquid) for f in fields])
+    src = torch.where(grid.liquid, grid.order, 0)
+    packed11 = torch.cat([p.reshape(-1, grid.n) for p in packed])
+    back = grid.row_of[:n_liquid].clamp(min=0).to(torch.int64)
+    cap = ListSlots(int(dense_ops.list_offsets(count, grid.liquid)[1])
+                    ).capacity
+    width = (dense_ops.list_offsets(count, grid.liquid)[0].diff())
+    cases = {
+        "bin_cells": (lambda: (pos, n_liquid, cfg),
+                      lambda: torch.sort(keys, stable=True)),
+        "pack_rows": (lambda: (grid, fields),
+                      lambda: rows11.index_select(1, src)),
+        "unpack_rows": (lambda: (grid, packed, defaults),
+                        lambda: packed11.index_select(1, back)),
+        "nbr_list_offsets": (lambda: (count, grid.liq, cap),
+                             lambda: torch.cumsum(width, 0)),
+    }
+    times = {}
+    for name, (make, library) in cases.items():
+        times[name] = (time_call(getattr(engine, name), make, reps_kernel),
+                       time_call(engine.OWN_KERNELS[name][2], make,
+                                 reps_plain),
+                       time_call(library, tuple, reps_kernel))
+        log(f"  {name}: kernel {times[name][0]:.4f} ms, plain "
+            f"{times[name][1]:.4f} ms, library {times[name][2]:.4f} ms "
+            f"(M={grid.n})")
+    engine.LAUNCHES.update(saved)     # timing launches are not main-path
+    return times
+
+
+def grid_bytes(grid, counts, k_fields):
+    """name -> bytes each input read once and each output written once, for
+    the grid stage's kernels (their operations are a few per row: bytes
+    bound them).  ``k_fields``: field rows a pack or unpack moves."""
+    n = grid.n
+    nl = counts["particles_liquid"]
+    l_in = counts["rows_liquid"]
+    s = -(-n // 32)
+    return {
+        # positions read; order (8), row_of, cell, sorted positions (12),
+        # liquid flag (1) and liq written per row; cell offsets, the count
+        "bin_cells": 12 * n + 33 * n + 4 * (grid.cfg.num_cells + 1) + 4,
+        # liq flag per row, order and the fields at liquid rows read; every
+        # row of every field written
+        "pack_rows": 4 * n + 8 * l_in + 4 * k_fields * l_in
+        + 4 * k_fields * n,
+        # each liquid particle's row, its packed value or (outside the
+        # domain) its default read; every field written
+        "unpack_rows": 4 * nl + 4 * k_fields * l_in
+        + 4 * k_fields * (nl - l_in) + 4 * k_fields * nl,
+        # counts and flags read; offsets and the need written
+        "nbr_list_offsets": 8 * n + 4 * (s + 1) + 8,
+    }
+
+
 def time_kernels(grid, cases, count, reps_kernel=20, reps_plain=5):
     """(kernel ms, plain ms) per kernel (K3 timed in mode 1, the pressure
-    iteration, which the main path runs most), and for the list fill
-    (the whole wrapper: slice offsets, two host reads, the fill; its plain
-    twin's time excludes the pair list it reads)."""
+    iteration, which the main path runs most), and for the list fill (the
+    whole wrapper as a step runs it, into a buffer sized as a step's:
+    slice offsets and the fill, no host read; its plain twin's time
+    excludes the pair list it reads)."""
     from wcsph_tpu_torch import engine
     from wcsph_tpu_torch.bench import time_call
+    from wcsph_tpu_torch.grid import ListSlots
 
     saved = dict(engine.LAUNCHES)
     twins = {**engine.KERNELS, **engine.OWN_KERNELS}
+    slots = ListSlots()
+    engine.nbr_list_fill(grid, count, slots)     # sizes the buffer
     times = {}
     for name, label, make, _, _ in [
-            *cases, ("nbr_list_fill", "", lambda: (grid, count), 0, 0)]:
+            *cases, ("nbr_list_fill", "", lambda: (grid, count, slots), 0,
+                     0)]:
         if label == "mode 0":
             continue
         times[name] = (time_call(getattr(engine, name), make, reps_kernel),
@@ -467,9 +764,10 @@ WORK = {
 }
 
 
-def pair_counts(grid, inp):
+def pair_counts(grid, inp, n_liquid):
     """The directed pairs within h that this run's inputs make each kind
-    of sweep evaluate (see WORK)."""
+    of sweep evaluate (see WORK), and the liquid particles and rows (see
+    grid_bytes)."""
     import torch
 
     from wcsph_tpu_torch import dense_ops
@@ -482,15 +780,18 @@ def pair_counts(grid, inp):
             "liq": int(grid.liquid[p.i].sum()),
             "gate": int((inp["gate"][p.i] != 0).sum()),
             "star": int(grid.liquid[star.i].sum()),
-            "slots": int(grid.nbr.idx.numel())}
+            "slots": int(grid.nbr.off[-1]),
+            "particles_liquid": int(n_liquid),
+            "rows_liquid": int(grid.liquid.sum())}
 
 
-def bounds(grid, counts):
-    """name -> (bound ms, "bytes" or "operations") from WORK and the
-    card's published peaks."""
+def bounds(grid, counts, k_fields):
+    """name -> (bound ms, "bytes" or "operations") from WORK, grid_bytes
+    and the card's published peaks."""
     m = grid.n
     geom_words = 5 * m + grid.cfg.num_cells + 1
-    out = {}
+    out = {name: (b / PEAK_BYTES_PER_S * 1e3, "bytes")
+           for name, b in grid_bytes(grid, counts, k_fields).items()}
     for name, (n_in, n_out, ops, *more) in WORK.items():
         words = geom_words + (n_in + n_out) * m
         if more:
@@ -548,13 +849,16 @@ def main():
                          domain_max=hi, **all_terms,
                          **bench.flagship_paths(side)["dfsph+tension"][1])
     sim = Simulation(sc, cfg, device=dev)     # resolves the boundary volume
+    chk = KernelCheck()
+    check_grid_stage(with_outside(sim.state.pos, sim.cfg), sc.n_liquid,
+                     sim.cfg, chk, np.random.RandomState(2))
     grid = build_grid(sim.state.pos, sc.n_liquid, sim.cfg)
     log(f"[phase 2] side {side} squeezed 0.92: M={grid.n} rows, "
-        f"{grid.n_liquid} liquid")
-    chk = KernelCheck()
+        f"{grid.liquid_count} liquid")
     inp = kernel_inputs(grid, sc.positions[: sc.n_liquid],
                         np.random.RandomState(0))
     count = check_list(grid, inp["vel"], chk)
+    check_list_capacity(grid, count, chk)
     check_list_required(grid, inp, count)
     cases = kernel_cases(grid, inp)
     if {c[0] for c in cases} != set(engine.KERNELS):
@@ -624,21 +928,26 @@ def main():
                                  f"differ")
         np.testing.assert_allclose(traces[0][1], traces[1][1], rtol=2e-4,
                                    atol=2e-5)
+    for solver in ("dfsph", "iisph"):
+        check_replay(solver, dev)
 
     # ---- phase 4: the paths at full width -----------------------------------
     # the kernels each path must launch
     visc = ("k1_visc_init", "k4_fused_visc_iter")
-    dfsph_kernels = ("k1_density_alpha_drho", "nbr_list_fill", "k1_div_acc",
+    # once per step: the grid stage on every path, the list on two
+    stage = ("bin_cells", "pack_rows", "unpack_rows")
+    listed = ("nbr_list_offsets", "nbr_list_fill")
+    dfsph_kernels = ("k1_density_alpha_drho", "k1_div_acc",
                      "k1_vorticity", "k2_fused_kappa_drho",
-                     "k3_fused_iter_full") + visc
+                     "k3_fused_iter_full") + visc + stage + listed
     must_launch = {
         "dfsph": dfsph_kernels,
-        "sesph": ("k5_density_alpha", "k5_sesph_force"),
+        "sesph": ("k5_density_alpha", "k5_sesph_force") + stage,
         "pcisph": ("k5_density_alpha", "k5_sesph_force",
-                   "k8_fused_pcisph_iter"),
+                   "k8_fused_pcisph_iter") + stage,
         "iisph": ("k5_density_alpha", "k5_iisph_adv", "k5_iisph_aii",
-                  "k5_iisph_force", "k7_fused_jacobi_iter",
-                  "nbr_list_fill") + visc,
+                  "k5_iisph_force", "k7_fused_jacobi_iter") + visc + stage
+        + listed,
         "dfsph+tension": dfsph_kernels + ("k6_fused_tension",),
     }
     paths = bench.flagship_paths(MAIN_SIDE)
@@ -672,16 +981,25 @@ def main():
             raise AssertionError(f"{path} did not launch {missing}")
         if tel["neighbor_overflow"] != 0:
             raise AssertionError(f"{path}: overflow != 0")
-        if solver in ("dfsph", "iisph") and res["launches"][
-                "nbr_list_fill"] != res["steps"]:
-            raise AssertionError(f"{path}: the list fill did not run once "
-                                 f"per step")
+        once = stage + (listed if solver in ("dfsph", "iisph") else ())
+        if any(res["launches"][k] != res["steps"] for k in once):
+            raise AssertionError(f"{path}: {once} did not run once per step")
+        if res["replays"]:
+            raise AssertionError(f"{path}: {res['replays']} list replays in "
+                                 "the timed window")
         for k, v in res["launches"].items():
             launches[k] += v
+        ran_clean = stage_without_sync(msim, solver)
+        syncs = host_syncs(msim)
+        log(f"[phase 4] {path}: {ran_clean} ran under "
+            f"set_sync_debug_mode('error') with no host read; one step made "
+            f"{syncs} host synchronizations (counted under 'warn'); "
+            f"{res['replays']} list replays in the timed window")
         path_records[path] = {
             "particle_steps_per_s": res["particle_steps_per_s"],
             "n_liquid": res["n_liquid"], "iters": res["iters"],
-            "step_ms": res["step_ms"], "launches": ran}
+            "step_ms": res["step_ms"], "launches": ran,
+            "host_syncs_per_step": syncs, "replays": res["replays"]}
         if path == "dfsph":
             mstate, mcfg = msim.state, msim.cfg
         del msim
@@ -702,27 +1020,33 @@ def main():
         f"pairs, built in {(time.perf_counter() - t0) * 1e3:.1f} ms")
     liq_pos = mstate.pos[:, : mstate.n_liquid].T.cpu().numpy()
     minp = kernel_inputs(mgrid, liq_pos, np.random.RandomState(1))
+    check_grid_stage(mstate.pos, mstate.n_liquid, mgrid.cfg, chk,
+                     np.random.RandomState(3))
     mcount = check_list(mgrid, minp["vel"], chk)
+    check_list_capacity(mgrid, mcount, chk)
     cases = kernel_cases(mgrid, minp)
     check_kernels(mgrid, cases, chk)
-    log(f"[phase 4] the list and every kernel agree with their plain twins "
-        f"at M={mgrid.n}")
+    log(f"[phase 4] the grid stage, the list and every kernel agree with "
+        f"their plain twins at M={mgrid.n}")
     times = time_kernels(mgrid, cases, mcount)
-    counts = pair_counts(mgrid, minp)
-    bound = bounds(mgrid, counts)
+    grid_times = time_grid_stage(mgrid, mstate.pos, mstate.n_liquid, mcount,
+                                 np.random.RandomState(4))
+    times.update({k: v[:2] for k, v in grid_times.items()})
+    counts = pair_counts(mgrid, minp, mstate.n_liquid)
+    bound = bounds(mgrid, counts, k_fields=11)
     log(f"[phase 4] pairs within h at M={mgrid.n}: {counts}")
     for name, (ms, by) in bound.items():
         log(f"  {name}: bound {ms:.4f} ms by {by}; kernel "
             f"{times[name][0] / ms:.1f}x its bound")
 
     # no single PyTorch call computes a neighbour sweep over a cell list (or
-    # the list itself), so no kernel has a library yardstick
+    # the list itself): library yardsticks only for the grid stage
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": chk.max_abs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bound[name][0], "bound_by": bound[name][1],
-         "library_ms": None}
+         "library_ms": grid_times[name][2] if name in grid_times else None}
         for name, (src, rep, _) in [
             *engine.KERNELS.items(),
             *[(n, (src, "none: " + what, tw))

@@ -194,22 +194,31 @@ def _cuda_entries():
     return entries, src
 
 
+# the port's own kernels (no TPU counterpart): the grid stage and the list
+OWN_KERNEL_NAMES = ["bin_cells", "pack_rows", "unpack_rows",
+                    "nbr_list_offsets", "nbr_list_fill"]
+
+
 def test_kernel_tables_list_the_same_entries():
     """KERNELS has the 15 counterparts of TPU kernels and OWN_KERNELS the
-    port's own (the neighbour-list fill); LAUNCHES and _SIGNATURES have
-    the names of both, and they are exactly the ``extern "C"`` entries of
-    csrc/."""
+    port's own (the bin, pack, unpack, and the neighbour list's offsets and
+    fill); LAUNCHES and _SIGNATURES have the names of both, and they are
+    exactly the ``extern "C"`` entries of csrc/.  Each of the port's own
+    has a wrapper of its name, a source that defines its entry, a plain
+    twin and a ctypes signature with as many parameters as the entry."""
     assert set(engine.KERNELS) == set(KERNEL_NAMES)
     assert len(KERNEL_NAMES) == 15
-    assert set(engine.OWN_KERNELS) == {"nbr_list_fill"}
+    assert set(engine.OWN_KERNELS) == set(OWN_KERNEL_NAMES)
     names = set(KERNEL_NAMES) | set(engine.OWN_KERNELS)
     assert names == set(engine.LAUNCHES) == set(engine._SIGNATURES)
-    assert set(_cuda_entries()[0]) == names
-    source, _, twin = engine.OWN_KERNELS["nbr_list_fill"]
-    assert ROOT / source == _cuda_entries()[0]["nbr_list_fill"][0]
-    assert callable(engine.nbr_list_fill) and callable(twin)
-    assert (_cuda_entries()[0]["nbr_list_fill"][1]
-            == len(engine._SIGNATURES["nbr_list_fill"]))
+    entries = _cuda_entries()[0]
+    assert set(entries) == names
+    for name in OWN_KERNEL_NAMES:
+        source, _, twin = engine.OWN_KERNELS[name]
+        f, n_params = entries[name]
+        assert ROOT / source == f, name
+        assert callable(getattr(engine, name)) and callable(twin)
+        assert n_params == len(engine._SIGNATURES[name]), name
 
 
 @pytest.mark.parametrize("name", KERNEL_NAMES)
@@ -234,14 +243,16 @@ def test_kernel_tables_agree_with_sources(name):
 
 
 @pytest.mark.parametrize("struct,where", [
-    ("Geom", "common.cuh"), ("TensionParams", "solver_sweeps.cu")])
+    ("Geom", "common.cuh"), ("TensionParams", "solver_sweeps.cu"),
+    ("Fields", "bin.cu")])
 def test_ctypes_mirror_follows_the_cuda_struct(struct, where):
-    """The ctypes mirror lists the fields of the CUDA struct in order."""
+    """The ctypes mirror lists the fields of the CUDA struct in order (an
+    array field with the length of its ``constexpr int`` bound)."""
     import ctypes
 
     mirror = getattr(engine, "_" + struct)
-    body = re.search(rf"struct {struct} {{(.*?)\n}};",
-                     _cuda_entries()[1][PKG / "csrc" / where], re.S).group(1)
+    text = _cuda_entries()[1][PKG / "csrc" / where]
+    body = re.search(rf"struct {struct} {{(.*?)\n}};", text, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     fields = []
     for decl in body.split(";"):
@@ -251,7 +262,16 @@ def test_ctypes_mirror_follows_the_cuda_struct(struct, where):
                      ctypes.c_int if decl.startswith("int") else
                      ctypes.c_float)
             rest = re.sub(r"^(const )?(float4|float|int)\*?", "", decl)
-            fields += [(n.strip(" *"), ctype) for n in rest.split(",")]
+            for n in rest.split(","):
+                n = n.strip(" *")
+                dim = re.fullmatch(r"(\w+)\[(\w+)\]", n)
+                if dim:
+                    n = dim.group(1)
+                    size = re.search(rf"constexpr int {dim.group(2)} = "
+                                     r"(\d+);", text).group(1)
+                    fields.append((n, ctype * int(size)))
+                else:
+                    fields.append((n, ctype))
     assert fields == list(mirror._fields_)
 
 

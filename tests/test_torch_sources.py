@@ -9,6 +9,9 @@ tests/test_torch_package.py::test_port_imports_no_jax.)
 The sweeps that run after a step's neighbour list is built walk that list
 and have no cell-loop form: one case per list-walking ``__global__`` of
 csrc/sweeps.cu, read with the device functions it calls.
+
+No kernel source copies to or from the host, allocates, or waits for the
+card: one case per file of csrc/.
 """
 
 import ast
@@ -75,6 +78,22 @@ def test_source_imports_no_jax(source):
 
 
 CSRC = ROOT / "wcsph_tpu_torch" / "csrc"
+# the kernel sources, as SOURCES lists the Python ones
+CUDA_SOURCES = ["bin.cu", "common.cuh", "solver_sweeps.cu", "sweeps.cu"]
+
+
+def test_cuda_sources_never_wait_for_the_card():
+    """No kernel source copies to or from the host, allocates, or waits for
+    the device: a launch only enqueues work, so the step's stage from the
+    bin through the list makes no host read (chip_smoke.py runs it under
+    torch.cuda.set_sync_debug_mode("error") on the card).  The list above
+    is the tree's."""
+    assert CUDA_SOURCES == sorted(f.name for f in CSRC.glob("*.cu*"))
+    for source in CUDA_SOURCES:
+        text = re.sub(r"//[^\n]*", "", (CSRC / source).read_text())
+        assert not re.search(r"\bcudaMemcpy\w*\s*\(|Synchronize\s*\(|"
+                             r"\bcudaMalloc\w*\s*\(|\bcudaFree\s*\(",
+                             text), source
 # the __global__ functions of csrc/sweeps.cu that walk the step's list
 LIST_WALKERS = [
     "k1_div_kernel", "k2_kappa_kernel", "k3_kappa_kernel", "k3_div_kernel",

@@ -17,13 +17,19 @@ one process on one card:
    by a numpy-seeded uniform +-0.3 r.  Each recorded call (the first of
    each wrapper, and of each K3 mode) is replayed through its wrapper with
    the old and with the new library, timed in turns (old, new, new, old)
-   with CUDA events and compared bit for bit; the list fill is timed alone
-   and as its whole wrapper; ``step_calls`` sums each side's times over
-   the calls that the recorded step made;
-2. steps: the DFSPH, DFSPH-with-tension and IISPH paths of
-   ``bench.flagship_paths``, 3 warm-up and 10 timed steps each, in child
-   processes of the old tree and of this one, in turns (old, new, new,
-   old), with each step's (divergence, pressure, viscosity) iterations.
+   with CUDA events and compared bit for bit; the list fill is timed alone,
+   its slice offsets alone, and both as its whole wrapper; ``step_calls``
+   sums each side's times over the calls that the recorded step made;
+2. steps: the five paths of ``bench.flagship_paths``, 3 warm-up and 10
+   timed steps each, in child processes of the old tree and of this one, in
+   turns (old, new, new, old), with each step's (divergence, pressure,
+   viscosity) iterations, the list replays in the timed window (this tree),
+   the grid stage (``build_grid`` and the pack of the velocity: CUDA
+   events, and its host synchronizations) and the host synchronizations of
+   one more step, counted under ``torch.cuda.set_sync_debug_mode("warn")``;
+   the state after the 13 steps
+   of each tree's first turn is compared field by field (bit-equal, largest
+   absolute difference).
 
 One JSON line per measurement on stdout, after a first line with the
 card's name and power limit.
@@ -38,13 +44,13 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from . import bench, engine
-from .grid import slice_offsets
 
 AB_KERNELS = ("k1_density_alpha_drho", "k1_div_acc", "k1_visc_init",
               "k1_vorticity", "k2_fused_kappa_drho", "k3_fused_iter_full",
@@ -55,20 +61,64 @@ JITTER = 0.3       # of the particle radius
 SEED = 0
 
 # One tree's steps: run with that tree's root as the working directory,
-# so that its own wcsph_tpu_torch is imported.
+# so that its own wcsph_tpu_torch is imported.  argv: side, and a directory
+# for the state after the timed steps (or "-").
 _STEPS = """
-import json, statistics, sys, torch
-from wcsph_tpu_torch import bench
-side = int(sys.argv[1])
-for name in ("dfsph", "dfsph+tension", "iisph"):
-    solver, over = bench.flagship_paths(side)[name]
-    res = bench.measure(bench.build_sim(side, "cuda", solver, **over), 3, 10)
+import json, os, statistics, sys, warnings
+import numpy as np, torch
+from wcsph_tpu_torch import bench, engine
+from wcsph_tpu_torch.grid import build_grid, pack
+from wcsph_tpu_torch.state import state_to_numpy
+side, keep = int(sys.argv[1]), sys.argv[2]
+
+def syncs(run):
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+for name, (solver, over) in bench.flagship_paths(side).items():
+    sim = bench.build_sim(side, "cuda", solver, **over)
+    res = bench.measure(sim, 3, 10)
+    replays = getattr(engine, "LIST_REPLAYS", None)
+    st = sim.state
+    if keep != "-":
+        np.savez(os.path.join(keep, name + ".npz"), **{
+            k: v for k, v in state_to_numpy(st).items()
+            if isinstance(v, np.ndarray)})
+    def stage():
+        return pack(build_grid(st.pos, st.n_liquid, sim.cfg), [st.vel])
+
+    stage_ms = bench.time_call(stage, tuple, 20)
+    stage_syncs = syncs(stage)
     print(json.dumps({"path": name,
                       "particle_steps_per_s": res["particle_steps_per_s"],
                       "step_ms_median": statistics.median(res["step_ms"]),
-                      "iters": res["iters"]}), flush=True)
+                      "step_ms": res["step_ms"], "iters": res["iters"],
+                      "replays": replays, "bin_pack_ms": stage_ms,
+                      "bin_pack_host_syncs": stage_syncs,
+                      "host_syncs_per_step": syncs(sim.step)}), flush=True)
+    del sim, st
     torch.cuda.empty_cache()
 """
+
+
+def compare_states(old_dir: Path, new_dir: Path) -> dict:
+    """path -> {field: (bit-equal, largest absolute difference)} of the
+    two trees' states after the timed steps."""
+    out = {}
+    for f in sorted(new_dir.glob("*.npz")):
+        a, b = np.load(old_dir / f.name), np.load(f)
+        out[f.stem] = {k: (bool(np.array_equal(a[k], b[k])),
+                           float(np.abs(a[k].astype(np.float64)
+                                        - b[k].astype(np.float64)).max()))
+                       for k in b.files}
+    return out
 
 
 def old_library(old_root: Path) -> dict:
@@ -173,23 +223,23 @@ def kernels_ab(first, count, old) -> dict:
             "bit_equal": all(torch.equal(a, b) for a, b in zip(*res)),
             "max_abs_diff": max(float((a.double() - b.double()).abs().max())
                                 for a, b in zip(*res))}
-    grid, cnt = first["nbr_list_fill"][1]
-    off, total = slice_offsets(cnt, grid.liquid)
-    idx = torch.empty((total,), dtype=torch.int32, device=grid.device)
-    rec = torch.empty((grid.n, 4), dtype=torch.float32, device=grid.device)
-    flag = torch.zeros((), dtype=torch.int32, device=grid.device)
+    grid, cnt, slots = first["nbr_list_fill"][1]
+    nl = engine.nbr_list_fill(grid, cnt, slots)
     geom = engine._geom(grid)
 
     def fill():
-        engine._launch("nbr_list_fill", ctypes.byref(geom), off.data_ptr(),
-                       idx.data_ptr(), rec.data_ptr(), flag.data_ptr(),
-                       engine._stream())
+        engine._launch("nbr_list_fill", ctypes.byref(geom), nl.off.data_ptr(),
+                       nl.idx.data_ptr(), nl.rec.data_ptr(),
+                       nl.flag.data_ptr(), engine._stream())
 
     out["nbr_list_fill"] = {
         "kernel_ms": bench.time_call(fill, tuple, REPS),
+        "offsets_ms": bench.time_call(
+            engine.nbr_list_offsets, lambda: (cnt, grid.liq, slots.capacity),
+            REPS),
         "wrapper_ms": bench.time_call(engine.nbr_list_fill,
-                                      lambda: (grid, cnt), REPS),
-        "slots": total}
+                                      lambda: (grid, cnt, slots), REPS),
+        "slots": int(nl.need), "capacity": slots.capacity}
     calls = {k: n for k, n in count.items()
              if k in out and k != "nbr_list_fill"}
     out["step_calls"] = {
@@ -229,8 +279,8 @@ def main(argv=None):
     for scene, pos in (("at rest", state.pos), ("jittered", jittered)):
         sim.state = state.replace(pos=pos)
         first, count = record_step(sim)
-        grid, cnt = first["nbr_list_fill"][1]
-        if grid.n != state.n_total:
+        grid, cnt, _ = first["nbr_list_fill"][1]
+        if int(grid.cell_start[-1]) != state.n_total:
             raise AssertionError(f"{scene}: a particle left the domain")
         res = kernels_ab(first, count, old)
         print(json.dumps({"scene": scene, "rows": grid.n,
@@ -242,17 +292,25 @@ def main(argv=None):
 
     # each child imports the package of its own working directory
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    for tree, root in (("old", args.old), ("new", Path.cwd()),
-                       ("new", Path.cwd()), ("old", args.old)):
-        run = subprocess.run([sys.executable, "-c", _STEPS, str(SIDE)],
-                             cwd=root, env=env, capture_output=True,
-                             text=True, timeout=900)
-        if run.returncode != 0:
-            raise RuntimeError(f"{tree} steps failed:\n{run.stderr[-4000:]}")
-        for line in run.stdout.splitlines():
-            print(json.dumps({"tree": tree, "card": card,
-                              **json.loads(line)}), flush=True)
-
+    with tempfile.TemporaryDirectory() as tmp:
+        kept = {"old": Path(tmp) / "old", "new": Path(tmp) / "new"}
+        for tree, root in (("old", args.old), ("new", Path.cwd()),
+                           ("new", Path.cwd()), ("old", args.old)):
+            keep = kept[tree]
+            keep_arg = "-" if keep.exists() else str(keep)
+            keep.mkdir(exist_ok=True)
+            run = subprocess.run(
+                [sys.executable, "-c", _STEPS, str(SIDE), keep_arg],
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=900)
+            if run.returncode != 0:
+                raise RuntimeError(
+                    f"{tree} steps failed:\n{run.stderr[-4000:]}")
+            for line in run.stdout.splitlines():
+                print(json.dumps({"tree": tree, "card": card,
+                                  **json.loads(line)}), flush=True)
+        print(json.dumps({"states_after_13_steps": compare_states(
+            kept["old"], kept["new"])}), flush=True)
 
 if __name__ == "__main__":
     main()

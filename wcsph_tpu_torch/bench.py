@@ -23,7 +23,8 @@ from . import engine
 from .scene import dam_break
 from .simulation import Simulation, default_config
 
-_TORCH = {"bin_sort_offsets": "torch", "pack_unpack": "torch",
+_TORCH = {"bin_sort_offsets": "cuda:bin_cells",
+          "pack_unpack": "cuda:pack_rows,unpack_rows",
           "elementwise_and_host_loop_control": "torch"}
 _VISC = {"viscosity_setup": "cuda:k1_visc_init",
          "viscosity_iterations": "cuda:k4_fused_visc_iter"}
@@ -31,7 +32,7 @@ _VISC = {"viscosity_setup": "cuda:k1_visc_init",
 STAGES = {
     "dfsph": {
         "density_alpha_drho": "cuda:k1_density_alpha_drho",
-        "neighbor_list": "cuda:nbr_list_fill",
+        "neighbor_list": "cuda:nbr_list_offsets,nbr_list_fill",
         "divergence_warm_start": "cuda:k2_fused_kappa_drho",
         "divergence_iterations": "cuda:k3_fused_iter_full",
         "surface_tension_when_on": "cuda:k6_fused_tension",
@@ -51,7 +52,7 @@ STAGES = {
         **_TORCH},
     "iisph": {
         "density": "cuda:k5_density_alpha",
-        "neighbor_list": "cuda:nbr_list_fill",
+        "neighbor_list": "cuda:nbr_list_offsets,nbr_list_fill",
         **_VISC,
         "advection_coefficients": "cuda:k5_iisph_adv,k5_iisph_aii",
         "jacobi_iterations": "cuda:k7_fused_jacobi_iter",
@@ -100,9 +101,9 @@ def flagship_paths(n_side: int) -> dict:
 
 
 def measure(sim: Simulation, warmup: int, steps: int) -> dict:
-    """Run ``warmup`` steps, reset the launch counters, time ``steps``
-    steps (host clock around work ending in a synchronize, per step and in
-    total)."""
+    """Run ``warmup`` steps, reset the launch counters (and the list
+    replays), time ``steps`` steps (host clock around work ending in a
+    synchronize, per step and in total)."""
     sync = (torch.cuda.synchronize if sim.device.type == "cuda"
             else (lambda: None))
     t0 = time.perf_counter()
@@ -123,12 +124,14 @@ def measure(sim: Simulation, warmup: int, steps: int) -> dict:
                       d.viscosity_iters))
     elapsed = time.perf_counter() - t0
     launches = dict(engine.LAUNCHES)
+    replays = engine.LIST_REPLAYS
     sim.check_health()
     nl = sim.state.n_liquid
     return {"particle_steps_per_s": nl * steps / elapsed,
             "elapsed_s": elapsed, "warmup_s": warmup_s, "steps": steps,
             "n_liquid": nl, "n_total": sim.state.n_total,
-            "iters": iters, "launches": launches, "step_ms": step_ms,
+            "iters": iters, "launches": launches, "replays": replays,
+            "step_ms": step_ms,
             "telemetry": sim.telemetry()}
 
 
@@ -223,6 +226,7 @@ def main(argv=None):
             "stages": STAGES[args.solver],
             "iters": res["iters"],
             "overflow": res["telemetry"]["neighbor_overflow"],
+            "list_replays": res["replays"],
             "build_s": build_s,
             "kernel_build_s": engine.BUILD_SECONDS,
             "warmup_s": res["warmup_s"],

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from . import kernels
-from .grid import SLICE, Grid, NeighborList, slice_offsets
+from .config import SimConfig
+from .grid import SLICE, Grid, ListSlots, NeighborList, outside_cell
 
 
 @dataclasses.dataclass
@@ -111,34 +112,120 @@ def _pairs_at(grid: Grid, i: torch.Tensor, j: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The step's neighbour list (twin of the fill kernel, nbr_list_fill)
+# The grid stage (twins of bin_cells, pack_rows, unpack_rows in csrc/bin.cu)
 # ---------------------------------------------------------------------------
 
-def neighbor_list(grid: Grid, count: torch.Tensor) -> NeighborList:
+def bin_cells(pos: torch.Tensor, n_liquid: int, cfg: SimConfig):
+    """The sorted layout of ``grid.Grid`` for planar positions (3, N):
+    (order, row_of, cell, cell_start, sorted positions, liquid, liq, L).
+    A stable sort of the cell ids, the particles outside the domain keyed
+    ``num_cells`` (last, in particle order, cell id ``outside_cell``)."""
+    nc = cfg.num_cells
+    gx, gy, gz = cfg.grid_res
+    dev = pos.device
+    n = pos.shape[1]
+    dmin = torch.tensor(cfg.domain_min, dtype=torch.float32, device=dev)
+    inv = torch.tensor(np.float32(1.0 / cfg.cell_size), device=dev)
+    f = torch.floor((pos - dmin[:, None]) * inv)
+    res = torch.tensor([gx, gy, gz], dtype=torch.float32, device=dev)
+    # float compares: a NaN or infinite position falls outside
+    inbox = ((f >= 0.0) & (f < res[:, None])).all(0)
+    c = torch.where(inbox[None], f, 0.0).to(torch.int64)
+    keys = torch.where(inbox, (c[0] * gy + c[1]) * gz + c[2], nc)
+    sorted_keys, order = torch.sort(keys, stable=True)
+    start = torch.zeros(nc + 1, dtype=torch.int64, device=dev)
+    start[1:] = torch.cumsum(torch.bincount(keys, minlength=nc + 1)[:nc], 0)
+    inside = sorted_keys < nc
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    row_of = torch.empty(n, dtype=torch.int32, device=dev)
+    row_of[order] = torch.where(inside, rows, -1)
+    liquid = inside & (order < n_liquid)
+    cell = torch.where(inside, sorted_keys, outside_cell(cfg))
+    return (order, row_of, cell.to(torch.int32), start.to(torch.int32),
+            pos[:, order].contiguous(), liquid, liquid.to(torch.float32),
+            liquid.sum().to(torch.int32))
+
+
+def pack_rows(grid: Grid, fields):
+    """Per-liquid (N_L,) or (k, N_L) fields -> sorted (M,) / (k, M); rows
+    that hold no liquid take 0."""
+    out = []
+    for x in fields:
+        if x.shape[-1] == 0:
+            out.append(torch.zeros(x.shape[:-1] + (grid.n,), dtype=x.dtype,
+                                   device=x.device))
+            continue
+        src = torch.where(grid.liquid, grid.order, 0)
+        out.append(torch.where(grid.liquid, x[..., src], 0.0).to(x.dtype))
+    return out
+
+
+def unpack_rows(grid: Grid, packed, defaults):
+    """Sorted fields -> per-liquid; a liquid particle outside the domain
+    (row -1) keeps its ``defaults`` entry."""
+    out = []
+    for p, d in zip(packed, defaults):
+        rows = grid.row_of[: d.shape[-1]].to(torch.int64)
+        out.append(torch.where(rows >= 0, p[..., rows.clamp(min=0)], d))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The step's neighbour list (twins of nbr_list_offsets and the fill kernel,
+# nbr_list_fill)
+# ---------------------------------------------------------------------------
+
+def list_offsets(count: torch.Tensor, liquid: torch.Tensor,
+                 capacity: int = 2 ** 31 - 1):
+    """((S + 1,) int32 first slot of each slice, clamped to ``capacity``;
+    () int64 slots the list needs) from the neighbour count of each row (the
+    density sweep's count) and the rows' liquid flags (bool or 0/1 float);
+    boundary rows take no slots."""
+    liquid = liquid.bool()
+    m = count.shape[0]
+    s = -(-m // SLICE)
+    c = torch.zeros(s * SLICE, dtype=torch.int64, device=count.device)
+    c[:m] = torch.where(liquid, count.to(torch.int64), 0)
+    off = torch.zeros(s + 1, dtype=torch.int64, device=count.device)
+    off[1:] = torch.cumsum(c.view(s, SLICE).amax(1) * SLICE, 0)
+    return torch.clamp(off, max=capacity).to(torch.int32), off[-1].clone()
+
+
+def neighbor_list(grid: Grid, count: torch.Tensor,
+                  slots: ListSlots | None = None) -> NeighborList:
     """The sliced-ELL list (``grid.NeighborList``) of the pairs within h of
     each liquid row, from the pair list: sorted by receiver, then neighbour
     (the kernels' order), each pair written to slot ``off[i // 32] + 32 k +
     i % 32`` with k its rank among its receiver's pairs.  ``count`` is the
     density sweep's count per row; the widths follow from it, and it must
     equal the pairs found at every liquid row.  ``rec`` holds each row's
-    position and liquid flag."""
+    position and liquid flag.  The slots honour the capacity of ``slots``
+    (sized here from this list's need where it is unsized): a list that
+    needs more is clamped to it, as the fill kernel's, its pairs past a
+    row's slots are dropped and its flag is set."""
     p = pairs_of(grid)
     m = grid.n
-    off, total = slice_offsets(count, grid.liquid)
+    need = int(list_offsets(count, grid.liquid)[1])
+    slots = ListSlots.sized(slots, need)
+    off, need_t = list_offsets(count, grid.liquid, slots.capacity)
     keep = grid.liquid[p.i]
     order = torch.argsort(p.i[keep] * m + p.j[keep])
     i, j = p.i[keep][order], p.j[keep][order]
     n_i = torch.bincount(i, minlength=m)
-    if not torch.equal(n_i[grid.liquid],
-                       count[grid.liquid].to(n_i.dtype)):
+    if need <= slots.capacity and not torch.equal(
+            n_i[grid.liquid], count[grid.liquid].to(n_i.dtype)):
         raise ValueError("count differs from the pairs within h")
     k = torch.arange(i.shape[0], device=i.device) - (torch.cumsum(n_i, 0)
                                                      - n_i)[i]
-    idx = torch.full((total,), -1, dtype=torch.int32, device=grid.device)
-    idx[off[i // SLICE].to(torch.int64) + SLICE * k + i % SLICE] = (
-        j.to(torch.int32))
+    s = i // SLICE
+    fits = k < ((off[s + 1] - off[s]) // SLICE).to(torch.int64)
+    idx = torch.full((slots.capacity,), -1, dtype=torch.int32,
+                     device=grid.device)
+    idx[(off[s].to(torch.int64) + SLICE * k + i % SLICE)[fits]] = (
+        j[fits].to(torch.int32))
     rec = torch.cat([grid.pos.T, grid.liq[:, None]], dim=1).contiguous()
-    return NeighborList(idx=idx, off=off, rec=rec)
+    flag = (~fits).any().to(torch.int32)
+    return NeighborList(idx=idx, off=off, rec=rec, need=need_t, flag=flag)
 
 
 def list_pairs(grid: Grid, nl: NeighborList) -> Pairs:

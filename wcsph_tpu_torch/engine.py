@@ -38,9 +38,13 @@ Six walkers read the step's neighbour list (``grid.NeighborList``)
 instead of the 27 cells: K2, K3, ``k1_div_acc`` (which shares K2's
 divergence launch), ``k1_visc_init``, ``k1_vorticity`` and K4.  A DFSPH or
 IISPH step builds the list once, right after its density sweep, with
-``nbr_list_fill``, a kernel of the port's own design that no TPU kernel
-corresponds to (``OWN_KERNELS``).  On the card these six raise where the
-grid has no list; their plain twins need none.
+``nbr_list_offsets`` and ``nbr_list_fill``, kernels of the port's own
+design that no TPU kernel corresponds to (``OWN_KERNELS``), as are the
+step's bin, pack and unpack (``bin_cells``, ``pack_rows``, ``unpack_rows``:
+XLA ops in the JAX package).  On the card the six walkers raise where the
+grid has no list; their plain twins need none.  From the positions to the
+filled list no wrapper reads anything back to the host (the list's first
+fill sizes its buffer: one read).
 
 ``k1_density_alpha_drho`` runs before the list exists (its counts size
 it), so it scans the cells, in two phases: each receiver first cuts its
@@ -69,7 +73,7 @@ import numpy as np
 import torch
 
 from . import dense_ops, kernels
-from .grid import Grid, NeighborList, slice_offsets
+from .grid import Grid, ListSlots, NeighborList, outside_cell
 from .utils import mat3
 
 _PKG = Path(__file__).resolve().parent
@@ -81,6 +85,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _SRC = "wcsph_tpu_torch/csrc/sweeps.cu"
 _SRC2 = "wcsph_tpu_torch/csrc/solver_sweeps.cu"
+_BIN = "wcsph_tpu_torch/csrc/bin.cu"
 _ENG = "wcsph_tpu/pallas/engine.py:"
 _SYM = _ENG + "441 (_build_sweep_sym, emit "
 _ONE = _ENG + "279 (_build_sweep, emit "
@@ -115,19 +120,39 @@ KERNELS = {
 # kernels of the port's own design, counterparts of no TPU kernel:
 # wrapper name -> (kernel source, what it serves, plain twin)
 OWN_KERNELS = {
+    "bin_cells": (_BIN, "the step's bin: rows sorted by cell, cell offsets "
+                  "(XLA's argsort and rank-in-run in the JAX package, "
+                  "wcsph_tpu/grid.py:75-122, wcsph_tpu/resident.py:121-186)",
+                  dense_ops.bin_cells),
+    "pack_rows": (_BIN, "the step's pack of its fields into sorted rows "
+                  "(XLA's gather, wcsph_tpu/resident.py:194)",
+                  dense_ops.pack_rows),
+    "unpack_rows": (_BIN, "the step's unpack of its fields from sorted rows "
+                    "(XLA's gather, wcsph_tpu/resident.py:274)",
+                    dense_ops.unpack_rows),
+    "nbr_list_offsets": (_BIN, "the slice offsets of the neighbour list, "
+                         "clamped to its kept slot capacity",
+                         dense_ops.list_offsets),
     "nbr_list_fill": (_SRC, "the neighbour list that K2, K3, k1_div_acc, "
                       "k1_visc_init, k1_vorticity and K4 walk",
                       dense_ops.neighbor_list),
 }
 LAUNCHES = {name: 0 for name in (*KERNELS, *OWN_KERNELS)}
+# steps run again because their neighbour list outgrew its slot buffer
+# (solvers/common.py:replaying); reset with the launch counts
+LIST_REPLAYS = 0
 BLOCK = 256          # threads per block of every sweep (csrc/common.cuh)
 CUT_SLOTS = 40       # hits the density sweep's receiver keeps before it
                      # sums them (kCutSlots, csrc/common.cuh)
+SCAN_PARTIALS = 1025  # int64 scratch of a scan (kScanBlocks + 1, csrc/bin.cu)
+MAX_FIELDS = 16      # field rows one pack or unpack moves (kMaxFields)
 
 
 def reset_launch_counts() -> None:
+    global LIST_REPLAYS
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LIST_REPLAYS = 0
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +181,18 @@ class _TensionParams(ctypes.Structure):
         "cx", "cy", "cz", "radius2")]
 
 
+class _Fields(ctypes.Structure):
+    """Mirror of ``struct Fields`` in csrc/bin.cu."""
+
+    _fields_ = [("src", ctypes.c_void_p * MAX_FIELDS),
+                ("dst", ctypes.c_void_p * MAX_FIELDS),
+                ("dflt", ctypes.c_void_p * MAX_FIELDS), ("k", ctypes.c_int)]
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _G = ctypes.POINTER(_Geom)
 _T = ctypes.POINTER(_TensionParams)
+_FS = ctypes.POINTER(_Fields)
 _SIGNATURES = {
     "k1_density_alpha_drho": [_G, _P, _P, _P],
     "k1_div_acc": [_G, _P, _P, _P],
@@ -178,6 +212,11 @@ _SIGNATURES = {
                              _P, _P],
     "k8_fused_pcisph_iter": [_G, _P, _P, _F, _F, _F, _P, _P, _P, _P, _P],
     "nbr_list_fill": [_G, _P, _P, _P, _P, _P],
+    "bin_cells": [_P, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P,
+                  _P, _P, _P, _P, _P, _P, _P],
+    "pack_rows": [_FS, _I, _P, _P, _P],
+    "unpack_rows": [_FS, _I, _P, _P],
+    "nbr_list_offsets": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -457,30 +496,158 @@ def k4_fused_visc_iter(grid: Grid, x: torch.Tensor, r: torch.Tensor,
     return scal
 
 
-def nbr_list_fill(grid: Grid, count: torch.Tensor) -> NeighborList:
+def nbr_list_offsets(count: torch.Tensor, liquid: torch.Tensor,
+                     capacity: int = 2 ** 31 - 1):
+    """((S + 1,) int32 slice offsets of the neighbour list, clamped to
+    ``capacity``; () int64 slots it needs) from the density sweep's count
+    (M,) and the rows' liquid flags (a bool or 0/1 float32 (M,))."""
+    if not _route(count):
+        return dense_ops.list_offsets(count, liquid, capacity)
+    m = count.shape[0]
+    liq = liquid.to(torch.float32)
+    if (count.dtype != torch.int32 or liq.shape != (m,)
+            or not count.is_contiguous() or liq.device != count.device):
+        raise ValueError("count must be contiguous int32 (M,), beside the "
+                         "(M,) liquid flags on the card")
+    s = -(-m // 32)
+    off = torch.empty((s + 1,), dtype=torch.int32, device=count.device)
+    need = torch.empty((), dtype=torch.int64, device=count.device)
+    width = torch.empty((max(s, 1),), dtype=torch.int32, device=count.device)
+    partials = torch.empty((SCAN_PARTIALS,), dtype=torch.int64,
+                           device=count.device)
+    _launch("nbr_list_offsets", count.data_ptr(), liq.data_ptr(), m,
+            int(capacity), width.data_ptr(), off.data_ptr(), need.data_ptr(),
+            partials.data_ptr(), _stream())
+    return off, need
+
+
+def nbr_list_fill(grid: Grid, count: torch.Tensor,
+                  slots: ListSlots | None = None) -> NeighborList:
     """Build the neighbour list of the grid's positions, keep it as
     ``grid.nbr`` and return it.  ``count`` (M,) is the density sweep's
-    neighbour count of each row; the slice widths follow from it (torch
-    ops and one host read of the number of slots), then the fill kernel
-    writes the slots and each row's record.  Raises ValueError, after a
-    second host read, where a liquid row has more pairs within h than its
-    slice has slots (a count too low), as the plain twin does."""
+    neighbour count of each row; the slice offsets follow from it on the
+    card (``nbr_list_offsets``), then the fill kernel writes the slots into
+    the buffer of ``slots``, kept from step to step, and each row's record.
+    No host read, but where ``slots`` is unsized: its first fill reads the
+    slots needed and sizes it (``ListSlots.sized``; a buffer of exactly
+    that size where ``slots`` is None).  A list that needs more slots than
+    the buffer holds is clamped to it and flagged, as is a liquid row with
+    more pairs within h than its slots (a count too low): ``Grid.read``
+    raises on either at the step's first host read."""
     if not _route(count):
-        grid.nbr = dense_ops.neighbor_list(grid, count)
+        grid.nbr = dense_ops.neighbor_list(grid, count, slots)
         return grid.nbr
     if count.shape != (grid.n,) or count.device.type != "cuda":
         raise ValueError("count must be (M,), on the card")
-    off, total = slice_offsets(count, grid.liquid)
-    idx = torch.empty((total,), dtype=torch.int32, device=count.device)
+    cap = None if slots is None else slots.capacity
+    off, need = nbr_list_offsets(count, grid.liq,
+                                 2 ** 31 - 1 if cap is None else cap)
+    if cap is None:                      # the first fill's one host read
+        slots = ListSlots.sized(slots, int(need))
+    idx = slots.buffer(count.device)
     rec = torch.empty((grid.n, 4), dtype=torch.float32, device=count.device)
-    overflow = torch.zeros((), dtype=torch.int32, device=count.device)
+    flag = torch.zeros((), dtype=torch.int32, device=count.device)
     _launch("nbr_list_fill", ctypes.byref(_geom(grid)), off.data_ptr(),
-            idx.data_ptr(), rec.data_ptr(), overflow.data_ptr(), _stream())
-    if overflow.item():
-        raise ValueError("count differs from the pairs within h: a row has "
-                         "more neighbours than its slots")
-    grid.nbr = NeighborList(idx=idx, off=off, rec=rec)
+            idx.data_ptr(), rec.data_ptr(), flag.data_ptr(), _stream())
+    grid.nbr = NeighborList(idx=idx, off=off, rec=rec, need=need, flag=flag)
     return grid.nbr
+
+
+# ---------------------------------------------------------------------------
+# The grid stage: bin, pack, unpack (csrc/bin.cu)
+# ---------------------------------------------------------------------------
+
+def bin_cells(pos: torch.Tensor, n_liquid: int, cfg):
+    """The sorted layout of ``grid.Grid`` for planar positions (3, N), no
+    host read: (order, row_of, cell, cell_start, sorted positions, liquid,
+    liq, the () int32 liquid count inside the domain)."""
+    if not _route(pos):
+        return dense_ops.bin_cells(pos, n_liquid, cfg)
+    n = pos.shape[1]
+    _check(pos, shapes=[(3, n)])
+    if 9 * n >= 2 ** 31:
+        raise ValueError(f"row indices of the kernels are 32-bit: {n} "
+                         "particles is too many")
+    gx, gy, gz = cfg.grid_res
+    nc = cfg.num_cells
+    dev = pos.device
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    order, row_of, cell = empty(n, dtype=torch.int64), empty(n), empty(n)
+    start, pos_out = empty(nc + 1), empty(3, n, dtype=torch.float32)
+    liquid, liq = empty(n, dtype=torch.bool), empty(n, dtype=torch.float32)
+    n_liq = empty()
+    scratch, partials = empty(5 * n + 1 + nc), empty(SCAN_PARTIALS,
+                                                     dtype=torch.int64)
+    dmin = [float(np.float32(v)) for v in cfg.domain_min]
+    _launch("bin_cells", pos.data_ptr(), n, int(n_liquid), *dmin,
+            float(np.float32(1.0 / cfg.cell_size)), gx, gy, gz,
+            outside_cell(cfg), scratch.data_ptr(), partials.data_ptr(),
+            order.data_ptr(), row_of.data_ptr(), cell.data_ptr(),
+            start.data_ptr(), pos_out.data_ptr(), liquid.data_ptr(),
+            liq.data_ptr(), n_liq.data_ptr(), _stream())
+    return order, row_of, cell, start, pos_out, liquid, liq, n_liq
+
+
+def _field_rows(tensors, width: int):
+    """The (width,) float32 rows of (width,) / (k, width) tensors, as
+    pointers, and their count."""
+    ptrs = []
+    for t in tensors:
+        if (t.dtype != torch.float32 or not t.is_contiguous()
+                or t.shape[-1] != width or t.device.type != "cuda"):
+            raise ValueError("fields must be contiguous float32 (..., "
+                             f"{width}) on the card")
+        k = t.numel() // width if width else 0
+        ptrs += [t.data_ptr() + 4 * width * c for c in range(k)]
+    if len(ptrs) > MAX_FIELDS:
+        raise ValueError(f"{len(ptrs)} field rows: one launch moves at most "
+                         f"{MAX_FIELDS}")
+    return ptrs
+
+
+def _fields(src, dst, dflt=()) -> _Fields:
+    f = _Fields()
+    for name, ptrs in (("src", src), ("dst", dst), ("dflt", dflt)):
+        getattr(f, name)[: len(ptrs)] = ptrs
+    f.k = len(dst)
+    return f
+
+
+def pack_rows(grid: Grid, fields):
+    """Per-liquid (N_L,) or (k, N_L) fields -> sorted (M,) / (k, M), rows
+    that hold no liquid 0: every field in one launch."""
+    if not fields or not _route(fields[0]):
+        return dense_ops.pack_rows(grid, fields)
+    fields = [x.contiguous() for x in fields]
+    m = grid.n
+    out = [torch.empty(x.shape[:-1] + (m,), dtype=torch.float32,
+                       device=x.device) for x in fields]
+    f = _fields(_field_rows(fields, fields[0].shape[-1]), _field_rows(out, m))
+    _launch("pack_rows", ctypes.byref(f), m, grid.order.data_ptr(),
+            grid.liq.data_ptr(), _stream())
+    return out
+
+
+def unpack_rows(grid: Grid, packed, defaults):
+    """Sorted (M,) / (k, M) fields -> per-liquid, a liquid particle outside
+    the domain keeping its ``defaults`` entry: every field in one launch."""
+    if not packed or not _route(packed[0]):
+        return dense_ops.unpack_rows(grid, packed, defaults)
+    packed = [p.contiguous() for p in packed]
+    defaults = [d.contiguous() for d in defaults]
+    nl = defaults[0].shape[-1]
+    out = [torch.empty_like(d) for d in defaults]
+    if [tuple(p.shape[:-1]) for p in packed] != [tuple(d.shape[:-1])
+                                                 for d in defaults]:
+        raise ValueError("each packed field needs a default of its shape")
+    f = _fields(_field_rows(packed, grid.n), _field_rows(out, nl),
+                _field_rows(defaults, nl))
+    _launch("unpack_rows", ctypes.byref(f), nl, grid.row_of.data_ptr(),
+            _stream())
+    return out
 
 
 def _sweep(name: str, grid: Grid, operands, shapes, n_out, *consts):

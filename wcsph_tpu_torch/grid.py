@@ -1,25 +1,37 @@
 """Binning: particles sorted by cell, with per-cell start offsets.
 
 Replaces the JAX package's capacity-padded layouts (``wcsph_tpu/grid.py``
-and the padded-direct build of ``wcsph_tpu/resident.py``).  Each step the
-in-domain particles are sorted by cell id (stable sort, so equal cells keep
-particle order); cell ``c`` holds sorted rows ``cell_start[c] ..
-cell_start[c + 1]``.  There is no capacity, so no particle is ever dropped:
-the JAX package's ``neighbor_overflow`` is always 0 here.
+and the padded-direct build of ``wcsph_tpu/resident.py``).  Each step sorts
+the particles by cell id (stable: equal cells keep particle order); cell
+``c`` holds sorted rows ``cell_start[c] .. cell_start[c + 1]``.  There is no
+capacity, so no particle is ever dropped: the JAX package's
+``neighbor_overflow`` is always 0 here.
 
-Cell ids are computed exactly as ``grid.cell_of_positions`` does:
-``floor((pos - dmin) * (1 / cell_size))`` in float32.  Particles outside the
-domain get no row: they take part in no pair, and the step keeps their
-velocity and warm-start fields (the JAX package's out-of-box semantics).
+The grid has one row per particle, a shape known before the step runs, so
+nothing of the bin is read back to the host.  Cell ids are computed
+exactly as ``grid.cell_of_positions`` does: ``floor((pos - dmin) * (1 /
+cell_size))`` in float32.  The particles inside the domain take the first
+rows; those outside take the rows after ``cell_start[-1]``, in particle
+order, and are inert: they lie in no cell's range, so they are nobody's
+neighbour; their liquid flag is 0; and their cell id (``outside_cell``) has
+no cell of the grid in its 27-cell window, so they find no neighbour either.
+The step keeps their velocity and warm-start fields (the JAX package's
+out-of-box semantics).  The liquid count inside the domain is a device
+scalar (``Grid.n_liquid``, as the JAX package's ``comm.n_liquid()``); the
+solvers' first host read of a step brings it along (``Grid.read``).
 
 Fields move between the per-particle layout and the sorted layout with
 ``pack`` / ``unpack``.  Only liquid fields are packed; boundary rows hold 0,
 so a boundary neighbour contributes a zero velocity, kappa or omega, as the
 reference's ``j >= liquid_count`` branches do.
 
+The bin, pack and unpack are kernels on the card (``engine.bin_cells``,
+``pack_rows``, ``unpack_rows``) with plain twins in ``dense_ops``.
+
 A DFSPH or IISPH step also keeps a neighbour list of its sorted positions
 (``NeighborList``, built by ``engine.nbr_list_fill`` right after the
-density sweep), which the sweeps after it walk instead of the 27 cells.
+density sweep), which the sweeps after it walk instead of the 27 cells.  Its
+slot buffer (``ListSlots``) is kept from step to step.
 """
 
 from __future__ import annotations
@@ -27,13 +39,66 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Sequence
 
-import numpy as np
 import torch
 
 from .config import SimConfig
 
 
 SLICE = 32   # rows per slice of the neighbour list: one warp
+HEADROOM = 1.25   # slots a list buffer is sized for, over the slots needed
+
+
+class ListOverflow(Exception):
+    """The step's neighbour list needed more slots than its buffer holds;
+    the step grows the buffer and runs again from its inputs."""
+
+    def __init__(self, need: int, capacity: int):
+        super().__init__(f"the neighbour list needs {need} slots, its buffer "
+                         f"holds {capacity}")
+        self.need = need
+
+
+class ListSlots:
+    """The slot buffer of a solver's neighbour list, kept from step to step
+    (``Simulation.list_slots``), apart from the state.  Unsized, the next
+    fill sizes it from its own need with ``HEADROOM`` (one host read);
+    sized, a fill whose list needs more clamps the list to it and flags the
+    need, and the step replays after ``size_for`` the need."""
+
+    def __init__(self, capacity: int | None = None):
+        self.capacity = None
+        self.idx: torch.Tensor | None = None
+        if capacity is not None:
+            self._set(capacity)
+
+    def _set(self, capacity: int) -> None:
+        cap = -(-int(capacity) // SLICE) * SLICE   # whole slices
+        if cap >= 2 ** 31:
+            raise ValueError(f"{capacity} neighbour slots: the list's slot "
+                             "offsets are 32-bit")
+        self.capacity = cap
+        self.idx = None
+
+    def size_for(self, need: int) -> None:
+        """Room for ``need`` slots with ``HEADROOM``."""
+        self._set(need * HEADROOM)
+
+    @staticmethod
+    def sized(slots: "ListSlots | None", need: int) -> "ListSlots":
+        """``slots``, sized for ``need`` where it is unsized; where it is
+        None (a list built outside a step), a buffer of exactly ``need``."""
+        if slots is None:
+            return ListSlots(need)
+        if slots.capacity is None:
+            slots.size_for(need)
+        return slots
+
+    def buffer(self, device) -> torch.Tensor:
+        """(capacity,) int32, allocated once per size."""
+        if self.idx is None or self.idx.device != torch.device(device):
+            self.idx = torch.empty((self.capacity,), dtype=torch.int32,
+                                   device=device)
+        return self.idx
 
 
 @dataclasses.dataclass
@@ -48,51 +113,57 @@ class NeighborList:
     row's count, like every slot of a boundary row, hold -1.  About 4 bytes
     x 32 slots per liquid row (118 MiB for the 1M dam break), and a
     16-byte record per row, ``rec[i] = (x, y, z, liquid flag)``, from which
-    a walk reads a neighbour's geometry in one load."""
+    a walk reads a neighbour's geometry in one load.
 
-    idx: torch.Tensor   # (off[-1],) int32 neighbour row, or -1
-    off: torch.Tensor   # (S + 1,) int32 first slot of each slice
-    rec: torch.Tensor   # (M, 4) float32 (x, y, z, liquid flag) of each row
+    ``idx`` is the step's slot buffer, of a capacity kept from step to
+    step; the slots past ``off[-1]`` are not the list's.  Where the list
+    needs more slots than that (``need``), the offsets are clamped to the
+    capacity, so that no walk reads past the buffer, and the list is short:
+    ``Grid.read`` raises ``ListOverflow`` at the step's first read."""
+
+    idx: torch.Tensor    # (capacity,) int32 neighbour row, or -1
+    off: torch.Tensor    # (S + 1,) int32 first slot of each slice
+    rec: torch.Tensor    # (M, 4) float32 (x, y, z, liquid flag) of each row
+    need: torch.Tensor   # () int64 slots the whole list needs
+    flag: torch.Tensor   # () int32 1 where a liquid row found more pairs
+                         # than its slots
+    checked: bool = False   # need and flag read back (Grid.read)
 
     @property
     def width(self) -> torch.Tensor:
         """(S,) slots per row of each slice."""
         return (self.off[1:] - self.off[:-1]) // SLICE
 
+    @property
+    def capacity(self) -> int:
+        return int(self.idx.shape[0])
 
-def slice_offsets(count: torch.Tensor, liquid: torch.Tensor):
-    """((S + 1,) int32 first slot of each slice, the number of slots) from
-    the neighbour count of each row (the density sweep's count); boundary
-    rows take no slots.  Reads the number of slots back to the host."""
-    m = count.shape[0]
-    s = -(-m // SLICE)
-    c = torch.zeros(s * SLICE, dtype=torch.int64, device=count.device)
-    c[:m] = torch.where(liquid, count.to(torch.int64), 0)
-    off = torch.zeros(s + 1, dtype=torch.int64, device=count.device)
-    off[1:] = torch.cumsum(c.view(s, SLICE).amax(1) * SLICE, 0)
-    total = int(off[-1])
-    if total >= 2 ** 31:
-        raise ValueError(f"{total} neighbour slots: the list's slot "
-                         "offsets are 32-bit")
-    return off.to(torch.int32), total
+    def check(self, need: int, flag: int) -> None:
+        self.checked = True
+        if need > self.capacity:
+            raise ListOverflow(need, self.capacity)
+        if flag:
+            raise ValueError("count differs from the pairs within h: a row "
+                             "has more neighbours than its slots")
 
 
 @dataclasses.dataclass
 class Grid:
-    """One step's sorted layout (M in-domain particles)."""
+    """One step's sorted layout: one row per particle (M = N), the L liquid
+    particles inside the domain among the first ``cell_start[-1]``."""
 
     cfg: SimConfig
     order: torch.Tensor        # (M,) int64 particle index of each sorted row
+    row_of: torch.Tensor       # (N,) int32 row of each particle, -1 outside
     cell: torch.Tensor         # (M,) int32 cell id of each sorted row
     cell_start: torch.Tensor   # (num_cells + 1,) int32 first row of each cell
     pos: torch.Tensor          # (3, M) float32 sorted positions
     liquid: torch.Tensor       # (M,) bool
     liq: torch.Tensor          # (M,) float32 1.0 at liquid rows, 0.0 else
-    liq_rows: torch.Tensor     # (L,) int64 sorted rows holding liquid
-    liq_src: torch.Tensor      # (L,) int64 their particle indices
-    n_liquid: int              # L: liquid particles inside the domain
+    n_liquid: torch.Tensor     # () int32 L, on the device
     pairs: object = None       # dense_ops.Pairs, built on first plain sweep
     nbr: NeighborList | None = None   # engine.nbr_list_fill, DFSPH, IISPH
+    n_liquid_read: int | None = None  # L, once a read has brought it
 
     @property
     def n(self) -> int:
@@ -102,63 +173,65 @@ class Grid:
     def device(self) -> torch.device:
         return self.pos.device
 
+    @property
+    def liquid_count(self) -> int:
+        """L on the host: from the step's first read, or a read of its own
+        where none has run."""
+        if self.n_liquid_read is None:
+            self.n_liquid_read = int(self.n_liquid)
+        return self.n_liquid_read
 
-def cell_of_positions(pos: torch.Tensor, cfg: SimConfig):
-    """(cell ids (N,) int64, in-domain mask) for planar positions (3, N)."""
+    def read(self, x: torch.Tensor) -> float:
+        """``x.item()`` for a 0-dim tensor: one host read.  The grid's first
+        read also brings L and, where the step built its list, the list's
+        slot need and overflow flag, stacked into the same transfer; it
+        raises ``ListOverflow`` where the list was short, ValueError where
+        a count was below the pairs within h."""
+        extra = []
+        if self.n_liquid_read is None:
+            extra.append(self.n_liquid)
+        nl = self.nbr
+        if nl is not None and not nl.checked:
+            extra += [nl.need, nl.flag]
+        if not extra:
+            return x.item()
+        vals = torch.stack([t.reshape(()).to(torch.float64)
+                            for t in (x, *extra)]).tolist()
+        if self.n_liquid_read is None:
+            self.n_liquid_read = int(vals[1])
+        if nl is not None and not nl.checked:
+            nl.check(int(vals[-2]), int(vals[-1]))
+        return vals[0]
+
+
+def outside_cell(cfg: SimConfig) -> int:
+    """The cell id of the rows outside the domain: two cell planes past the
+    grid in x, so no cell of its 27-cell window is in the grid."""
     gx, gy, gz = cfg.grid_res
-    dmin = torch.tensor(cfg.domain_min, dtype=torch.float32, device=pos.device)
-    inv = torch.tensor(np.float32(1.0 / cfg.cell_size), device=pos.device)
-    c = torch.floor((pos - dmin[:, None]) * inv).to(torch.int64)
-    cx, cy, cz = c[0], c[1], c[2]
-    inbox = ((cx >= 0) & (cx < gx) & (cy >= 0) & (cy < gy)
-             & (cz >= 0) & (cz < gz))
-    return (cx * gy + cy) * gz + cz, inbox
+    return (gx + 2) * gy * gz
 
 
 def build_grid(pos: torch.Tensor, n_liquid: int, cfg: SimConfig) -> Grid:
-    """Sort the in-domain particles by cell and compute the cell offsets."""
-    nc = cfg.num_cells
-    cell_id, inbox = cell_of_positions(pos, cfg)
-    keys = torch.where(inbox, cell_id, nc)
-    sorted_keys, order = torch.sort(keys, stable=True)
-    m = int(inbox.sum())
-    order = order[:m]
-    sorted_cell = sorted_keys[:m]
-    counts = torch.bincount(sorted_cell, minlength=nc)
-    start = torch.zeros(nc + 1, dtype=torch.int64, device=pos.device)
-    start[1:] = torch.cumsum(counts, 0)
-    liquid = order < n_liquid
-    liq_rows = torch.nonzero(liquid).flatten()
-    return Grid(cfg=cfg, order=order,
-                cell=sorted_cell.to(torch.int32),
-                cell_start=start.to(torch.int32),
-                pos=pos[:, order].contiguous(),
-                liquid=liquid,
-                liq=liquid.to(torch.float32),
-                liq_rows=liq_rows,
-                liq_src=order[liq_rows],
-                n_liquid=int(liq_rows.shape[0]))
+    """Sort the particles by cell and compute the cell offsets (the bin
+    kernel on the card, its plain twin on the CPU; no host read)."""
+    from . import engine     # engine imports this module's types
+
+    return Grid(cfg, *engine.bin_cells(pos, n_liquid, cfg))
 
 
 def pack(grid: Grid, fields: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Per-liquid (N_L,) or (k, N_L) fields -> sorted (M,) / (k, M); rows
-    that hold no liquid take 0."""
-    out = []
-    for x in fields:
-        p = torch.zeros(x.shape[:-1] + (grid.n,), dtype=x.dtype,
-                        device=x.device)
-        p[..., grid.liq_rows] = x[..., grid.liq_src]
-        out.append(p)
-    return out
+    that hold no liquid take 0.  One launch for all fields on the card."""
+    from . import engine
+
+    return engine.pack_rows(grid, fields)
 
 
 def unpack(grid: Grid, packed: Sequence[torch.Tensor],
            defaults: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Sorted fields -> per-liquid; liquid particles outside the domain
-    keep their ``defaults`` entry."""
-    out = []
-    for p, d in zip(packed, defaults):
-        x = d.clone()
-        x[..., grid.liq_src] = p[..., grid.liq_rows]
-        out.append(x)
-    return out
+    keep their ``defaults`` entry.  One launch for all fields on the
+    card."""
+    from . import engine
+
+    return engine.unpack_rows(grid, packed, defaults)

@@ -2,8 +2,9 @@
 
 ``Simulation(scene, cfg, solver="dfsph", device="cuda")`` owns the config
 and the state on ``device``, the card unless the caller asks for the CPU.
-On a CUDA device every pair sweep of the step runs a hand kernel
-(``engine.py``); on the CPU the same step runs their plain PyTorch twins.
+On a CUDA device every pair sweep of the step, and its bin, pack, unpack
+and neighbour list, run a hand kernel (``engine.py``); on the CPU the same
+step runs their plain PyTorch twins.
 Asking for CUDA where there is none raises, as PyTorch does.
 """
 
@@ -16,6 +17,7 @@ import torch
 
 from .boundary import akinci_solid_volume_scale
 from .config import SimConfig
+from .grid import ListSlots
 from .scene import Scene
 from .solvers import dfsph, iisph, pcisph, sesph
 from .state import FluidState, has_nan, init_state
@@ -54,9 +56,13 @@ class Simulation:
         self.cfg = cfg
         state = init_state(scene, self.device)
         self.state = state.replace(dt=np.float32(cfg.dt_init))
+        # the neighbour list's slot buffer (DFSPH, IISPH), kept from step to
+        # step beside the state: sized by the first step, grown by a step
+        # that outgrows it (that step then runs again, engine.LIST_REPLAYS)
+        self.list_slots = ListSlots()
 
     def step(self) -> FluidState:
-        self.state = self._solver.step(self.state, self.cfg)
+        self.state = self._solver.step(self.state, self.cfg, self.list_slots)
         return self.state
 
     def run(self, n_steps: int) -> FluidState:

@@ -1,13 +1,13 @@
-"""What the fixed-dt solvers (SESPH, PCISPH, IISPH) share on the host side
-of a step."""
+"""What the solvers share on the host side of a step."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import engine
 from ..config import SimConfig
-from ..grid import Grid
+from ..grid import Grid, ListOverflow, ListSlots
 
 f32 = np.float32
 
@@ -19,13 +19,26 @@ def gravity_column(cfg: SimConfig, like: torch.Tensor) -> torch.Tensor:
 
 
 def liquid_sum(grid: Grid, x: torch.Tensor) -> np.float32:
-    """Sum of ``x`` over the liquid rows, read to the host."""
-    return f32(torch.sum(torch.where(grid.liquid, x, 0.0)).item())
+    """Sum of ``x`` over the liquid rows, read to the host (``Grid.read``)."""
+    return f32(grid.read(torch.sum(torch.where(grid.liquid, x, 0.0))))
 
 
 def liquid_vel_max(grid: Grid, velp: torch.Tensor) -> np.float32:
     """max |v| over the liquid rows, read to the host (0 with no liquid)."""
-    if grid.n_liquid == 0:
+    if grid.n == 0:
         return f32(0.0)
     v2 = torch.where(grid.liquid, torch.sum(velp * velp, dim=0), -torch.inf)
-    return f32(np.sqrt(max(f32(v2.max().item()), f32(0.0))))
+    return f32(np.sqrt(max(f32(grid.read(v2.max())), f32(0.0))))
+
+
+def replaying(run, slots: ListSlots):
+    """``run()``, a step from its unmodified inputs; where the step's
+    neighbour list outgrew ``slots`` (``ListOverflow`` at its first host
+    read), size the buffer for the slots needed and run it once more
+    (counted in ``engine.LIST_REPLAYS``)."""
+    try:
+        return run()
+    except ListOverflow as e:
+        slots.size_for(e.need)
+        engine.LIST_REPLAYS += 1
+        return run()

@@ -1,19 +1,24 @@
 """DFSPH: divergence-free SPH, the flagship solver (port of
 ``wcsph_tpu/solvers/dfsph.py``, fused forms only).
 
-One step: sort + pack -> density + DFSPH factor alpha (+ warm-start drho,
-one K1 sweep) -> the step's neighbour list (one fill kernel; the K2, K3,
-K4, vorticity and advected-density sweeps below walk it) -> divergence
-solve (warm start K2, iterations K3 mode 0) -> non-pressure forces
-(gravity, surface tension when on: K6, implicit-viscosity PCG: K1 + K4,
-micropolar vorticity: K1) ->
-adaptive CFL dt -> velocity update -> constant-density solve (advected
-density K1, iterations K3 mode 1) -> unpack + position update.
+One step: bin + pack (``bin_and_pack``) -> density + DFSPH factor alpha
+(+ warm-start drho, one K1 sweep) -> the step's neighbour list (its slice
+offsets and one fill kernel; the K2, K3, K4, vorticity and advected-density
+sweeps below walk it) -> divergence solve (warm start K2, iterations K3
+mode 0) -> non-pressure forces (gravity, surface tension when on: K6,
+implicit-viscosity PCG: K1 + K4, micropolar vorticity: K1) -> adaptive CFL
+dt -> velocity update -> constant-density solve (advected density K1,
+iterations K3 mode 1) -> unpack + position update.
 
 The solver loops end on the host: each iteration's error is read back and
-tested there, with the JAX package's loop contracts and float32 scalar
-arithmetic.  There is no communicator layer: the single-device engine is
-called directly (the multi-GPU port will add one).
+tested there (``Grid.read``), with the JAX package's loop contracts and
+float32 scalar arithmetic.  From the positions to the filled list the step
+makes no host read; its first read, the divergence loop's, also brings the
+liquid count and the list's status.  A list that outgrew the slot buffer
+kept from step to step (``grid.ListSlots``) makes the step run again from
+its inputs with a larger buffer (``common.replaying``).  There is no
+communicator layer: the single-device engine is called directly (the
+multi-GPU port will add one).
 """
 
 from __future__ import annotations
@@ -25,9 +30,9 @@ import torch
 
 from .. import engine, viscosity
 from ..config import SimConfig
-from ..grid import Grid, build_grid, pack, unpack
+from ..grid import Grid, ListSlots, build_grid, pack, unpack
 from ..state import FluidState, StepDiagnostics
-from .common import liquid_sum
+from .common import liquid_sum, replaying
 
 f32 = np.float32
 
@@ -85,14 +90,15 @@ def divergence_solve(grid: Grid, velp, kvp, alphap, cntp, dt,
 
     alpha_dt = (alphap / float(dt)).contiguous()
     kvp = torch.zeros_like(kvp)
-    threshold = f32(cfg.dfsph_div_tol) * f32(grid.n_liquid) / dt
     cnt_gate = (cntp >= cfg.min_div_neighbors).to(torch.float32)
     drho = drho.contiguous()
-    err, it = f32(0.0), 0
+    err, it, threshold = f32(0.0), 0, None
     while it == 0 or (err > threshold and it < cfg.dfsph_div_max_iters):
         e = engine.k3_fused_iter_full(grid, velp, kvp, drho, alpha_dt,
                                       cnt_gate, dt, 0)
-        err = f32(e.item())
+        err = f32(grid.read(e))
+        if threshold is None:     # the first read brought the liquid count
+            threshold = f32(cfg.dfsph_div_tol) * f32(grid.liquid_count) / dt
         it += 1
     # end_divergence_iter (dfsph.py:479-485): kappa_v stored scaled by dt
     return _SolveResult(vel=velp, kappa=kvp * float(dt), iters=it, err=err,
@@ -125,15 +131,16 @@ def pressure_solve(grid: Grid, velp, kp, alphap, rhop, dt) -> _SolveResult:
 
     alpha_dt2 = (alphap / float(dt2)).contiguous()
     kp = torch.zeros_like(kp)
-    n_liq = f32(grid.n_liquid)
     adv = adv.contiguous()
-    err_pre = liquid_sum(grid, adv - 1.0) / n_liq
+    err_sum = liquid_sum(grid, adv - 1.0)
+    n_liq = f32(grid.liquid_count)
+    err_pre = err_sum / n_liq
     err, it = f32(0.0), 0
     while ((err > f32(cfg.dfsph_tol)) or (it < cfg.dfsph_min_iters)) \
             and it < cfg.dfsph_max_iters:
         e = engine.k3_fused_iter_full(grid, velp, kp, adv, alpha_dt2, rr0,
                                       dt, 1)
-        err = f32(e.item()) / n_liq
+        err = f32(grid.read(e)) / n_liq
         it += 1
     # end_pressure_iter (dfsph.py:549-552): kappa stored scaled by dt^2
     return _SolveResult(vel=velp, kappa=kp * float(dt) * float(dt),
@@ -158,16 +165,24 @@ class MidResult(NamedTuple):
     vmax_sq: np.float32
 
 
+def density_and_list(grid: Grid, velp, slots: ListSlots | None = None):
+    """(rho, alpha, count, warm-start divergence sum) of the density sweep,
+    then the step's neighbour list from its counts, into ``slots``: no
+    host read once ``slots`` is sized.  Positions stay put until the
+    position update: one list serves every solver sweep of the step."""
+    out = engine.density_alpha(grid, velp)
+    engine.nbr_list_fill(grid, out[2], slots)
+    return out
+
+
 def step_middle(grid: Grid, cfg: SimConfig, velp, omegap, vgp, kp, kvp, dt,
-                last_pressure_iters: int) -> MidResult:
+                last_pressure_iters: int,
+                slots: ListSlots | None = None) -> MidResult:
     """The whole per-step solve on the sorted layout (everything between
-    sort/pack and unpack/position update)."""
+    bin/pack and unpack/position update)."""
     dt = f32(dt)
     liq = grid.liquid
-    rhop, alphap, cntp, div_acc = engine.density_alpha(grid, velp)
-    # positions stay put until the position update: one list serves every
-    # solver sweep of the step
-    engine.nbr_list_fill(grid, cntp)
+    rhop, alphap, cntp, div_acc = density_and_list(grid, velp, slots)
     drho0 = None
     if cfg.divergence_warm_start:
         drho0 = torch.where(cntp < cfg.min_div_neighbors, 0.0,
@@ -199,8 +214,8 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, omegap, vgp, kp, kvp, dt,
     vnew = velp + d_vel * float(dt)
     vmax = torch.max(torch.where(liq, torch.sum(vnew * vnew, dim=0),
                                  -torch.inf)) if grid.n else None
-    vmax_sq = max(f32(vmax.item()) if vmax is not None else f32(-np.inf),
-                  f32(0.1))
+    vmax_sq = max(f32(grid.read(vmax)) if vmax is not None
+                  else f32(-np.inf), f32(0.1))
     if cfg.adaptive_dt:
         feedback = max(visc.iters, last_pressure_iters)
         time_step = np.clip(
@@ -226,18 +241,31 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, omegap, vgp, kp, kvp, dt,
                      vmax_sq=vmax_sq)
 
 
-def step(state: FluidState, cfg: SimConfig) -> FluidState:
+def bin_and_pack(state: FluidState, cfg: SimConfig):
+    """The step's grid stage: (grid, the five packed fields); no host read."""
+    grid = build_grid(state.pos, state.n_liquid, cfg)
+    return grid, pack(grid, [state.vel, state.omega, state.vel_guess,
+                             state.kappa, state.kappa_v])
+
+
+def step(state: FluidState, cfg: SimConfig,
+         slots: ListSlots | None = None) -> FluidState:
+    """One step; ``slots``: the neighbour list's buffer, kept by the caller
+    from step to step (a fresh one, sized by this step, where None)."""
+    slots = ListSlots() if slots is None else slots
+
+    def run():
+        grid, packed = bin_and_pack(state, cfg)
+        return grid, step_middle(grid, cfg, *packed, state.dt,
+                                 state.last_pressure_iters, slots)
+
     nl = state.n_liquid
-    prevs = [state.vel, state.omega, state.vel_guess, state.kappa,
-             state.kappa_v]
-    grid = build_grid(state.pos, nl, cfg)
-    packed = pack(grid, prevs)
-    mid = step_middle(grid, cfg, *packed, state.dt,
-                      state.last_pressure_iters)
+    grid, mid = replaying(run, slots)
     # unpack + position update (liquid outside the domain keeps its state)
     vel, omega, vel_guess, kappa, kappa_v = unpack(
         grid, [mid.vel, mid.omega, mid.vel_guess, mid.kappa, mid.kappa_v],
-        prevs)
+        [state.vel, state.omega, state.vel_guess, state.kappa,
+         state.kappa_v])
     pos = state.pos.clone()
     pos[:, :nl] += vel * float(mid.new_dt)                # update_pos
     diag = StepDiagnostics(

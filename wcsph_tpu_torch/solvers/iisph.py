@@ -1,8 +1,9 @@
 """IISPH: implicit incompressible SPH with a relaxed-Jacobi pressure solve
 (port of ``wcsph_tpu/solvers/iisph.py``, engine branch in its fused form).
 
-One step: sort + pack -> density (K5 ``_DensityAlpha``) -> the step's
-neighbour list from its counts (one fill kernel; K4 below walks it) ->
+One step: bin + pack (``bin_and_pack``) -> density (K5 ``_DensityAlpha``)
+-> the step's neighbour list from its counts (its slice offsets and one fill
+kernel; K4 below walks it) ->
 implicit viscosity (block-Jacobi PCG: K1 + K4, ``viscosity.py``) -> advection
 coefficients d_ii, a_ii, advected density (K5 ``_IisphAdv``, ``_IisphAii``),
 pressure warm start 0.5 p -> relaxed-Jacobi loop, one K7 call per iteration
@@ -12,8 +13,11 @@ the one before (omega = 0.5), and d_ii / a_ii use the per-type neighbour
 volume.
 
 The loop ends on the host: each iteration's residual sum is read back and
-tested there, with the JAX package's loop contract and float32 scalar
-arithmetic.
+tested there (``Grid.read``), with the JAX package's loop contract and
+float32 scalar arithmetic.  From the positions to the filled list the step
+makes no host read; its first read (the viscosity PCG's) also brings the
+liquid count and the list's status, and a list that outgrew its kept slot
+buffer makes the step run again with a larger one (``common.replaying``).
 """
 
 from __future__ import annotations
@@ -25,9 +29,9 @@ import torch
 
 from .. import engine, viscosity
 from ..config import SimConfig
-from ..grid import Grid, build_grid, pack, unpack
+from ..grid import Grid, ListSlots, build_grid, pack, unpack
 from ..state import FluidState, StepDiagnostics
-from .common import gravity_column, liquid_sum, liquid_vel_max
+from .common import gravity_column, liquid_sum, liquid_vel_max, replaying
 
 f32 = np.float32
 
@@ -55,17 +59,25 @@ class MidResult(NamedTuple):
     err_pre: np.float32       # advected-density violation before the solve
 
 
-def step_middle(grid: Grid, cfg: SimConfig, velp, vgp, pp, dt) -> MidResult:
+def density_and_list(grid: Grid, slots: ListSlots | None = None):
+    """(rho, count) of the density sweep (iisph.py:254-268), then the
+    step's neighbour list from its counts, into ``slots``: no host read
+    once ``slots`` is sized.  Positions stay put until the position update:
+    the viscosity PCG's matvec (K4) walks this list."""
+    rhop, cntp = engine.density(grid)
+    engine.nbr_list_fill(grid, cntp, slots)
+    return rhop, cntp
+
+
+def step_middle(grid: Grid, cfg: SimConfig, velp, vgp, pp, dt,
+                slots: ListSlots | None = None) -> MidResult:
     """The whole IISPH solve on the sorted layout."""
     rho0 = cfg.rest_density
     v0 = cfg.liquid_volume
     dt = f32(dt)
     liq3 = grid.liquid[None]
 
-    rhop, cntp = engine.density(grid)                   # iisph.py:254-268
-    # positions stay put until the position update: the viscosity PCG's
-    # matvec (K4) walks this list
-    engine.nbr_list_fill(grid, cntp)
+    rhop, cntp = density_and_list(grid, slots)
 
     # implicit viscosity; velocity updates are liquid-masked so boundary
     # rows keep velocity 0 exactly (they feed (v_i - v_j) pair terms)
@@ -83,8 +95,9 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, vgp, pp, dt) -> MidResult:
     a_ii = engine.k5_iisph_aii(grid, d_ii) - deninv * dji_acc
 
     pp = 0.5 * pp                                       # warm start
-    n_liq = f32(grid.n_liquid)
-    err_pre = liquid_sum(grid, torch.clamp(adv_rho - 1.0, min=0.0)) / n_liq
+    err_sum = liquid_sum(grid, torch.clamp(adv_rho - 1.0, min=0.0))
+    n_liq = f32(grid.liquid_count)
+    err_pre = err_sum / n_liq
     b_rhs = 1.0 - adv_rho
 
     err, it = f32(0.0), 0
@@ -92,7 +105,7 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, vgp, pp, dt) -> MidResult:
             and it < cfg.iisph_max_iters:
         _, _, scal = engine.k7_fused_jacobi_iter(grid, d_ii, deninv, a_ii,
                                                  b_rhs, pp, dt)
-        err = f32(scal.item()) / n_liq
+        err = f32(grid.read(scal)) / n_liq
         it += 1
 
     # pressure force + integrate (iisph.py:372-396)
@@ -102,12 +115,26 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, vgp, pp, dt) -> MidResult:
                      visc_iters=visc.iters, err=err, err_pre=err_pre)
 
 
-def step(state: FluidState, cfg: SimConfig) -> FluidState:
+def bin_and_pack(state: FluidState, cfg: SimConfig):
+    """The step's grid stage: (grid, the three packed fields); no host
+    read."""
+    grid = build_grid(state.pos, state.n_liquid, cfg)
+    return grid, pack(grid, [state.vel, state.vel_guess, state.pressure])
+
+
+def step(state: FluidState, cfg: SimConfig,
+         slots: ListSlots | None = None) -> FluidState:
+    """One step; ``slots``: the neighbour list's buffer, kept by the caller
+    from step to step (a fresh one, sized by this step, where None)."""
     nl = state.n_liquid
     dt = f32(state.dt)
-    grid = build_grid(state.pos, nl, cfg)
-    packed = pack(grid, [state.vel, state.vel_guess, state.pressure])
-    mid = step_middle(grid, cfg, *packed, dt)
+    slots = ListSlots() if slots is None else slots
+
+    def run():
+        grid, packed = bin_and_pack(state, cfg)
+        return grid, step_middle(grid, cfg, *packed, dt, slots)
+
+    grid, mid = replaying(run, slots)
     vel, pressure, vel_guess = unpack(
         grid, [mid.vel, mid.pressure, mid.delta_v],
         [state.vel, state.pressure, state.vel_guess])

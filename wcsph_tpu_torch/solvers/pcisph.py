@@ -1,10 +1,10 @@
 """PCISPH: predictive-corrective incompressible SPH (port of
 ``wcsph_tpu/solvers/pcisph.py``, fused form).
 
-One step: sort + pack -> density (K5 ``_DensityAlpha``) -> explicit
-viscosity (K5 ``_SesphForce`` with zero pressure) -> prediction loop, one K8
-call per iteration (predicted density at the advected positions, pressure
-update, pressure acceleration) -> integrate.  As in the JAX package, and
+One step: bin + pack (``bin_and_pack``) -> density (K5 ``_DensityAlpha``)
+-> explicit viscosity (K5 ``_SesphForce`` with zero pressure) -> prediction
+loop, one K8 call per iteration (predicted density at the advected
+positions, pressure update, pressure acceleration) -> integrate.  As in the JAX package, and
 unlike the Taichi reference, the density is predicted at the ADVECTED
 positions and the pressure accumulates across iterations; the binning stays
 that of the original positions.
@@ -25,7 +25,7 @@ import torch
 
 from .. import engine
 from ..config import SimConfig
-from ..grid import Grid, build_grid, pack, unpack
+from ..grid import Grid, ListSlots, build_grid, pack, unpack
 from ..state import FluidState, StepDiagnostics
 from .common import gravity_column, liquid_vel_max
 
@@ -91,7 +91,6 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, dt) -> MidResult:
     d_vel = gravity_column(cfg, velp) + engine.sesph_force(
         grid, velp, rhop, torch.zeros_like(rhop))
 
-    n_liq = f32(grid.n_liquid)
     d_vel_pre = torch.zeros_like(velp)
     pp = torch.zeros_like(velp[0])
     err, err_pre, it = f32(1.0), f32(0.0), 0
@@ -100,7 +99,8 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, dt) -> MidResult:
         vel_star = velp + (d_vel + d_vel_pre) * float(dt)  # pcisph.py:228-235
         _, d_vel_pre, scal = engine.fused_pcisph_iter(grid, vel_star, pp, dt,
                                                       coff)
-        err = f32(scal.item()) / n_liq
+        # the first read brings the liquid count
+        err = f32(grid.read(scal)) / f32(grid.liquid_count)
         # the first iteration predicts with p == 0: its error IS the
         # pre-solve violation
         if it == 0:
@@ -112,11 +112,19 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, dt) -> MidResult:
                      err_pre=err_pre)
 
 
-def step(state: FluidState, cfg: SimConfig) -> FluidState:
+def bin_and_pack(state: FluidState, cfg: SimConfig):
+    """The step's grid stage: (grid, [packed velocity]); no host read."""
+    grid = build_grid(state.pos, state.n_liquid, cfg)
+    return grid, pack(grid, [state.vel])
+
+
+def step(state: FluidState, cfg: SimConfig,
+         slots: ListSlots | None = None) -> FluidState:
+    """One step (``slots`` is unused: this step builds no neighbour
+    list)."""
     nl = state.n_liquid
     dt = f32(state.dt)
-    grid = build_grid(state.pos, nl, cfg)
-    velp, = pack(grid, [state.vel])
+    grid, (velp,) = bin_and_pack(state, cfg)
     mid = step_middle(grid, cfg, velp, dt)
     vel, pressure = unpack(grid, [mid.vel, mid.pressure],
                            [state.vel, state.pressure])

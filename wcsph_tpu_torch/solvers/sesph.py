@@ -1,9 +1,10 @@
 """SESPH: state-equation (Tait EOS) SPH solver (port of
 ``wcsph_tpu/solvers/sesph.py``, engine branch).
 
-One step: sort + pack -> density (K5 ``_DensityAlpha``) -> Tait EOS pressure
--> explicit viscosity + symmetric pressure force in one sweep (K5
-``_SesphForce``) -> semi-implicit Euler.  No inner loop; fixed dt.
+One step: bin + pack (``bin_and_pack``) -> density (K5 ``_DensityAlpha``)
+-> Tait EOS pressure -> explicit viscosity + symmetric pressure force in
+one sweep (K5 ``_SesphForce``) -> semi-implicit Euler.  No inner loop;
+fixed dt.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import numpy as np
 
 from .. import engine, ops
 from ..config import SimConfig
-from ..grid import Grid, build_grid, pack, unpack
+from ..grid import Grid, ListSlots, build_grid, pack, unpack
 from ..state import FluidState, StepDiagnostics
 from .common import gravity_column, liquid_sum, liquid_vel_max
 
@@ -41,17 +42,26 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, dt):
     return velp + d_vel * float(dt), rhop, pp           # sesph.py:191-196
 
 
-def step(state: FluidState, cfg: SimConfig) -> FluidState:
+def bin_and_pack(state: FluidState, cfg: SimConfig):
+    """The step's grid stage: (grid, [packed velocity]); no host read."""
+    grid = build_grid(state.pos, state.n_liquid, cfg)
+    return grid, pack(grid, [state.vel])
+
+
+def step(state: FluidState, cfg: SimConfig,
+         slots: ListSlots | None = None) -> FluidState:
+    """One step (``slots`` is unused: this step builds no neighbour
+    list)."""
     nl = state.n_liquid
     dt = f32(state.dt)
-    grid = build_grid(state.pos, nl, cfg)
-    velp, = pack(grid, [state.vel])
+    grid, (velp,) = bin_and_pack(state, cfg)
     velp, rhop, pp = step_middle(grid, cfg, velp, dt)
     vel, pressure = unpack(grid, [velp, pp], [state.vel, state.pressure])
     pos = state.pos.clone()
     pos[:, :nl] += vel * float(dt)
+    rho_sum = liquid_sum(grid, rhop)
     diag = StepDiagnostics(
-        density_error=liquid_sum(grid, rhop) / f32(grid.n_liquid)
+        density_error=rho_sum / f32(grid.liquid_count)
         / f32(cfg.rest_density) - f32(1.0),
         neighbor_overflow=0,
         vel_max=liquid_vel_max(grid, velp),

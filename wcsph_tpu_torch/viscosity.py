@@ -7,7 +7,7 @@ sums + A x0) is one K1 sweep; each PCG iteration is one K4 call, whose two
 global dots stay on the device.  Both the setup sweep and K4's matvec walk
 the step's neighbour list (built by the solver before it calls here; on
 the card both raise without one).  The loop ends on the host: it reads
-delta' after each iteration.
+delta' after each iteration (``Grid.read``).
 
 Warm start: the previous frame's delta-v lives in vel_guess and the
 initial guess is vel_guess + vel; on return vel_guess holds the new
@@ -52,7 +52,7 @@ def solve_dense(grid: Grid, velp: torch.Tensor, vel_guessp: torch.Tensor,
     delta = torch.sum(torch.where(liq, torch.sum(r * d, dim=0), 0.0))
     rinv = engine.rho_inv(rhop)
     minv6 = torch.stack(list(minv)).contiguous()
-    delta0 = np.float32(delta.item())
+    delta0 = np.float32(grid.read(delta))
     delta_h = delta0
     it = 0
     # (it == 0) | (it < max & delta > err * delta0 & delta0 >= eps)
@@ -62,6 +62,6 @@ def solve_dense(grid: Grid, velp: torch.Tensor, vel_guessp: torch.Tensor,
         scal = engine.k4_fused_visc_iter(grid, x, r, d, delta, rinv, minv6,
                                          dt)
         delta = scal[1]
-        delta_h = np.float32(delta.item())
+        delta_h = np.float32(grid.read(delta))
         it += 1
     return ViscositySolution(vel_new=x, delta_v=x - velp, iters=it)
