@@ -17,21 +17,24 @@ its own lines and raising on failure:
    adhesion on; first the grid stage, with three particles moved outside
    the domain: the bin's permutation, offsets and rows equal the plain
    stable sort's, and pack and unpack equal their twins; then the
-   neighbour list that K2, K3, K4, ``k1_div_acc``, ``k1_visc_init`` and
-   ``k1_vorticity`` walk: its slice offsets (whole and clamped to a short
-   buffer), the fill kernel's list and its per-row records equal the plain
-   build bit for bit, a fill into a short buffer is clamped and flagged as
-   the twin's, those six raise on a grid without a list, and a short count
-   raises at the grid's first read; last the density sweep on a block
-   squeezed to 0.6 of its spacing, where receivers have more hits than the
-   sweep's per-thread buffer (``engine.CUT_SLOTS``) and so sum it more than
-   once;
+   neighbour list that K2, K3, K4, K7, ``k1_div_acc``, ``k1_visc_init``
+   and ``k1_vorticity`` walk: its slice offsets (whole and clamped to a
+   short buffer), the fill kernel's list and its per-row records equal the
+   plain build bit for bit, a fill into a short buffer is clamped and
+   flagged as the twin's, those seven raise on a grid without a list, and
+   a short count raises at the grid's first read; K8 into a hit buffer of
+   the widest row's hits and into one of half that width: its hits equal
+   the twin's slot for slot, and both flag the same row count; last the
+   density sweep on a block squeezed to 0.6 of its spacing, where
+   receivers have more hits than the sweep's per-thread buffer
+   (``engine.CUT_SLOTS``) and so sum it more than once;
 3. whole steps: the 20-step golden scene of each of the four solvers on
    CUDA against ``tests/golden/<solver>_golden.npz``, and 3 steps of the
    pressurized side-8 scene, per solver and for DFSPH with tension, with
    the kernels against the plain twins on the card (per-step iteration
-   counts equal); then one DFSPH and one IISPH step with the list's
-   buffer forced to 64 slots, which replay once to the unforced bits;
+   counts equal); then one DFSPH, one PCISPH and one IISPH step with the
+   buffer of the list (PCISPH: of K8's hits) forced to 64 slots, which
+   replay once to the unforced bits;
 4. the paths at full width, a dam break at side 100 (1M liquid particles):
    DFSPH (the first slice's main path), then SESPH, PCISPH, IISPH and DFSPH
    with surface tension; for each, warm-up steps, launch counters reset,
@@ -44,7 +47,8 @@ its own lines and raising on failure:
    stage, the list and each kernel against its plain twin again and timed
    beside it at those shapes, with the least time the card could take for
    the same work (``bound_ms``) and, for the grid stage, one PyTorch call
-   that computes its core (``library_ms``).
+   that computes its core (``library_ms``) and the device time of its own
+   kernels (torch.profiler; the kernel time is the whole wrapper's).
 
 The line before the last is one JSON object with the per-kernel record;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -203,16 +207,32 @@ def kernel_inputs(grid, liq_pos, rng):
     )
 
 
+def k8_width(grid, inp):
+    """The most hits a row of K8's iteration at these inputs has (the plain
+    twin's, on a copy of the grid)."""
+    import dataclasses
+
+    from wcsph_tpu_torch import dense_ops
+
+    g = dataclasses.replace(grid, star=None)
+    dense_ops.fused_pcisph_iter(g, inp["vel"], inp["p"].clone(), inp["dt"],
+                                inp["factor"])
+    return g.star.width
+
+
 def kernel_cases(grid, inp):
     """(wrapper name, label, make operands, outputs of (operands, return
-    value), tolerance) for every kernel entry, K3 in both modes.
-    ``make`` returns fresh copies of what a call updates in place."""
+    value), tolerance) for every kernel entry, K3 in both modes, K8 into a
+    hit buffer of the widest row's hits.  ``make`` returns fresh copies of
+    what a call updates in place."""
     import torch
 
     from wcsph_tpu_torch import engine
+    from wcsph_tpu_torch.grid import ListSlots
     from wcsph_tpu_torch.utils import mat3
 
     dt = inp["dt"]
+    hits = ListSlots(k8_width(grid, inp) * grid.n)
     x = (inp["vel"] + inp["r"] * 0.01).contiguous()
     minv, _ = engine.visc_init(grid, x, inp["rho"], dt)
     minv6 = torch.stack(list(minv)).contiguous()
@@ -267,7 +287,8 @@ def kernel_cases(grid, inp):
                   inp["p"].clone(), dt),
          lambda a, r: [r[0], r[1], a[5], r[2].reshape(1)], TOL_FUSED),
         ("k8_fused_pcisph_iter", "",
-         lambda: (grid, inp["vel"], inp["p"].clone(), dt, inp["factor"]),
+         lambda: (grid, inp["vel"], inp["p"].clone(), dt, inp["factor"],
+                  hits),
          lambda a, r: [r[0], r[1], a[2], r[2].reshape(1)], TOL_FUSED),
     ]
 
@@ -338,8 +359,8 @@ def check_list(grid, vel, chk):
 
 
 def check_list_required(grid, inp, count):
-    """K2, K3, K4, k1_div_acc, k1_visc_init and k1_vorticity raise on a
-    grid whose step built no list, and a fill from a count below the pairs
+    """K2, K3, K4, K7, k1_div_acc, k1_visc_init and k1_vorticity raise on
+    a grid whose step built no list, and a fill from a count below the pairs
     within h (it would drop a neighbour) flags it, so that the grid's first
     host read raises rather than the step walk a short list."""
     import dataclasses
@@ -374,7 +395,10 @@ def check_list_required(grid, inp, count):
                                       inp["gate"], inp["kf"].clone())),
              ("k3_fused_iter_full", (bare, inp["vel"].clone(),
                                      inp["kv"].clone(), inp["s1"].clone(),
-                                     inp["a1"], inp["paux1"], inp["dt"], 1))]
+                                     inp["a1"], inp["paux1"], inp["dt"], 1)),
+             ("k7_fused_jacobi_iter", (bare, inp["dii"], inp["deninv"],
+                                       inp["aii"], inp["b"],
+                                       inp["p"].clone(), inp["dt"]))]
     for name, args in calls:
         try:
             getattr(engine, name)(*args)
@@ -385,6 +409,51 @@ def check_list_required(grid, inp, count):
             raise AssertionError(f"{name} ran on a grid with no list")
     log(f"  {', '.join(name for name, _ in calls)} raise on a grid with no "
         "neighbour list; a fill from a short count raises at the first read")
+
+
+def check_k8_hits(grid, inp, chk):
+    """K8 against its twin into a hit buffer of the widest row's hits and
+    into one of half that width: the same outputs (within TOL_FUSED), the
+    same hits slot for slot, the same kept counts and the same overflow
+    flag (0, then the widest row's hits)."""
+    import dataclasses
+
+    import torch
+
+    from wcsph_tpu_torch import dense_ops, engine
+    from wcsph_tpu_torch.grid import ListSlots
+
+    saved = dict(engine.LAUNCHES)
+    width = k8_width(grid, inp)
+    m = grid.n
+    for w in (width, width // 2):
+        runs = []
+        for fn in (engine.k8_fused_pcisph_iter, dense_ops.fused_pcisph_iter):
+            g = dataclasses.replace(grid, star=None)
+            p = inp["p"].clone()
+            out = fn(g, inp["vel"], p, inp["dt"], inp["factor"],
+                     ListSlots(w * m))
+            runs.append((g.star, [out[0], out[1], p, out[2].reshape(1)]))
+        (got, got_out), (want, want_out) = runs
+        torch.cuda.synchronize()
+        for c, (a, b) in enumerate(zip(got_out, want_out)):
+            chk.close("k8_fused_pcisph_iter", a, b, TOL_FUSED,
+                      f"[width {w} out {c}]")
+        live = (torch.arange(w, device=grid.device)[:, None]
+                < want.count[None, :]).flatten()
+        if not (got.width == want.width == w
+                and torch.equal(got.count, want.count)
+                and torch.equal(got.idx[: w * m][live],
+                                want.idx[: w * m][live])
+                and torch.equal(got.rec, want.rec)
+                and int(got.over) == int(want.over)
+                == (0 if w == width else width)):
+            raise AssertionError(f"K8 at width {w}: hits, counts, records or "
+                                 "flag differ from its twin")
+        log(f"  k8_fused_pcisph_iter: width {w}: {int(live.sum())} hits "
+            f"equal to the twin's slot for slot, records equal, overflow "
+            f"flag {int(got.over)} as the twin's")
+    engine.LAUNCHES.update(saved)     # check launches are not main-path
 
 
 def check_dense(cfg, side, chk):
@@ -529,9 +598,9 @@ def check_list_capacity(grid, count, chk):
 
 
 def check_replay(solver, dev):
-    """One step of the pressurized side-8 scene with the list's buffer
-    forced to 64 slots: it replays once and gives the bits of the step
-    with an unforced buffer."""
+    """One step of the pressurized side-8 scene with the buffer of the
+    list (PCISPH: of K8's hits) forced to 64 slots: it replays once and
+    gives the bits of the step with an unforced buffer."""
     import torch
 
     from wcsph_tpu_torch import engine
@@ -555,7 +624,7 @@ def check_replay(solver, dev):
               "kappa_v")
     same = all(torch.equal(getattr(got, f), getattr(want, f))
                for f in fields) and got.diag == want.diag
-    log(f"[phase 3] {solver}: a step with 64 list slots replayed {replays} "
+    log(f"[phase 3] {solver}: a step with 64 slots replayed {replays} "
         f"time(s) (buffer grown to {forced.capacity}) and "
         f"{'equals' if same else 'DIFFERS FROM'} the unforced step bit for "
         f"bit")
@@ -613,16 +682,17 @@ def host_syncs(sim):
 
 def time_grid_stage(grid, pos, n_liquid, count, rng, reps_kernel=20,
                     reps_plain=5):
-    """(kernel ms, plain ms, library ms) of the bin, pack, unpack and list
-    offsets at the grid's shapes.  Library: the one PyTorch call that
-    computes the same function's core: torch.sort(stable=True) of the cell
-    keys for the bin, one gather (index_select of the stacked field rows)
-    for pack and unpack, torch.cumsum of the slice widths for the
-    offsets."""
+    """(kernel ms, plain ms, library ms, device ms) of the bin, pack,
+    unpack and list offsets at the grid's shapes.  Kernel: the whole
+    wrapper between two CUDA events; device: its kernels' own time
+    (torch.profiler).  Library: the one PyTorch call that computes the same
+    function's core: torch.sort(stable=True) of the cell keys for the bin,
+    one gather (index_select of the stacked field rows) for pack and
+    unpack, torch.cumsum of the slice widths for the offsets."""
     import torch
 
     from wcsph_tpu_torch import dense_ops, engine
-    from wcsph_tpu_torch.bench import time_call
+    from wcsph_tpu_torch.bench import device_ms, time_call
     from wcsph_tpu_torch.grid import ListSlots
 
     cfg = grid.cfg
@@ -655,10 +725,11 @@ def time_grid_stage(grid, pos, n_liquid, count, rng, reps_kernel=20,
         times[name] = (time_call(getattr(engine, name), make, reps_kernel),
                        time_call(engine.OWN_KERNELS[name][2], make,
                                  reps_plain),
-                       time_call(library, tuple, reps_kernel))
-        log(f"  {name}: kernel {times[name][0]:.4f} ms, plain "
-            f"{times[name][1]:.4f} ms, library {times[name][2]:.4f} ms "
-            f"(M={grid.n})")
+                       time_call(library, tuple, reps_kernel),
+                       device_ms(getattr(engine, name), make, reps_kernel))
+        log(f"  {name}: kernel {times[name][0]:.4f} ms (its kernels on the "
+            f"device {times[name][3]:.4f} ms), plain {times[name][1]:.4f} "
+            f"ms, library {times[name][2]:.4f} ms (M={grid.n})")
     engine.LAUNCHES.update(saved)     # timing launches are not main-path
     return times
 
@@ -724,10 +795,11 @@ def time_kernels(grid, cases, count, reps_kernel=20, reps_plain=5):
 # a function of the pair counts P and the rows M[, other words moved as a
 # function of P and M]).  Words: the kernel's operand list, each input read
 # once and each output written once; scratch that a kernel keeps between
-# its own launches is not counted, nor is the neighbour list that K2, K3,
-# K4, k1_div_acc, k1_visc_init and k1_vorticity read (the functions they
-# compute do not need it; the fill that writes it, slots and records, has
-# its own row), nor the shared-memory hit buffer of the density sweep.
+# its own launches is not counted (K8's hits and records at x*), nor is the
+# neighbour list that K2, K3, K4, K7, k1_div_acc, k1_visc_init and
+# k1_vorticity read (the functions they compute do not need it; the fill
+# that writes it, slots and records, has its own row), nor the
+# shared-memory hit buffer of the density sweep and of K8.
 # Every sweep also reads the geometry once (positions 3, liquid flag 1,
 # cell id 1 per row, and the cell offsets).  Operations: float32 adds,
 # multiplies, divides and square roots of the one-sided formula per
@@ -864,6 +936,7 @@ def main():
     if {c[0] for c in cases} != set(engine.KERNELS):
         raise AssertionError("a kernel entry has no case")
     check_kernels(grid, cases, chk)
+    check_k8_hits(grid, inp, chk)
     check_dense(sim.cfg, side, chk)
     log("[phase 2] every kernel agrees with its plain twin")
 
@@ -928,7 +1001,7 @@ def main():
                                  f"differ")
         np.testing.assert_allclose(traces[0][1], traces[1][1], rtol=2e-4,
                                    atol=2e-5)
-    for solver in ("dfsph", "iisph"):
+    for solver in ("dfsph", "pcisph", "iisph"):
         check_replay(solver, dev)
 
     # ---- phase 4: the paths at full width -----------------------------------
@@ -1026,6 +1099,7 @@ def main():
     check_list_capacity(mgrid, mcount, chk)
     cases = kernel_cases(mgrid, minp)
     check_kernels(mgrid, cases, chk)
+    check_k8_hits(mgrid, minp, chk)
     log(f"[phase 4] the grid stage, the list and every kernel agree with "
         f"their plain twins at M={mgrid.n}")
     times = time_kernels(mgrid, cases, mcount)
@@ -1052,6 +1126,7 @@ def main():
             *[(n, (src, "none: " + what, tw))
               for n, (src, what, tw) in engine.OWN_KERNELS.items()]]],
         "card": card, "rows": mgrid.n, "pairs": counts,
+        "grid_stage_device_ms": {k: v[3] for k, v in grid_times.items()},
         "paths": path_records}
     log(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

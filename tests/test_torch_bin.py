@@ -14,8 +14,12 @@ holds the kernels to bit for bit:
 * the list honours a slot capacity: clamped offsets, the need and the
   flag, raised at the step's first read (``Grid.read``), which also brings
   the liquid count;
-* a DFSPH or IISPH step whose buffer is forced too small runs once more
-  and gives the bits of the unforced step; ``Simulation`` keeps the buffer.
+* a DFSPH, PCISPH or IISPH step whose buffer is forced too small runs
+  once more and gives the bits of the unforced step; ``Simulation`` keeps
+  the buffer;
+* K8's plain twin keeps at most its buffer's width of hits a row, flags a
+  row with more, and otherwise gives the bits of the twin that keeps every
+  hit.
 """
 
 import dataclasses
@@ -185,12 +189,60 @@ def _pressurized_state(solver):
                                   vel=torch.as_tensor(vel))
 
 
+def test_k8_twin_flags_a_row_over_its_width(case):
+    """K8's hits at x*: the twin with a buffer of exactly the widest row's
+    hits gives the bits of the twin that keeps every hit, and its hits; one
+    of half that width flags the widest row, keeps adv, p and the error sum
+    and the acceleration of every row within the width, and raises at the
+    grid's next read."""
+    sc, cfg, pos, g0 = case
+    m = g0.n
+    rng = np.random.RandomState(5)
+    liq = sc.positions[: sc.n_liquid]
+    vel = grid_mod.pack(g0, [torch.as_tensor(
+        (-10.0 * (liq - liq.mean(0, keepdims=True))).T.astype(np.float32))])[0]
+    p0 = torch.as_tensor(rng.rand(m).astype(np.float32) * 1e3) * g0.liq
+    dt, factor = np.float32(1e-3), np.float32(1e5)
+
+    def run(slots):
+        g = dataclasses.replace(g0, nbr=None, star=None, n_liquid_read=None)
+        p = p0.clone()
+        return g, p, dense_ops.fused_pcisph_iter(g, vel, p, dt, factor, slots)
+
+    g, p, (adv, acc, err) = run(None)
+    full = g.star
+    width = full.width
+    assert int(full.over) == 0 and width > 4
+    assert int(full.count.max()) == width and int(full.count.sum()) > 10 * m
+    g, pw, out = run(grid_mod.ListSlots(width * m))
+    assert g.star.width == width and int(g.star.over) == 0
+    assert torch.equal(g.star.count, full.count)
+    assert torch.equal(g.star.idx[: width * m], full.idx)
+    for a, b in zip((pw, *out), (p, adv, acc, err)):
+        assert torch.equal(a, b)
+    g, ps, (adv_s, acc_s, err_s) = run(grid_mod.ListSlots(width // 2 * m))
+    short = g.star
+    assert short.width == width // 2 and int(short.over) == width
+    assert torch.equal(short.count, torch.clamp(full.count, max=width // 2))
+    fits = full.count <= width // 2
+    assert 0 < int(fits.sum()) < m and not bool(fits.all())
+    assert torch.equal(acc_s[:, fits], acc[:, fits])
+    assert not torch.equal(acc_s, acc)
+    assert torch.equal(ps, p) and torch.equal(adv_s, adv)
+    assert torch.equal(err_s, err)
+    with pytest.raises(grid_mod.ListOverflow) as e:
+        g.read(err_s)
+    assert e.value.need == width * m
+    assert g.read(err_s) == float(err_s)      # checked once
+
+
 def test_a_short_buffer_replays_to_the_same_bits():
-    """DFSPH and IISPH: a step whose buffer holds 64 slots replays once and
-    gives the unforced step's bits; Simulation keeps its buffer."""
+    """DFSPH, PCISPH (K8's hits) and IISPH: a step whose buffer holds 64
+    slots replays once and gives the unforced step's bits; Simulation keeps
+    its buffer."""
     from wcsph_tpu_torch.simulation import get_solver
 
-    for solver in ("dfsph", "iisph"):
+    for solver in ("dfsph", "pcisph", "iisph"):
         sim, state = _pressurized_state(solver)
         step = get_solver(solver).step
         engine.reset_launch_counts()

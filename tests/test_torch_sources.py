@@ -8,7 +8,9 @@ tests/test_torch_package.py::test_port_imports_no_jax.)
 
 The sweeps that run after a step's neighbour list is built walk that list
 and have no cell-loop form: one case per list-walking ``__global__`` of
-csrc/sweeps.cu, read with the device functions it calls.
+csrc/sweeps.cu, read with the device functions it calls, and one case for
+csrc/solver_sweeps.cu (K7's two sweeps walk the list, K8's acceleration
+sweep the hits of its first sweep).
 
 No kernel source copies to or from the host, allocates, or waits for the
 card: one case per file of csrc/.
@@ -135,3 +137,27 @@ def test_list_walker_never_scans_the_cells(kernel):
                  if c in bodies]
     assert re.search(r"\bfor_each_listed\s*\(", text)
     assert not re.search(r"\bfor_each_neighbor(_at)?\s*\(", text)
+
+
+def test_solver_walkers_never_scan_the_cells():
+    """K7's two sweeps run the listed sweep kernel, which walks the step's
+    list, and K8's acceleration sweep walks the hits of its first sweep:
+    neither scans a candidate cell."""
+    text = (CSRC / "solver_sweeps.cu").read_text()
+    bodies = _bodies(text)
+
+    def entry(name):
+        return re.search(rf'extern "C" int {name}\(.*?\n}}', text,
+                         re.S).group(0)
+
+    k7 = entry("k7_fused_jacobi_iter")
+    assert re.findall(r"\blaunch_(\w*)sweep\(g, (\w+)\{", k7) == [
+        ("list_", "IisphDij"), ("list_", "IisphS")]
+    launch = re.search(r"static int launch_list_sweep\(.*?\n}", text,
+                       re.S).group(0)
+    assert re.search(r"\bk5_list_kernel<E><<<", launch)
+    assert re.search(r"\bfor_each_listed\s*\(", bodies["k5_list_kernel"])
+    assert re.search(r"\bk8_acc_kernel<<<", entry("k8_fused_pcisph_iter"))
+    for walker in ("k5_list_kernel", "k8_acc_kernel"):
+        assert not re.search(r"\bfor_each_neighbor\w*\s*\(|\.start\[",
+                             bodies[walker]), walker

@@ -1,25 +1,28 @@
-"""A/B of the DFSPH step's sweeps against an older tree, on one card.
+"""A/B of the steps' sweeps against an older tree, on one card.
 
     python -m wcsph_tpu_torch.ab_list --old out/old
 
 ``--old`` is an unpacked copy of an older commit of this repository
-(``git archive <commit> | tar -x -C out/old``).  Its ``csrc/sweeps.cu``
-must define the entries of ``AB_KERNELS`` with this tree's C signatures,
-and its ``Geom`` must be this tree's or a leading part of it: this tree's
-``Geom`` is passed to the old kernels.  Run from the repository root.  In
-one process on one card:
+(``git archive <commit> | tar -x -C out/old``).  Its ``csrc/sweeps.cu`` and
+``csrc/solver_sweeps.cu`` must define the entries of ``AB_KERNELS`` with
+this tree's C signatures, but K8, which must have the signature of
+``OLD_K8_ARGS`` (the K8 that scanned the cells in both sweeps); its
+``Geom`` must be this tree's or a leading part of it: this tree's ``Geom``
+is passed to the old kernels.  Run from the repository root.  In one
+process on one card:
 
-1. kernels: the old tree's ``csrc/sweeps.cu`` is built as a second library
-   (into ``<old>/_ab_build``).  The flagship dam break (side 100) runs 4
-   DFSPH steps from rest; then one more step from that state runs with the
-   wrappers of ``AB_KERNELS`` recording the operands the solver gives
-   them, at the positions at rest and with every liquid position jittered
-   by a numpy-seeded uniform +-0.3 r.  Each recorded call (the first of
-   each wrapper, and of each K3 mode) is replayed through its wrapper with
-   the old and with the new library, timed in turns (old, new, new, old)
-   with CUDA events and compared bit for bit; the list fill is timed alone,
-   its slice offsets alone, and both as its whole wrapper; ``step_calls``
-   sums each side's times over the calls that the recorded step made;
+1. kernels: the old tree's two sources are built as second libraries
+   (into ``<old>/_ab_build``).  For each solver of ``AB_SOLVERS`` the
+   flagship dam break (side 100) runs 4 steps from rest; then one more step
+   from that state runs with the wrappers of ``AB_KERNELS`` recording the
+   operands the solver gives them, at the positions at rest and with every
+   liquid position jittered by a numpy-seeded uniform +-0.3 r.  Each
+   recorded call (the first of each wrapper, and of each K3 mode) is
+   replayed through its wrapper with the old and with the new library,
+   timed in turns (old, new, new, old) with CUDA events and compared bit
+   for bit; where the step built a list, the fill is timed alone, its slice
+   offsets alone, and both as its whole wrapper; ``step_calls`` sums each
+   side's times over the calls that the recorded step made;
 2. steps: the five paths of ``bench.flagship_paths``, 3 warm-up and 10
    timed steps each, in child processes of the old tree and of this one, in
    turns (old, new, new, old), with each step's (divergence, pressure,
@@ -54,7 +57,13 @@ from . import bench, engine
 
 AB_KERNELS = ("k1_density_alpha_drho", "k1_div_acc", "k1_visc_init",
               "k1_vorticity", "k2_fused_kappa_drho", "k3_fused_iter_full",
-              "k4_fused_visc_iter")
+              "k4_fused_visc_iter", "k7_fused_jacobi_iter",
+              "k8_fused_pcisph_iter")
+AB_SOLVERS = ("dfsph", "iisph", "pcisph")   # the steps that call them
+# The older K8's C signature: no hit buffer (geometry, v*, p, dt, factor,
+# w0, adv, acc, partials, err, stream).
+OLD_K8_ARGS = [engine._G, *[ctypes.c_void_p] * 2, *[ctypes.c_float] * 3,
+               *[ctypes.c_void_p] * 5]
 SIDE = 100         # the flagship dam break, 1M liquid particles
 REPS = 20          # timed calls per turn
 JITTER = 0.3       # of the particle radius
@@ -123,25 +132,44 @@ def compare_states(old_dir: Path, new_dir: Path) -> dict:
 
 def old_library(old_root: Path) -> dict:
     """The old tree's ``AB_KERNELS`` entries, built from its csrc/sweeps.cu
-    with this tree's nvcc flags and bound with this tree's signatures."""
-    src = old_root / "wcsph_tpu_torch" / "csrc" / "sweeps.cu"
+    and csrc/solver_sweeps.cu with this tree's nvcc flags (both nvcc
+    started together) and bound with this tree's signatures; the old K8
+    with ``OLD_K8_ARGS``, behind a function that takes the new K8's
+    arguments and passes it those it has."""
     out = old_root / "_ab_build"
     out.mkdir(exist_ok=True)
-    lib_path = out / "libold_sweeps.so"
     nvcc = engine._nvcc()
     if nvcc is None:
         raise RuntimeError("nvcc not found")
-    with open(out / "old_sweeps.ptxas.txt", "w") as f:
-        subprocess.run([nvcc, *engine.NVCC_FLAGS, "-o", str(lib_path),
-                        str(src)], stdout=f, stderr=subprocess.STDOUT,
-                       check=True)
-    lib = ctypes.CDLL(str(lib_path))
+    running = []
+    for stem in ("sweeps", "solver_sweeps"):
+        lib_path = out / f"libold_{stem}.so"
+        log = open(out / f"old_{stem}.ptxas.txt", "w")
+        running.append((lib_path, log, subprocess.Popen(
+            [nvcc, *engine.NVCC_FLAGS, "-o", str(lib_path),
+             str(old_root / "wcsph_tpu_torch" / "csrc" / f"{stem}.cu")],
+            stdout=log, stderr=subprocess.STDOUT)))
     fns = {}
-    for name in AB_KERNELS:
-        fn = getattr(lib, name)
-        fn.argtypes = engine._SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+    for lib_path, log, proc in running:
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed on the old tree: {log.name}")
+        log.close()
+        lib = ctypes.CDLL(str(lib_path))
+        for name in AB_KERNELS:
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.argtypes = (OLD_K8_ARGS if name == "k8_fused_pcisph_iter"
+                               else engine._SIGNATURES[name])
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+    k8 = fns["k8_fused_pcisph_iter"]
+
+    def old_k8(g, vel_star, p, dt, factor, w0, width, hits, nhit, rec, over,
+               adv, acc, partials, err, stream):
+        return k8(g, vel_star, p, dt, factor, w0, adv, acc, partials, err,
+                  stream)
+
+    fns["k8_fused_pcisph_iter"] = old_k8
     return fns
 
 
@@ -200,7 +228,9 @@ def _outputs(name, args):
 
 def kernels_ab(first, count, old) -> dict:
     """Old and new library on every recorded call, in turns, the bits
-    compared; then the fill, alone and as its whole wrapper."""
+    compared; ``step_calls`` sums each side's times over the step's calls;
+    then, where the step built its list, the fill, alone and as its whole
+    wrapper."""
     new = engine.library()
     out = {}
     for label, (name, args) in first.items():
@@ -223,6 +253,14 @@ def kernels_ab(first, count, old) -> dict:
             "bit_equal": all(torch.equal(a, b) for a, b in zip(*res)),
             "max_abs_diff": max(float((a.double() - b.double()).abs().max())
                                 for a, b in zip(*res))}
+    calls = {k: n for k, n in count.items() if k in out}
+    out["step_calls"] = {
+        "calls": calls,
+        **{f"{side}_ms": sum(n * out[k][f"{side}_ms"]
+                             for k, n in calls.items())
+           for side in ("old", "new")}}
+    if "nbr_list_fill" not in first:
+        return out
     grid, cnt, slots = first["nbr_list_fill"][1]
     nl = engine.nbr_list_fill(grid, cnt, slots)
     geom = engine._geom(grid)
@@ -240,13 +278,6 @@ def kernels_ab(first, count, old) -> dict:
         "wrapper_ms": bench.time_call(engine.nbr_list_fill,
                                       lambda: (grid, cnt, slots), REPS),
         "slots": int(nl.need), "capacity": slots.capacity}
-    calls = {k: n for k, n in count.items()
-             if k in out and k != "nbr_list_fill"}
-    out["step_calls"] = {
-        "calls": calls,
-        **{f"{side}_ms": sum(n * out[k][f"{side}_ms"]
-                             for k, n in calls.items())
-           for side in ("old", "new")}}
     out["step_calls"]["new_plus_fill_ms"] = (
         out["step_calls"]["new_ms"]
         + count["nbr_list_fill"] * out["nbr_list_fill"]["wrapper_ms"])
@@ -265,30 +296,35 @@ def main(argv=None):
     print(json.dumps({"card": card}), flush=True)
     old = old_library(args.old.resolve())
 
-    sim = bench.build_sim(SIDE, "cuda", "dfsph")
-    for _ in range(4):
-        sim.step()
-    state = sim.state
-    nl = state.n_liquid
-    r = sim.cfg.particle_radius
-    jitter = np.random.RandomState(SEED).uniform(-JITTER * r, JITTER * r,
-                                                 (3, nl))
-    jittered = state.pos.clone()
-    jittered[:, :nl] += torch.as_tensor(jitter.astype(np.float32),
-                                        device=state.pos.device)
-    for scene, pos in (("at rest", state.pos), ("jittered", jittered)):
-        sim.state = state.replace(pos=pos)
-        first, count = record_step(sim)
-        grid, cnt, _ = first["nbr_list_fill"][1]
-        if int(grid.cell_start[-1]) != state.n_total:
-            raise AssertionError(f"{scene}: a particle left the domain")
-        res = kernels_ab(first, count, old)
-        print(json.dumps({"scene": scene, "rows": grid.n,
-                          "pairs": int(cnt[grid.liquid].sum()),
-                          "card": card, "kernels": res}), flush=True)
-        del first, grid, cnt
-    del sim, state
-    torch.cuda.empty_cache()
+    for solver in AB_SOLVERS:
+        sim = bench.build_sim(SIDE, "cuda", solver)
+        for _ in range(4):
+            sim.step()
+        state = sim.state
+        nl = state.n_liquid
+        r = sim.cfg.particle_radius
+        jitter = np.random.RandomState(SEED).uniform(-JITTER * r, JITTER * r,
+                                                     (3, nl))
+        jittered = state.pos.clone()
+        jittered[:, :nl] += torch.as_tensor(jitter.astype(np.float32),
+                                            device=state.pos.device)
+        for scene, pos in (("at rest", state.pos), ("jittered", jittered)):
+            sim.state = state.replace(pos=pos)
+            first, count = record_step(sim)
+            grid = next(iter(first.values()))[1][0]
+            if int(grid.cell_start[-1]) != state.n_total:
+                raise AssertionError(f"{scene}: a particle left the domain")
+            fill = first.get("nbr_list_fill")
+            # the list's pairs, or the step's last K8 hits
+            pairs = (int(fill[1][1][grid.liquid].sum()) if fill
+                     else int(grid.star.count.sum()))
+            res = kernels_ab(first, count, old)
+            print(json.dumps({"solver": solver, "scene": scene,
+                              "rows": grid.n, "pairs": pairs, "card": card,
+                              "kernels": res}), flush=True)
+            del first, grid, fill
+        del sim, state
+        torch.cuda.empty_cache()
 
     # each child imports the package of its own working directory
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -154,6 +154,26 @@ def time_call(fn, make_args, reps: int) -> float:
     return total / reps
 
 
+def device_ms(fn, make_args, reps: int) -> float:
+    """Mean device time of the kernels that one call ``fn(*make_args())``
+    launches, summed over them (torch.profiler): the call's work on the
+    card without the host's share (``make_args`` runs before the trace)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    calls = [make_args() for _ in range(reps)]
+    fn(*make_args())
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for args in calls:
+            fn(*args)
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
+
+
 def profile(sim: Simulation, steps: int) -> dict:
     """``steps`` more steps under torch.profiler: device time per kernel
     name, and the device's busy share of its own timeline (kernel time over

@@ -7,10 +7,13 @@
 //     neighbour cells (the 3 z-neighbours of a cell are consecutive cell
 //     ids, so the loop is 9 contiguous row ranges) and accumulates in
 //     registers; r = x_i - x_j; pairs are cut to d^2 <= h^2, self excluded;
-//   * the density sweep of DFSPH runs that loop in two phases
-//     (for_each_neighbor_cut): it first cuts the candidates, keeping the
-//     rows within h in a per-thread buffer of shared memory, and then sums
-//     the pair terms over its own hits only, in the same order;
+//   * the density sweep of DFSPH and PCISPH's predicted-density sweep run
+//     that loop in two phases (for_each_neighbor_cut): each first cuts the
+//     candidates, keeping the rows within h in a per-thread buffer of
+//     shared memory, and then sums the pair terms over its own hits only,
+//     in the same order; PCISPH's cut takes the positions of its 16-byte
+//     records at the moved positions x*, the candidates staying those of
+//     the cells;
 //   * or, where the step has built its neighbour list (Geom.nl_idx, see
 //     for_each_listed), walks that list: the same pairs in the same order,
 //     with no candidate to cut, each neighbour's position and liquid flag
@@ -126,6 +129,25 @@ __device__ __forceinline__ void for_each_neighbor(const Geom& g, int i,
   }
 }
 
+// Where the cut loop reads a row's position: the planar Geom.pos ...
+struct PlanarPos {
+  const float* pos;
+  int M;
+  __device__ float3 operator()(int j) const {
+    return make_float3(__ldg(pos + j), __ldg(pos + M + j),
+                       __ldg(pos + 2 * M + j));
+  }
+};
+
+// ... or a 16-byte record per row, (x, y, z, liquid flag): one load.
+struct RecordPos {
+  const float4* rec;
+  __device__ float3 operator()(int j) const {
+    const float4 r = __ldg(rec + j);
+    return make_float3(r.x, r.y, r.z);
+  }
+};
+
 // The same calls as for_each_neighbor, in the same order and with the same
 // pair arithmetic, but the cut and the pair body run apart.  In the single
 // loop a warp's 32 receivers (about 4 cells) scan different windows of ~216
@@ -138,19 +160,23 @@ __device__ __forceinline__ void for_each_neighbor(const Geom& g, int i,
 // then diverge only on their hit counts (~27), not on the union of the
 // warp's hits.  A receiver with more than kCutSlots hits sums the full
 // buffer when the next hit comes and carries on cutting: no hit is
-// dropped, none added twice, the order is kept.
-template <class F>
+// dropped, none added twice, the order is kept.  The candidates are those
+// of the cells (Geom.cell, Geom.start); the positions, of the cut and of
+// the pair geometry, are x(j) (PlanarPos: Geom.pos itself; RecordPos:
+// moved positions).
+template <class X, class F>
 __device__ __forceinline__ void for_each_neighbor_cut(const Geom& g, int i,
-                                                      int* slot, F& f) {
-  const int M = g.M;
-  const float xi = g.pos[i], yi = g.pos[M + i], zi = g.pos[2 * M + i];
+                                                      const X& x, int* slot,
+                                                      F& f) {
+  const float3 pi = x(i);
   int n = 0;
   auto sum = [&]() {
     for (int k = 0; k < n; ++k) {
       const int j = slot[k * kBlock];
-      const float rx = xi - __ldg(g.pos + j);
-      const float ry = yi - __ldg(g.pos + M + j);
-      const float rz = zi - __ldg(g.pos + 2 * M + j);
+      const float3 pj = x(j);
+      const float rx = pi.x - pj.x;
+      const float ry = pi.y - pj.y;
+      const float rz = pi.z - pj.z;
       f(j, rx, ry, rz, rx * rx + ry * ry + rz * rz);
     }
     n = 0;
@@ -172,9 +198,10 @@ __device__ __forceinline__ void for_each_neighbor_cut(const Geom& g, int i,
       const int je = g.start[base + z1 + 1];
       for (int j = jb; j < je; ++j) {
         if (j == i) continue;
-        const float rx = xi - __ldg(g.pos + j);
-        const float ry = yi - __ldg(g.pos + M + j);
-        const float rz = zi - __ldg(g.pos + 2 * M + j);
+        const float3 pj = x(j);
+        const float rx = pi.x - pj.x;
+        const float ry = pi.y - pj.y;
+        const float rz = pi.z - pj.z;
         if (rx * rx + ry * ry + rz * rz <= g.h2) {
           if (n == kCutSlots) sum();
           slot[n++ * kBlock] = j;
@@ -210,43 +237,6 @@ __device__ __forceinline__ void for_each_listed(const Geom& g, int i, F& f) {
     const float rz = ri.z - rj.z;
     const float d2 = rx * rx + ry * ry + rz * rz;
     f(j, rx, ry, rz, d2, rj.w);
-  }
-}
-
-// The same loop over the same candidates (the cells of Geom.pos), with the
-// pair geometry taken at moved positions: x(j, p) fills p[3] for row j.
-// A pair is cut by its distance at the moved positions.
-template <class X, class F>
-__device__ __forceinline__ void for_each_neighbor_at(const Geom& g, int i,
-                                                     const X& x, F& f) {
-  float pi[3];
-  x(i, pi);
-  const int c = g.cell[i];
-  const int cz = c % g.gz;
-  const int cy = (c / g.gz) % g.gy;
-  const int cx = c / (g.gz * g.gy);
-  const int z0 = max(cz - 1, 0);
-  const int z1 = min(cz + 1, g.gz - 1);
-  for (int dx = -1; dx <= 1; ++dx) {
-    const int nx = cx + dx;
-    if (nx < 0 || nx >= g.gx) continue;
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int ny = cy + dy;
-      if (ny < 0 || ny >= g.gy) continue;
-      const int base = (nx * g.gy + ny) * g.gz;
-      const int jb = g.start[base + z0];
-      const int je = g.start[base + z1 + 1];
-      for (int j = jb; j < je; ++j) {
-        if (j == i) continue;
-        float pj[3];
-        x(j, pj);
-        const float rx = pi[0] - pj[0];
-        const float ry = pi[1] - pj[1];
-        const float rz = pi[2] - pj[2];
-        const float d2 = rx * rx + ry * ry + rz * rz;
-        if (d2 <= g.h2) f(j, rx, ry, rz, d2);
-      }
-    }
   }
 }
 

@@ -7,18 +7,25 @@
 // _build_fused_iisph_iter (1238) and _build_fused_pcisph_iter (1466).  As
 // in sweeps.cu they compute what those kernels compute, not their TPU
 // layout: one thread per receiving particle gathers its own sum over the
-// cell-sorted rows (common.cuh), so there is no capacity, no plane, no
+// cell-sorted rows (common.cuh), so there is no cell capacity, no plane, no
 // occupancy mask, no overlap-add fold and no zero phase, and where a TPU
 // program relies on its grid running in order (a phase reads what all
 // programs of the phase before wrote), each phase is its own launch on one
 // stream.
 //
-// What bounds them on the H100 is what bounds the sweeps of sweeps.cu: the
-// candidate loop (~200 candidates per receiver, ~15% within h) with the
-// neighbour rows coming from L1/L2, not the tens of MB of operands in
-// device memory.  Neighbouring threads hold neighbouring rows of one cell
-// and walk nearly the same candidate ranges.  Nothing here is tuned beyond
-// that.
+// What bounds the cell-loop sweeps on the H100 is what bounds those of
+// sweeps.cu: the candidate loop (~216 candidates per receiver, ~13% within
+// h) with the neighbour rows coming from L1/L2, not the tens of MB of
+// operands in device memory.  So the sweeps that can avoid it do:
+//   * K7 runs after the IISPH step has built its neighbour list, and its
+//     two sweeps walk it (k5_list_kernel, for_each_listed): ~30 listed
+//     pairs per receiver, bound by the gathers of the neighbours' fields;
+//   * K8's pairs are those within h at the moved positions x*, which change
+//     from iteration to iteration, so it cannot walk the step's list; but
+//     its two sweeps of one iteration share the same x*, so the first cuts
+//     the candidates once (for_each_neighbor_cut on 16-byte records of x*)
+//     and writes its hits to a buffer, which the second walks.
+// The other K5 emits and K6 scan the cells (k5_sweep_kernel).
 //
 // A launch returns cudaGetLastError().
 
@@ -33,8 +40,13 @@
 //   E::kOut      number of accumulated channels
 //   E::kAllRows  true: every row receives; false: liquid rows (0 elsewhere)
 //   E::Row       what the receiver holds in registers; e.row(g, i) loads it
-//   e.pair(g, row, j, rx, ry, rz, d2, acc)   the per-pair body
-//   e.finish(g, i, acc)                      the per-row epilogue
+//   e.pair(g, row, j, rx, ry, rz, d2, lj, acc)   the per-pair body, lj the
+//                                                neighbour's liquid flag
+//   e.finish(g, i, acc)                          the per-row epilogue
+// k5_sweep_kernel scans the cells; k5_list_kernel walks the step's list
+// (the same pairs in the same order, so the same bits), for the emits that
+// run after the list is built and receive on liquid rows only (the list
+// holds the pairs of the liquid rows).
 // ---------------------------------------------------------------------------
 
 template <class E>
@@ -47,7 +59,7 @@ __global__ void k5_sweep_kernel(Geom g, E e) {
   if (E::kAllRows || g.liq[i] != 0.0f) {
     const typename E::Row row = e.row(g, i);
     auto f = [&](int j, float rx, float ry, float rz, float d2) {
-      e.pair(g, row, j, rx, ry, rz, d2, acc);
+      e.pair(g, row, j, rx, ry, rz, d2, g.liq[j], acc);
     };
     for_each_neighbor(g, i, f);
   }
@@ -55,8 +67,33 @@ __global__ void k5_sweep_kernel(Geom g, E e) {
 }
 
 template <class E>
+__global__ void k5_list_kernel(Geom g, E e) {
+  static_assert(!E::kAllRows, "the list holds the liquid rows' pairs only");
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= g.M) return;
+  float acc[E::kOut];
+#pragma unroll
+  for (int k = 0; k < E::kOut; ++k) acc[k] = 0.0f;
+  if (g.liq[i] != 0.0f) {
+    const typename E::Row row = e.row(g, i);
+    auto f = [&](int j, float rx, float ry, float rz, float d2, float lj) {
+      e.pair(g, row, j, rx, ry, rz, d2, lj, acc);
+    };
+    for_each_listed(g, i, f);
+  }
+  e.finish(g, i, acc);
+}
+
+template <class E>
 static int launch_sweep(const Geom* g, const E& e, void* stream) {
   k5_sweep_kernel<E><<<blocks_of(g->M), kBlock, 0, (cudaStream_t)stream>>>(
+      *g, e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class E>
+static int launch_list_sweep(const Geom* g, const E& e, void* stream) {
+  k5_list_kernel<E><<<blocks_of(g->M), kBlock, 0, (cudaStream_t)stream>>>(
       *g, e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -78,9 +115,9 @@ struct DensityAlpha {
   using Row = NoRow;
   float* out;
   __device__ Row row(const Geom&, int) const { return Row{}; }
-  __device__ void pair(const Geom& g, const Row&, int j, float, float, float,
-                       float d2, float* acc) const {
-    acc[0] += volume(g, j) * kernel_w(g, d2);
+  __device__ void pair(const Geom& g, const Row&, int, float, float, float,
+                       float d2, float lj, float* acc) const {
+    acc[0] += volume_of(g, lj) * kernel_w(g, d2);
     acc[1] += 1.0f;
   }
   __device__ void finish(const Geom& g, int i, const float* acc) const {
@@ -108,9 +145,8 @@ struct SesphForce {
     return Row{vel[i], vel[g.M + i], vel[2 * g.M + i], rr[i], pi[i], p[i]};
   }
   __device__ void pair(const Geom& g, const Row& r, int j, float rx, float ry,
-                       float rz, float d2, float* acc) const {
+                       float rz, float d2, float lj, float* acc) const {
     const int M = g.M;
-    const float lj = g.liq[j];
     const float sj = 1.0f - lj;
     const float rd = 1.0f / (d2 + d0);
     const float dv_dot = (r.vx - vel[j]) * rx + (r.vy - vel[M + j]) * ry +
@@ -145,10 +181,10 @@ struct IisphAdv {
     return Row{vel[i], vel[g.M + i], vel[2 * g.M + i]};
   }
   __device__ void pair(const Geom& g, const Row& r, int j, float rx, float ry,
-                       float rz, float d2, float* acc) const {
+                       float rz, float d2, float lj, float* acc) const {
     const int M = g.M;
     const float gs = kernel_gs(g, d2);
-    const float vgs = volume(g, j) * gs;
+    const float vgs = volume_of(g, lj) * gs;
     acc[0] -= vgs * rx;
     acc[1] -= vgs * ry;
     acc[2] -= vgs * rz;
@@ -174,10 +210,10 @@ struct IisphAii {
   __device__ Row row(const Geom& g, int i) const {
     return Row{dii[i], dii[g.M + i], dii[2 * g.M + i]};
   }
-  __device__ void pair(const Geom& g, const Row& r, int j, float rx, float ry,
-                       float rz, float d2, float* acc) const {
+  __device__ void pair(const Geom& g, const Row& r, int, float rx, float ry,
+                       float rz, float d2, float lj, float* acc) const {
     const float f = kernel_gs(g, d2) * (r.dx * rx + r.dy * ry + r.dz * rz);
-    acc[0] += volume(g, j) * f;
+    acc[0] += volume_of(g, lj) * f;
   }
   __device__ void finish(const Geom& g, int i, const float* acc) const {
     store_channels<kOut>(out, g.M, i, acc);
@@ -196,8 +232,7 @@ struct IisphForce {
   float* out;
   __device__ Row row(const Geom&, int i) const { return Row{dpi[i]}; }
   __device__ void pair(const Geom& g, const Row& r, int j, float rx, float ry,
-                       float rz, float d2, float* acc) const {
-    const float lj = g.liq[j];
+                       float rz, float d2, float lj, float* acc) const {
     const float c =
         lj * (g.vl * (r.dpi + dpi[j])) + (1.0f - lj) * g.vs * r.dpi;
     const float fg = c * kernel_gs(g, d2);
@@ -230,7 +265,7 @@ struct SurfaceNormals {
   float* out;
   __device__ Row row(const Geom&, int) const { return Row{}; }
   __device__ void pair(const Geom& g, const Row&, int j, float rx, float ry,
-                       float rz, float d2, float* acc) const {
+                       float rz, float d2, float, float* acc) const {
     const float c = mass * ril[j] * kernel_gs(g, d2);
     acc[0] += c * rx;
     acc[1] += c * ry;
@@ -270,13 +305,12 @@ struct TensionAccel {
     return Row{rho[i], n[i], n[g.M + i], n[2 * g.M + i]};
   }
   __device__ void pair(const Geom& g, const Row& r, int j, float rx, float ry,
-                       float rz, float d2, float* acc) const {
+                       float rz, float d2, float lj, float* acc) const {
     const int M = g.M;
     const float h = g.h;
     const float dist = sqrtf(fmaxf(d2, 1.0e-12f));
     const float inv_dist = 1.0f / fmaxf(dist, t.eps);
     const bool pair_ok = d2 > t.eps;
-    const float lj = g.liq[j];
     const float k_ij = t.rho0x2 / fmaxf(r.rho + rho[j], 1.0f);
     const float gate = pair_ok ? lj * k_ij : 0.0f;
     // kernels.cohesion_w_scalar
@@ -318,6 +352,11 @@ struct TensionAccel {
 //      ok = |a_ii dt^2| > eps, in place (launch 2 was the last reader of p),
 //      and a block partial of liq ((a_ii p' + s) dt^2 - b) gated on p' != 0;
 //   4. one block sums the partials in a fixed order.
+// Launches 1 and 2 walk the step's neighbour list (k5_list_kernel), which
+// the IISPH step builds before its Jacobi loop; the positions do not move
+// in between.  Both receive on liquid rows only.  What bounds them is the
+// gathers per listed neighbour: its record and, for s, its dii, dij and p
+// (7 words); for dij, its deninv and p.
 // ---------------------------------------------------------------------------
 
 struct IisphDij {
@@ -329,8 +368,8 @@ struct IisphDij {
   float* out;
   __device__ Row row(const Geom&, int) const { return Row{}; }
   __device__ void pair(const Geom& g, const Row&, int j, float rx, float ry,
-                       float rz, float d2, float* acc) const {
-    const float fac = -g.liq[j] * deninv[j] * p[j];
+                       float rz, float d2, float lj, float* acc) const {
+    const float fac = -lj * deninv[j] * p[j];
     const float fg = fac * kernel_gs(g, d2);
     acc[0] += fg * rx;
     acc[1] += fg * ry;
@@ -356,10 +395,9 @@ struct IisphS {
     return Row{dij[i], dij[g.M + i], dij[2 * g.M + i], deninv[i] * p[i]};
   }
   __device__ void pair(const Geom& g, const Row& r, int j, float rx, float ry,
-                       float rz, float d2, float* acc) const {
+                       float rz, float d2, float lj, float* acc) const {
     const int M = g.M;
     const float gs = kernel_gs(g, d2);
-    const float lj = g.liq[j];
     const float dij_dot_i = gs * (r.dx * rx + r.dy * ry + r.dz * rz);
     const float dii_j_dot =
         gs * (lj * p[j]) *
@@ -403,45 +441,72 @@ __global__ void k7_update_kernel(int M, const float* __restrict__ liq,
 
 // ---------------------------------------------------------------------------
 // K8: a whole PCISPH prediction iteration.  Replaces
-// _build_fused_pcisph_iter (engine.py:1466); three launches plus the sum:
-//   1. predicted density adv_i = sum_j V_j W(|x*_i - x*_j|)
-//      (_PcisphAdvPart 2310) at x* = x + liq v* dt, formed on the fly: no x*
-//      array in device memory.  The candidates are those of the ORIGINAL
-//      cells (Geom.pos, Geom.start); a pair is cut by its distance at x*;
-//   2. p' = p + factor (max(w0 + adv, 1) - 1) in place, and a block partial
+// _build_fused_pcisph_iter (engine.py:1466), whose two sweeps both run at
+// the moved positions x* = x + liq v* dt, with the candidates of the
+// ORIGINAL cells (Geom.cell, Geom.start) and a pair cut by its distance at
+// x*.  Both sweeps of one iteration see the same pairs, so only the first
+// cuts the candidates; five launches:
+//   1. each row's 16-byte record (x*, liquid flag), and the overflow flag
+//      cleared;
+//   2. predicted density adv_i = sum_j V_j W(|x*_i - x*_j|) (_PcisphAdvPart
+//      2310) over the candidates cut at the records (for_each_neighbor_cut:
+//      cut into shared memory, then sum).  The sum writes each hit, in the
+//      loop's order, to the hit buffer: hit k of row i at hits[k M + i] (the
+//      warp's 32 rows side by side, so each k is one coalesced store), for
+//      k < width, and the row's count of kept hits; a liquid row with more
+//      hits than width raises *over to its hit count (atomicMax: the
+//      largest, whatever the order).  adv sums every hit;
+//   3. p' = p + factor (max(w0 + adv, 1) - 1) in place, and a block partial
 //      of liq (max(w0 + adv, 1) - 1); then the fixed-order sum;
-//   3. pressure acceleration -sum c gs r at x* with p' at both ends
+//   4. pressure acceleration -sum c gs r at x* with p' at both ends
 //      (_PcisphAccPart 2323): c = V0 (p'_i + p'_j) for a liquid neighbour,
-//      Vs p'_i for a boundary one.
+//      Vs p'_i for a boundary one, over the kept hits: no candidate is
+//      scanned.  Where *over is set the hits were cut short: the caller
+//      runs the step again with a wider buffer.
+// The same pairs in the same order as the cell loop at x*, so the same
+// bits.  Bound: the cut (~216 candidates per receiver, one 16-byte record
+// each) in launch 2; launch 4 walks ~30 hits of 2 words and a record each.
 // ---------------------------------------------------------------------------
 
-struct Starred {
-  const float* pos;
-  const float* liq;
-  const float* vel_star;
-  int M;
-  float dt;
-  __device__ void operator()(int j, float* x) const {
-    const bool l = liq[j] != 0.0f;
+__global__ void k8_star_kernel(int M, const float* __restrict__ pos,
+                               const float* __restrict__ liq,
+                               const float* __restrict__ vel_star, float dt,
+                               float4* __restrict__ xs,
+                               int* __restrict__ over) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i == 0) *over = 0;
+  if (i >= M) return;
+  const float l = liq[i];
+  float x[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float x0 = pos[c * M + j];
-      x[c] = l ? x0 + vel_star[c * M + j] * dt : x0;
-    }
+  for (int c = 0; c < 3; ++c) {
+    const float x0 = pos[c * M + i];
+    x[c] = l != 0.0f ? x0 + vel_star[c * M + i] * dt : x0;
   }
-};
+  xs[i] = make_float4(x[0], x[1], x[2], l);
+}
 
-__global__ void k8_adv_kernel(Geom g, Starred xs, float* __restrict__ adv) {
+__global__ void k8_adv_kernel(Geom g, const float4* __restrict__ xs,
+                              int width, int* __restrict__ hits,
+                              int* __restrict__ nhit, int* __restrict__ over,
+                              float* __restrict__ adv) {
+  __shared__ int slot[kCutSlots * kBlock];
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= g.M) return;
+  const int M = g.M;
   float acc = 0.0f;
+  int k = 0;
   if (g.liq[i] != 0.0f) {
     auto f = [&](int j, float, float, float, float d2) {
       acc += volume(g, j) * kernel_w(g, d2);
+      if (k < width) hits[k * M + i] = j;
+      ++k;
     };
-    for_each_neighbor_at(g, i, xs, f);
+    for_each_neighbor_cut(g, i, RecordPos{xs}, slot + threadIdx.x, f);
   }
   adv[i] = acc;
+  nhit[i] = min(k, width);
+  if (k > width) atomicMax(over, k);
 }
 
 __global__ void k8_pressure_kernel(int M, const float* __restrict__ liq,
@@ -458,24 +523,36 @@ __global__ void k8_pressure_kernel(int M, const float* __restrict__ liq,
   block_partial(part, partials);
 }
 
-__global__ void k8_acc_kernel(Geom g, Starred xs, const float* __restrict__ p,
+__global__ void k8_acc_kernel(Geom g, const float4* __restrict__ xs,
+                              const int* __restrict__ hits,
+                              const int* __restrict__ nhit,
+                              const float* __restrict__ p,
                               float* __restrict__ out) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= g.M) return;
+  const int M = g.M;
   float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  if (g.liq[i] != 0.0f) {
+  const int n = nhit[i];
+  if (n > 0) {
+    const float4 ri = __ldg(xs + i);
     const float pi = p[i];
-    auto f = [&](int j, float rx, float ry, float rz, float d2) {
-      const float lj = g.liq[j];
+    const int* slot = hits + i;
+#pragma unroll 4
+    for (int k = 0; k < n; ++k) {
+      const int j = __ldg(slot + k * M);
+      const float4 rj = __ldg(xs + j);
+      const float rx = ri.x - rj.x;
+      const float ry = ri.y - rj.y;
+      const float rz = ri.z - rj.z;
+      const float d2 = rx * rx + ry * ry + rz * rz;
+      const float lj = rj.w;
       const float c = lj * g.vl * (pi + p[j]) + (1.0f - lj) * g.vs * pi;
       const float fg = c * kernel_gs(g, d2);
       ax -= fg * rx;
       ay -= fg * ry;
       az -= fg * rz;
-    };
-    for_each_neighbor_at(g, i, xs, f);
+    }
   }
-  const int M = g.M;
   out[i] = ax;
   out[M + i] = ay;
   out[2 * M + i] = az;
@@ -532,9 +609,9 @@ extern "C" int k7_fused_jacobi_iter(const Geom* g, const float* dii,
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int nb = blocks_of(g->M);
-  int e = launch_sweep(g, IisphDij{deninv, p, dij}, stream);
+  int e = launch_list_sweep(g, IisphDij{deninv, p, dij}, stream);
   if (e != 0) return e;
-  e = launch_sweep(g, IisphS{dii, dij, deninv, p, s}, stream);
+  e = launch_list_sweep(g, IisphS{dii, dij, deninv, p, s}, stream);
   if (e != 0) return e;
   k7_update_kernel<<<nb, kBlock, 0, st>>>(g->M, g->liq, aii, b, s, p, dt,
                                           omega, eps, partials);
@@ -547,14 +624,19 @@ extern "C" int k7_fused_jacobi_iter(const Geom* g, const float* dii,
 
 extern "C" int k8_fused_pcisph_iter(const Geom* g, const float* vel_star,
                                     float* p, float dt, float factor,
-                                    float w0, float* adv, float* acc,
-                                    float* partials, float* err,
+                                    float w0, int width, int* hits, int* nhit,
+                                    float* xs, int* over, float* adv,
+                                    float* acc, float* partials, float* err,
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int nb = blocks_of(g->M);
-  const Starred xs{g->pos, g->liq, vel_star, g->M, dt};
-  k8_adv_kernel<<<nb, kBlock, 0, st>>>(*g, xs, adv);
+  float4* rec = reinterpret_cast<float4*>(xs);
+  k8_star_kernel<<<nb, kBlock, 0, st>>>(g->M, g->pos, g->liq, vel_star, dt,
+                                        rec, over);
   cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  k8_adv_kernel<<<nb, kBlock, 0, st>>>(*g, rec, width, hits, nhit, over, adv);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   k8_pressure_kernel<<<nb, kBlock, 0, st>>>(g->M, g->liq, adv, p, factor, w0,
                                             partials);
@@ -563,6 +645,6 @@ extern "C" int k8_fused_pcisph_iter(const Geom* g, const float* vel_star,
   reduce_partials_kernel<<<1, kReduceBlock, 0, st>>>(partials, nb, 0.0f, err);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  k8_acc_kernel<<<nb, kBlock, 0, st>>>(*g, xs, p, acc);
+  k8_acc_kernel<<<nb, kBlock, 0, st>>>(*g, rec, hits, nhit, p, acc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -143,7 +143,7 @@ __global__ void k1_density_kernel(Geom g, const float* __restrict__ vel,
                      (vz - vel[2 * M + j]) * rz;
     div += vgs * dv;
   };
-  for_each_neighbor_cut(g, i, hits + threadIdx.x, f);
+  for_each_neighbor_cut(g, i, PlanarPos{g.pos, M}, hits + threadIdx.x, f);
   out[i] = rho;
   out[M + i] = cnt;
   out[2 * M + i] = sgx;

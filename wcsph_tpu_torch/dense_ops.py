@@ -25,7 +25,8 @@ import torch
 
 from . import kernels
 from .config import SimConfig
-from .grid import SLICE, Grid, ListSlots, NeighborList, outside_cell
+from .grid import (SLICE, Grid, ListSlots, NeighborList, StarHits,
+                   outside_cell)
 
 
 @dataclasses.dataclass
@@ -595,7 +596,7 @@ def fused_jacobi_iter(grid: Grid, dii: torch.Tensor, deninv: torch.Tensor,
 
 
 def fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, pr: torch.Tensor,
-                      dt, factor):
+                      dt, factor, slots: ListSlots | None = None):
     """One PCISPH prediction iteration at the starred positions
     x* = x + liq v* dt (``_PcisphAdvPart`` 2310, ``_PcisphAccPart`` 2323).
     The pair candidates are those of the ORIGINAL binning; a pair is cut by
@@ -604,18 +605,53 @@ def fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, pr: torch.Tensor,
     factor = pci_coff / dt^2 and w0 = V0 W(0); acc = -sum c gs r at x* with
     c = V0 (p'_i + p'_j) for a liquid neighbour, Vs p'_i for a boundary
     one.  Updates ``pr`` in place; returns (adv (M,), acc (3, M), the 0-dim
-    error sum of liq (max(w0 + adv, 1) - 1))."""
+    error sum of liq (max(w0 + adv, 1) - 1)).
+
+    As the kernel, it keeps the hits as ``grid.star`` (``grid.StarHits``):
+    each liquid row's pairs in the cell loop's order, at most
+    ``slots.capacity // M`` of them (every one where ``slots`` is None).
+    acc sums the kept hits only, adv every hit; a row with more hits than
+    it keeps sets ``over``."""
     cfg = grid.cfg
     liq = grid.liq
+    m = grid.n
     xs = torch.where(grid.liquid[None], grid.pos + vel_star * float(dt),
                      grid.pos)
     p = build_pairs(grid, xs)
-    adv = _sum(p, grid.n, p.vol_j * p.w) * liq
+    # liquid receivers only, each pair's rank among its receiver's pairs
+    live = grid.liquid[p.i]
+    p = Pairs(**{f.name: getattr(p, f.name)[..., live]
+                 for f in dataclasses.fields(p)})
+    n_i = torch.bincount(p.i, minlength=m)
+    by_i = torch.argsort(p.i, stable=True)
+    rank = torch.empty_like(by_i)
+    rank[by_i] = (torch.arange(by_i.shape[0], device=by_i.device)
+                  - (torch.cumsum(n_i, 0) - n_i)[p.i[by_i]])
+    if slots is None:
+        width = int(n_i.max())
+        capacity = width * m
+    elif slots.capacity is None:
+        raise ValueError("K8 keeps its hits in a sized buffer: pass a "
+                         "grid.ListSlots with a capacity")
+    else:
+        capacity = slots.capacity
+        width = capacity // m
+    keep = rank < width
+    idx = torch.full((capacity,), -1, dtype=torch.int32, device=grid.device)
+    idx[rank[keep] * m + p.i[keep]] = p.j[keep].to(torch.int32)
+    grid.star = StarHits(
+        idx=idx, count=torch.clamp(n_i, max=width).to(torch.int32),
+        rec=torch.cat([xs.T, liq[:, None]], dim=1).contiguous(), width=width,
+        over=torch.where(n_i > width, n_i, 0).max().to(torch.int32))
+
+    adv = _sum(p, m, p.vol_j * p.w)
     w0 = cfg.liquid_volume * kernels.cubic_w0(cfg.support_radius)
-    over = torch.clamp(w0 + adv, min=1.0) - 1.0
-    pr += float(factor) * over
+    excess = torch.clamp(w0 + adv, min=1.0) - 1.0
+    pr += float(factor) * excess
     pi = pr[p.i]
     c = (p.liq_j * cfg.liquid_volume * (pi + pr[p.j])
          + (1.0 - p.liq_j) * cfg.solid_volume * pi)
-    acc = -_sum(p, grid.n, c * p.gs * p.r) * liq
-    return adv, acc, torch.sum(liq * over)
+    vals = (c * p.gs * p.r)[:, keep]
+    acc = -torch.zeros((3, m), dtype=vals.dtype,
+                       device=vals.device).index_add_(-1, p.i[keep], vals)
+    return adv, acc, torch.sum(liq * excess)

@@ -34,17 +34,22 @@ K7     ``k7_fused_jacobi_iter``    whole IISPH relaxed-Jacobi iteration
 K8     ``k8_fused_pcisph_iter``    whole PCISPH prediction iteration
 =====  ==========================  =========================================
 
-Six walkers read the step's neighbour list (``grid.NeighborList``)
+Seven walkers read the step's neighbour list (``grid.NeighborList``)
 instead of the 27 cells: K2, K3, ``k1_div_acc`` (which shares K2's
-divergence launch), ``k1_visc_init``, ``k1_vorticity`` and K4.  A DFSPH or
-IISPH step builds the list once, right after its density sweep, with
+divergence launch), ``k1_visc_init``, ``k1_vorticity``, K4 and K7.  A DFSPH
+or IISPH step builds the list once, right after its density sweep, with
 ``nbr_list_offsets`` and ``nbr_list_fill``, kernels of the port's own
 design that no TPU kernel corresponds to (``OWN_KERNELS``), as are the
 step's bin, pack and unpack (``bin_cells``, ``pack_rows``, ``unpack_rows``:
-XLA ops in the JAX package).  On the card the six walkers raise where the
+XLA ops in the JAX package).  On the card the seven walkers raise where the
 grid has no list; their plain twins need none.  From the positions to the
 filled list no wrapper reads anything back to the host (the list's first
 fill sizes its buffer: one read).
+
+K8's pairs are those at PCISPH's moved positions, new in every iteration:
+its first sweep cuts the cells' candidates there and writes its hits into
+a buffer of a uniform width (``grid.StarHits``, in the step's kept
+``grid.ListSlots``), which its second sweep walks.
 
 ``k1_density_alpha_drho`` runs before the list exists (its counts size
 it), so it scans the cells, in two phases: each receiver first cuts its
@@ -73,7 +78,7 @@ import numpy as np
 import torch
 
 from . import dense_ops, kernels
-from .grid import Grid, ListSlots, NeighborList, outside_cell
+from .grid import Grid, ListSlots, NeighborList, StarHits, outside_cell
 from .utils import mat3
 
 _PKG = Path(__file__).resolve().parent
@@ -134,7 +139,7 @@ OWN_KERNELS = {
                          "clamped to its kept slot capacity",
                          dense_ops.list_offsets),
     "nbr_list_fill": (_SRC, "the neighbour list that K2, K3, k1_div_acc, "
-                      "k1_visc_init, k1_vorticity and K4 walk",
+                      "k1_visc_init, k1_vorticity, K4 and K7 walk",
                       dense_ops.neighbor_list),
 }
 LAUNCHES = {name: 0 for name in (*KERNELS, *OWN_KERNELS)}
@@ -210,7 +215,8 @@ _SIGNATURES = {
     "k6_fused_tension": [_G, _P, _P, _T, _F, _P, _P, _P],
     "k7_fused_jacobi_iter": [_G, _P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _P,
                              _P, _P],
-    "k8_fused_pcisph_iter": [_G, _P, _P, _F, _F, _F, _P, _P, _P, _P, _P],
+    "k8_fused_pcisph_iter": [_G, _P, _P, _F, _F, _F, _I, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P],
     "nbr_list_fill": [_G, _P, _P, _P, _P, _P],
     "bin_cells": [_P, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P, _P],
@@ -736,7 +742,7 @@ def k7_fused_jacobi_iter(grid: Grid, dii: torch.Tensor, deninv: torch.Tensor,
     partials = torch.empty((_nblocks(m),), dtype=torch.float32,
                            device=p.device)
     resid = torch.empty((), dtype=torch.float32, device=p.device)
-    _launch("k7_fused_jacobi_iter", ctypes.byref(_geom(grid)),
+    _launch("k7_fused_jacobi_iter", ctypes.byref(_geom(grid, listed=True)),
             dii.data_ptr(), deninv.data_ptr(), aii.data_ptr(), b.data_ptr(),
             p.data_ptr(), float(dt), cfg.iisph_omega, cfg.eps,
             dij.data_ptr(), s.data_ptr(), partials.data_ptr(),
@@ -745,11 +751,19 @@ def k7_fused_jacobi_iter(grid: Grid, dii: torch.Tensor, deninv: torch.Tensor,
 
 
 def k8_fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, p: torch.Tensor,
-                         dt, factor):
+                         dt, factor, slots: ListSlots | None = None):
     """In place on p; returns (adv (M,), acc (3, M), 0-dim error sum) (see
-    dense_ops.fused_pcisph_iter)."""
+    dense_ops.fused_pcisph_iter) and keeps the iteration's hits at x* as
+    ``grid.star``, in the buffer of ``slots`` (``slots.capacity // M`` a
+    row): a row with more hits is flagged, and ``Grid.read`` raises
+    ``ListOverflow`` at the next read.  On the card ``slots`` must be
+    sized; the plain twin takes None for a buffer that holds every hit."""
     if not _route(p):
-        return dense_ops.fused_pcisph_iter(grid, vel_star, p, dt, factor)
+        return dense_ops.fused_pcisph_iter(grid, vel_star, p, dt, factor,
+                                           slots)
+    if slots is None or slots.capacity is None:
+        raise ValueError("K8 keeps its hits in a sized buffer: pass a "
+                         "grid.ListSlots with a capacity")
     m = grid.n
     cfg = grid.cfg
     _check(vel_star, p, shapes=[(3, m), (m,)])
@@ -758,11 +772,19 @@ def k8_fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, p: torch.Tensor,
     partials = torch.empty((_nblocks(m),), dtype=torch.float32,
                            device=p.device)
     err = torch.empty((), dtype=torch.float32, device=p.device)
+    hits = StarHits(
+        idx=slots.buffer(p.device),
+        count=torch.empty((m,), dtype=torch.int32, device=p.device),
+        rec=torch.empty((m, 4), dtype=torch.float32, device=p.device),
+        width=slots.capacity // m,
+        over=torch.empty((), dtype=torch.int32, device=p.device))
     _launch("k8_fused_pcisph_iter", ctypes.byref(_geom(grid)),
             vel_star.data_ptr(), p.data_ptr(), float(dt), float(factor),
             cfg.liquid_volume * kernels.cubic_w0(cfg.support_radius),
-            adv.data_ptr(), acc.data_ptr(), partials.data_ptr(),
-            err.data_ptr(), _stream())
+            hits.width, hits.idx.data_ptr(), hits.count.data_ptr(),
+            hits.rec.data_ptr(), hits.over.data_ptr(), adv.data_ptr(),
+            acc.data_ptr(), partials.data_ptr(), err.data_ptr(), _stream())
+    grid.star = hits
     return adv, acc, err
 
 
@@ -860,10 +882,10 @@ def fused_tension(grid: Grid, rho: torch.Tensor):
 
 
 def fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, p: torch.Tensor,
-                      dt, coff):
+                      dt, coff, slots: ListSlots | None = None):
     """One PCISPH prediction iteration (PaddedEngine.fused_pcisph_iter):
     the stiffness factor coff / dt^2 in float32, as the JAX package forms
-    it."""
+    it; its hits at x* go into the buffer of ``slots``."""
     dt = np.float32(dt)
     return k8_fused_pcisph_iter(grid, vel_star, p, dt,
-                                np.float32(coff) / (dt * dt))
+                                np.float32(coff) / (dt * dt), slots)

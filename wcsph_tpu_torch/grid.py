@@ -30,8 +30,10 @@ The bin, pack and unpack are kernels on the card (``engine.bin_cells``,
 
 A DFSPH or IISPH step also keeps a neighbour list of its sorted positions
 (``NeighborList``, built by ``engine.nbr_list_fill`` right after the
-density sweep), which the sweeps after it walk instead of the 27 cells.  Its
-slot buffer (``ListSlots``) is kept from step to step.
+density sweep), which the sweeps after it walk instead of the 27 cells.  A
+PCISPH iteration keeps its pairs at the moved positions instead
+(``StarHits``, written by K8's first sweep and walked by its second).  The
+slot buffer of either (``ListSlots``) is kept from step to step.
 """
 
 from __future__ import annotations
@@ -49,8 +51,9 @@ HEADROOM = 1.25   # slots a list buffer is sized for, over the slots needed
 
 
 class ListOverflow(Exception):
-    """The step's neighbour list needed more slots than its buffer holds;
-    the step grows the buffer and runs again from its inputs."""
+    """The step's neighbour list, or a PCISPH iteration's hits, needed more
+    slots than its buffer holds; the step grows the buffer and runs again
+    from its inputs."""
 
     def __init__(self, need: int, capacity: int):
         super().__init__(f"the neighbour list needs {need} slots, its buffer "
@@ -59,11 +62,14 @@ class ListOverflow(Exception):
 
 
 class ListSlots:
-    """The slot buffer of a solver's neighbour list, kept from step to step
-    (``Simulation.list_slots``), apart from the state.  Unsized, the next
-    fill sizes it from its own need with ``HEADROOM`` (one host read);
-    sized, a fill whose list needs more clamps the list to it and flags the
-    need, and the step replays after ``size_for`` the need."""
+    """The slot buffer of a solver's neighbour list (DFSPH, IISPH) or of
+    its PCISPH iterations' hits (``StarHits``: a uniform ``capacity // M``
+    slots a row), kept from step to step (``Simulation.list_slots``), apart
+    from the state.  Unsized, the next fill sizes it from its own need with
+    ``HEADROOM`` (one host read; a PCISPH step, from its density sweep's
+    largest count); sized, a fill whose list needs more clamps the list to
+    it and flags the need, and the step replays after ``size_for`` the
+    need."""
 
     def __init__(self, capacity: int | None = None):
         self.capacity = None
@@ -138,6 +144,11 @@ class NeighborList:
     def capacity(self) -> int:
         return int(self.idx.shape[0])
 
+    @property
+    def status(self):
+        """What ``check`` reads back."""
+        return [self.need, self.flag]
+
     def check(self, need: int, flag: int) -> None:
         self.checked = True
         if need > self.capacity:
@@ -145,6 +156,37 @@ class NeighborList:
         if flag:
             raise ValueError("count differs from the pairs within h: a row "
                              "has more neighbours than its slots")
+
+
+@dataclasses.dataclass
+class StarHits:
+    """One PCISPH iteration's pairs within h at the moved positions x* = x
+    + liq v* dt, as K8's first sweep found them: the candidates of the
+    grid's cells, cut at x*, in the cell loop's order.  Hit k of row i is
+    ``idx[k M + i]`` for k < ``count[i]``; each row keeps at most ``width``
+    = capacity // M of them (a uniform width), and ``rec[i]`` = (x*, liquid
+    flag).  A liquid row with more hits than ``width`` sets ``over`` to its
+    hit count (the largest such): the iteration's second sweep then walked
+    a short list, and ``Grid.read`` raises ``ListOverflow`` at the next
+    read, for a buffer of ``over`` x M slots."""
+
+    idx: torch.Tensor    # (capacity,) int32 neighbour row of each kept hit
+    count: torch.Tensor  # (M,) int32 hits kept per row, at most width
+    rec: torch.Tensor    # (M, 4) float32 (x*, y*, z*, liquid flag)
+    width: int           # hits a row keeps
+    over: torch.Tensor   # () int32 most hits of a row past width, else 0
+    checked: bool = False   # over read back (Grid.read)
+
+    @property
+    def status(self):
+        """What ``check`` reads back."""
+        return [self.over]
+
+    def check(self, over: int) -> None:
+        self.checked = True
+        if over:
+            raise ListOverflow(over * int(self.count.shape[0]),
+                               int(self.idx.shape[0]))
 
 
 @dataclasses.dataclass
@@ -163,6 +205,7 @@ class Grid:
     n_liquid: torch.Tensor     # () int32 L, on the device
     pairs: object = None       # dense_ops.Pairs, built on first plain sweep
     nbr: NeighborList | None = None   # engine.nbr_list_fill, DFSPH, IISPH
+    star: StarHits | None = None      # the last K8 call's hits, PCISPH
     n_liquid_read: int | None = None  # L, once a read has brought it
 
     @property
@@ -184,24 +227,28 @@ class Grid:
     def read(self, x: torch.Tensor) -> float:
         """``x.item()`` for a 0-dim tensor: one host read.  The grid's first
         read also brings L and, where the step built its list, the list's
-        slot need and overflow flag, stacked into the same transfer; it
-        raises ``ListOverflow`` where the list was short, ValueError where
-        a count was below the pairs within h."""
+        slot need and overflow flag, and the first read after a K8 call
+        that call's overflow flag, stacked into the same transfer; it
+        raises ``ListOverflow`` where the list or the hits were short,
+        ValueError where a count was below the pairs within h."""
         extra = []
         if self.n_liquid_read is None:
             extra.append(self.n_liquid)
-        nl = self.nbr
-        if nl is not None and not nl.checked:
-            extra += [nl.need, nl.flag]
+        pending = [c for c in (self.nbr, self.star)
+                   if c is not None and not c.checked]
+        extra += [t for c in pending for t in c.status]
         if not extra:
             return x.item()
-        vals = torch.stack([t.reshape(()).to(torch.float64)
-                            for t in (x, *extra)]).tolist()
+        value, *vals = torch.stack([t.reshape(()).to(torch.float64)
+                                    for t in (x, *extra)]).tolist()
+        vals = [int(v) for v in vals]
         if self.n_liquid_read is None:
-            self.n_liquid_read = int(vals[1])
-        if nl is not None and not nl.checked:
-            nl.check(int(vals[-2]), int(vals[-1]))
-        return vals[0]
+            self.n_liquid_read = vals.pop(0)
+        for c in pending:
+            k = len(c.status)
+            c.check(*vals[:k])
+            vals = vals[k:]
+        return value
 
 
 def outside_cell(cfg: SimConfig) -> int:

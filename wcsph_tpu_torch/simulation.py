@@ -56,9 +56,10 @@ class Simulation:
         self.cfg = cfg
         state = init_state(scene, self.device)
         self.state = state.replace(dt=np.float32(cfg.dt_init))
-        # the neighbour list's slot buffer (DFSPH, IISPH), kept from step to
-        # step beside the state: sized by the first step, grown by a step
-        # that outgrows it (that step then runs again, engine.LIST_REPLAYS)
+        # the neighbour list's slot buffer (DFSPH, IISPH) or K8's hit buffer
+        # (PCISPH), kept from step to step beside the state: sized by the
+        # first step, grown by a step that outgrows it (that step then runs
+        # again, engine.LIST_REPLAYS)
         self.list_slots = ListSlots()
 
     def step(self) -> FluidState:

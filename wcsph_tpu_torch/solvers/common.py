@@ -33,12 +33,14 @@ def liquid_vel_max(grid: Grid, velp: torch.Tensor) -> np.float32:
 
 def replaying(run, slots: ListSlots):
     """``run()``, a step from its unmodified inputs; where the step's
-    neighbour list outgrew ``slots`` (``ListOverflow`` at its first host
-    read), size the buffer for the slots needed and run it once more
-    (counted in ``engine.LIST_REPLAYS``)."""
-    try:
-        return run()
-    except ListOverflow as e:
-        slots.size_for(e.need)
-        engine.LIST_REPLAYS += 1
-        return run()
+    neighbour list or a PCISPH iteration's hits outgrew ``slots``
+    (``ListOverflow`` at a host read), size the buffer for the slots needed
+    and run it again (each run counted in ``engine.LIST_REPLAYS``).  A
+    list's need is exact, so it replays once; a later PCISPH iteration may
+    need more than the one that raised."""
+    while True:
+        try:
+            return run()
+        except ListOverflow as e:
+            slots.size_for(e.need)
+            engine.LIST_REPLAYS += 1

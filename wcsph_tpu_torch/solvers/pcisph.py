@@ -10,8 +10,14 @@ positions and the pressure accumulates across iterations; the binning stays
 that of the original positions.
 
 The loop ends on the host: each iteration's error sum is read back and
-tested there, with the JAX package's loop contract and float32 scalar
-arithmetic.
+tested there (``Grid.read``), with the JAX package's loop contract and
+float32 scalar arithmetic.  K8 keeps each iteration's pairs at the advected
+positions in a hit buffer of a uniform width per row (``grid.StarHits``),
+the step's ``slots``, kept from step to step (sized by the first step from
+its density sweep's largest count: one host read).  The read after each
+iteration also brings its overflow flag; an iteration with a row of more
+hits than the width makes the step run again with a wider buffer
+(``common.replaying``).
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from .. import engine
 from ..config import SimConfig
 from ..grid import Grid, ListSlots, build_grid, pack, unpack
 from ..state import FluidState, StepDiagnostics
-from .common import gravity_column, liquid_vel_max
+from .common import gravity_column, liquid_vel_max, replaying
 
 f32 = np.float32
 
@@ -80,14 +86,19 @@ class MidResult(NamedTuple):
     err_pre: np.float32       # predicted density error before any pressure
 
 
-def step_middle(grid: Grid, cfg: SimConfig, velp, dt) -> MidResult:
-    """The whole PCISPH solve on the sorted layout."""
+def step_middle(grid: Grid, cfg: SimConfig, velp, dt,
+                slots: ListSlots | None = None) -> MidResult:
+    """The whole PCISPH solve on the sorted layout; ``slots``: K8's hit
+    buffer (sized here where it is unsized or None)."""
     coff = pci_coefficient(cfg.particle_radius)
     dt = f32(dt)
 
     # non-pressure forces + density (pcisph.py:199-218); the SESPH force
     # sweep with zero pressure is the pure explicit viscosity
-    rhop, _ = engine.density(grid)
+    rhop, cntp = engine.density(grid)
+    slots = ListSlots() if slots is None else slots
+    if slots.capacity is None:          # the first step's one host read
+        slots.size_for(grid.n * int(cntp.max()))
     d_vel = gravity_column(cfg, velp) + engine.sesph_force(
         grid, velp, rhop, torch.zeros_like(rhop))
 
@@ -98,8 +109,9 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, dt) -> MidResult:
             and it < cfg.pcisph_max_iters:
         vel_star = velp + (d_vel + d_vel_pre) * float(dt)  # pcisph.py:228-235
         _, d_vel_pre, scal = engine.fused_pcisph_iter(grid, vel_star, pp, dt,
-                                                      coff)
-        # the first read brings the liquid count
+                                                      coff, slots)
+        # each read brings the iteration's overflow flag, the first the
+        # liquid count
         err = f32(grid.read(scal)) / f32(grid.liquid_count)
         # the first iteration predicts with p == 0: its error IS the
         # pre-solve violation
@@ -120,12 +132,17 @@ def bin_and_pack(state: FluidState, cfg: SimConfig):
 
 def step(state: FluidState, cfg: SimConfig,
          slots: ListSlots | None = None) -> FluidState:
-    """One step (``slots`` is unused: this step builds no neighbour
-    list)."""
+    """One step; ``slots``: K8's hit buffer, kept by the caller from step
+    to step (a fresh one, sized by this step, where None)."""
     nl = state.n_liquid
     dt = f32(state.dt)
-    grid, (velp,) = bin_and_pack(state, cfg)
-    mid = step_middle(grid, cfg, velp, dt)
+    slots = ListSlots() if slots is None else slots
+
+    def run():
+        grid, (velp,) = bin_and_pack(state, cfg)
+        return grid, step_middle(grid, cfg, velp, dt, slots)
+
+    grid, mid = replaying(run, slots)
     vel, pressure = unpack(grid, [mid.vel, mid.pressure],
                            [state.vel, state.pressure])
     pos = state.pos.clone()
