@@ -47,8 +47,10 @@ its own lines and raising on failure:
    stage, the list and each kernel against its plain twin again and timed
    beside it at those shapes, with the least time the card could take for
    the same work (``bound_ms``) and, for the grid stage, one PyTorch call
-   that computes its core (``library_ms``) and the device time of its own
-   kernels (torch.profiler; the kernel time is the whole wrapper's).
+   that computes its core (``library_ms``, and its device time), the
+   device time of its own kernels and their count a call (torch.profiler;
+   the kernel time is the whole wrapper's), gated for the list offsets
+   and the pack at one device kernel and 0 and 1 allocations a call.
 
 The line before the last is one JSON object with the per-kernel record;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -538,6 +540,12 @@ def check_grid_stage(pos, n_liquid, cfg, chk, rng):
     for a, b in zip(packed, dense_ops.pack_rows(grid, fields)):
         if not torch.equal(a, b):
             raise AssertionError("pack_rows differs from its plain twin")
+    block = packed[0]._base
+    if not (block is not None and block.shape == (11, grid.n)
+            and all(p._base is block and p.is_contiguous() for p in packed)
+            and packed[3].data_ptr() == block[9].data_ptr()):
+        raise AssertionError("pack_rows: the fields are not row views of "
+                             "one (11, M) block")
     defaults = step_fields(n_liquid, pos.device, rng)
     back = engine.unpack_rows(grid, packed, defaults)
     for a, b in zip(back, dense_ops.unpack_rows(grid, packed, defaults)):
@@ -551,8 +559,9 @@ def check_grid_stage(pos, n_liquid, cfg, chk, rng):
         chk.max_abs[name] = 0.0
     log(f"  bin_cells: order, offsets, cells, rows, positions, flags and "
         f"the liquid count equal to the plain stable sort ({grid.n} rows, "
-        f"{grid.n - m_in} outside the domain, last); pack_rows and "
-        f"unpack_rows of DFSPH's five fields equal to their twins, and "
+        f"{grid.n - m_in} outside the domain, last); pack_rows (row views "
+        f"of one block) and unpack_rows of DFSPH's five fields equal to "
+        f"their twins, and "
         f"{int(out.sum())} liquid particles outside kept their defaults")
     engine.LAUNCHES.update(saved)     # check launches are not main-path
     return grid
@@ -572,13 +581,20 @@ def check_list_capacity(grid, count, chk):
     saved = dict(engine.LAUNCHES)
     need = int(dense_ops.list_offsets(count, grid.liquid)[1])
     short = ListSlots(need // 2)
-    for cap in (2 ** 31 - 1, short.capacity):
-        got = engine.nbr_list_offsets(count, grid.liq, cap)
+    # new tensors, then the kept ones of a ListSlots (the step's form)
+    for cap, slots in ((2 ** 31 - 1, None), (short.capacity, None),
+                       (2 ** 31 - 1, short), (short.capacity, short)):
+        got = engine.nbr_list_offsets(count, grid.liquid, cap, slots)
         want = dense_ops.list_offsets(count, grid.liquid, cap)
         if not (torch.equal(got[0], want[0]) and int(got[1]) == need
                 and int(want[1]) == need):
             raise AssertionError(f"nbr_list_offsets differs at capacity "
-                                 f"{cap}")
+                                 f"{cap}" + (" into kept slots" if slots
+                                              else ""))
+        if slots is not None and got[0] is not slots.offsets(
+                grid.n, grid.device)[0]:
+            raise AssertionError("nbr_list_offsets did not write the kept "
+                                 "offsets")
     # on a copy of the grid: the fill keeps its list as the grid's, and the
     # walkers checked after this must walk the whole one
     got = engine.nbr_list_fill(dataclasses.replace(grid), count, short)
@@ -592,8 +608,9 @@ def check_list_capacity(grid, count, chk):
                              "from its plain twin")
     chk.max_abs["nbr_list_offsets"] = 0.0
     log(f"  nbr_list_offsets: equal to the twin, whole ({need} slots) and "
-        f"clamped to {short.capacity}; the fill into that buffer is clamped "
-        f"and flagged as the twin's, its {live} slots equal")
+        f"clamped to {short.capacity}, new and into kept slots; the fill "
+        f"into that buffer is clamped and flagged as the twin's, its {live} "
+        f"slots equal")
     engine.LAUNCHES.update(saved)
 
 
@@ -655,8 +672,11 @@ def stage_without_sync(sim, solver):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     if solver in ("dfsph", "iisph"):
-        if grid.nbr.idx.data_ptr() != sim.list_slots.idx.data_ptr():
-            raise AssertionError("the fill did not use the kept buffer")
+        kept_off = sim.list_slots.offsets(grid.n, grid.device)[0]
+        if (grid.nbr.idx.data_ptr() != sim.list_slots.idx.data_ptr()
+                or grid.nbr.off is not kept_off):
+            raise AssertionError("the fill did not use the kept buffer and "
+                                 "offsets")
         grid.read(torch.zeros((), device=grid.device))   # status: no raise
     return "bin, pack" + (", density, list offsets and fill"
                           if solver in ("dfsph", "iisph") else "")
@@ -680,15 +700,30 @@ def host_syncs(sim):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
+def allocations(fn, args):
+    """The allocations from PyTorch's caching allocator that one call
+    ``fn(*args)`` makes (``allocation.all.allocated`` of
+    torch.cuda.memory_stats)."""
+    import torch
+
+    key = "allocation.all.allocated"
+    before = torch.cuda.memory_stats()[key]
+    fn(*args)
+    return torch.cuda.memory_stats()[key] - before
+
+
 def time_grid_stage(grid, pos, n_liquid, count, rng, reps_kernel=20,
                     reps_plain=5):
-    """(kernel ms, plain ms, library ms, device ms) of the bin, pack,
-    unpack and list offsets at the grid's shapes.  Kernel: the whole
-    wrapper between two CUDA events; device: its kernels' own time
-    (torch.profiler).  Library: the one PyTorch call that computes the same
-    function's core: torch.sort(stable=True) of the cell keys for the bin,
-    one gather (index_select of the stacked field rows) for pack and
-    unpack, torch.cumsum of the slice widths for the offsets."""
+    """name -> (kernel ms, plain ms, library ms, device ms, device kernels
+    per call) of the bin, pack, unpack and list offsets at the grid's
+    shapes.  Kernel: the whole wrapper between two CUDA events; device:
+    its kernels' own time (torch.profiler).  Library: the one PyTorch call
+    that computes the same function's core: torch.sort(stable=True) of the
+    cell keys for the bin, one gather (index_select of the stacked field
+    rows) for pack and unpack, torch.cumsum of the slice widths for the
+    offsets.  The offsets run as a step runs them, into a sized
+    ``ListSlots``.  Gates: the offsets and the pack launch one device
+    kernel a call; the offsets allocate nothing, the pack one block."""
     import torch
 
     from wcsph_tpu_torch import dense_ops, engine
@@ -707,8 +742,7 @@ def time_grid_stage(grid, pos, n_liquid, count, rng, reps_kernel=20,
     src = torch.where(grid.liquid, grid.order, 0)
     packed11 = torch.cat([p.reshape(-1, grid.n) for p in packed])
     back = grid.row_of[:n_liquid].clamp(min=0).to(torch.int64)
-    cap = ListSlots(int(dense_ops.list_offsets(count, grid.liquid)[1])
-                    ).capacity
+    kept = ListSlots(int(dense_ops.list_offsets(count, grid.liquid)[1]))
     width = (dense_ops.list_offsets(count, grid.liquid)[0].diff())
     cases = {
         "bin_cells": (lambda: (pos, n_liquid, cfg),
@@ -717,8 +751,9 @@ def time_grid_stage(grid, pos, n_liquid, count, rng, reps_kernel=20,
                       lambda: rows11.index_select(1, src)),
         "unpack_rows": (lambda: (grid, packed, defaults),
                         lambda: packed11.index_select(1, back)),
-        "nbr_list_offsets": (lambda: (count, grid.liq, cap),
-                             lambda: torch.cumsum(width, 0)),
+        "nbr_list_offsets": (
+            lambda: (count, grid.liquid, kept.capacity, kept),
+            lambda: torch.cumsum(width, 0)),
     }
     times = {}
     for name, (make, library) in cases.items():
@@ -726,11 +761,26 @@ def time_grid_stage(grid, pos, n_liquid, count, rng, reps_kernel=20,
                        time_call(engine.OWN_KERNELS[name][2], make,
                                  reps_plain),
                        time_call(library, tuple, reps_kernel),
-                       device_ms(getattr(engine, name), make, reps_kernel))
-        log(f"  {name}: kernel {times[name][0]:.4f} ms (its kernels on the "
-            f"device {times[name][3]:.4f} ms), plain {times[name][1]:.4f} "
-            f"ms, library {times[name][2]:.4f} ms (M={grid.n})")
+                       *device_ms(getattr(engine, name), make, reps_kernel))
+        ms, plain, lib, dev, kernels = times[name]
+        lib_dev, lib_kernels = device_ms(library, tuple, reps_kernel)
+        log(f"  {name}: kernel {ms:.4f} ms (its kernels on the device "
+            f"{dev:.4f} ms, {kernels:g} device kernels a call), plain "
+            f"{plain:.4f} ms, library {lib:.4f} ms (on the device "
+            f"{lib_dev:.4f} ms, {lib_kernels:g} kernels), kernel / library "
+            f"{ms / lib:.3f} (M={grid.n})")
+    allocs = {"nbr_list_offsets": allocations(
+                  engine.nbr_list_offsets, cases["nbr_list_offsets"][0]()),
+              "pack_rows": allocations(engine.pack_rows, (grid, fields))}
+    log(f"  allocations a call: nbr_list_offsets into a sized ListSlots "
+        f"{allocs['nbr_list_offsets']}, pack_rows {allocs['pack_rows']} "
+        f"(11 field rows)")
     engine.LAUNCHES.update(saved)     # timing launches are not main-path
+    if (times["nbr_list_offsets"][4] != 1 or times["pack_rows"][4] != 1
+            or allocs != {"nbr_list_offsets": 0, "pack_rows": 1}):
+        raise AssertionError("nbr_list_offsets and pack_rows must launch "
+                             "one device kernel a call, and allocate 0 "
+                             "(into a sized ListSlots) and 1 block")
     return times
 
 
@@ -746,16 +796,17 @@ def grid_bytes(grid, counts, k_fields):
         # positions read; order (8), row_of, cell, sorted positions (12),
         # liquid flag (1) and liq written per row; cell offsets, the count
         "bin_cells": 12 * n + 33 * n + 4 * (grid.cfg.num_cells + 1) + 4,
-        # liq flag per row, order and the fields at liquid rows read; every
-        # row of every field written
-        "pack_rows": 4 * n + 8 * l_in + 4 * k_fields * l_in
+        # liquid flag (1 byte) per row, order and the fields at liquid rows
+        # read; every row of every field written
+        "pack_rows": n + 8 * l_in + 4 * k_fields * l_in
         + 4 * k_fields * n,
         # each liquid particle's row, its packed value or (outside the
         # domain) its default read; every field written
         "unpack_rows": 4 * nl + 4 * k_fields * l_in
         + 4 * k_fields * (nl - l_in) + 4 * k_fields * nl,
-        # counts and flags read; offsets and the need written
-        "nbr_list_offsets": 8 * n + 4 * (s + 1) + 8,
+        # counts and liquid flags (1 byte) read; offsets and the need
+        # written
+        "nbr_list_offsets": 5 * n + 4 * (s + 1) + 8,
     }
 
 
@@ -1127,6 +1178,8 @@ def main():
               for n, (src, what, tw) in engine.OWN_KERNELS.items()]]],
         "card": card, "rows": mgrid.n, "pairs": counts,
         "grid_stage_device_ms": {k: v[3] for k, v in grid_times.items()},
+        "grid_stage_kernels_per_call": {k: v[4]
+                                        for k, v in grid_times.items()},
         "paths": path_records}
     log(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

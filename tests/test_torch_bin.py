@@ -10,10 +10,13 @@ holds the kernels to bit for bit:
   liquid and a boundary particle outside the domain, whose rows come last
   and are inert (no cell, no pair, liquid flag 0, finite sweep outputs);
 * pack then unpack gives the fields back, and the liquid particle outside
-  the domain keeps its defaults;
+  the domain keeps its defaults; the packed fields are row views of one
+  block and equal the JAX package's pack (``wcsph_tpu.grid.
+  pack_liquid_many``, one stacked gather);
 * the list honours a slot capacity: clamped offsets, the need and the
   flag, raised at the step's first read (``Grid.read``), which also brings
-  the liquid count;
+  the liquid count; the offsets written into a kept ``ListSlots`` are its
+  kept tensors, overwritten by each call, and equal a fresh call's;
 * a DFSPH, PCISPH or IISPH step whose buffer is forced too small runs
   once more and gives the bits of the unforced step; ``Simulation`` keeps
   the buffer;
@@ -141,6 +144,28 @@ def test_pack_then_unpack_gives_the_fields_back(case):
         rows = torch.nonzero(g.liquid).flatten()
         want[..., rows] = x[..., g.order[rows]]
         assert torch.equal(p, want)
+    # row views, in order, of one (4, M) block
+    block = packed[0]._base
+    assert block is not None and block.shape == (4, g.n)
+    assert packed[1]._base is block and packed[1].is_contiguous()
+    assert packed[0].data_ptr() == block.data_ptr()
+    assert packed[1].data_ptr() == block[3].data_ptr()
+    # the JAX package's pack, in its (C, NC) layout: slot (k, c) is row
+    # cell_start[c] + k here; the rows outside the domain hold 0
+    import jax.numpy as jnp
+
+    from wcsph_tpu.config import SimConfig as JaxConfig
+    from wcsph_tpu.grid import build_grid, pack_liquid_many
+
+    jg = build_grid(jnp.asarray(pos), nl, JaxConfig(**dataclasses.asdict(cfg)))
+    jpacked = pack_liquid_many(jg, [jnp.asarray(x.numpy()) for x in fields])
+    k, c = np.nonzero(np.asarray(jg.pid) >= 0)
+    start = g.cell_start.numpy()
+    m_in = int(start[-1])
+    for p, jp in zip(packed, jpacked):
+        np.testing.assert_array_equal(p.numpy()[..., start[c] + k],
+                                      np.asarray(jp)[..., k, c])
+        assert bool((p[..., m_in:] == 0).all())
     defaults = [torch.full_like(x, 7.0) for x in fields]
     back = grid_mod.unpack(g, packed, defaults)
     for x, y in zip(fields, back):
@@ -158,6 +183,26 @@ def test_list_honours_its_capacity(case):
     off, need_t = dense_ops.list_offsets(count, g.liquid, 4 * 32)
     assert int(need_t) == need and int(off.max()) == 4 * 32
     assert torch.equal(off, torch.clamp(full.off, max=4 * 32))
+    # into a kept ListSlots (a step's form): two calls of different counts
+    # write the same kept tensors, each equal to a fresh call's
+    kept = grid_mod.ListSlots(capacity=need)
+    more = torch.where(g.liquid, count + 3, count)
+    held = engine.nbr_list_offsets(count, g.liquid, kept.capacity, kept)
+    assert held[0] is kept.offsets(g.n, g.device)[0]
+    assert torch.equal(held[0], full.off) and int(held[1]) == need
+    for cnt in (more, count):
+        want_off, want_need = dense_ops.list_offsets(cnt, g.liquid,
+                                                     kept.capacity)
+        got = engine.nbr_list_offsets(cnt, g.liquid, kept.capacity, kept)
+        assert got[0] is held[0] and got[1] is held[1]
+        assert torch.equal(got[0], want_off)
+        assert int(got[1]) == int(want_need)
+        if cnt is more:      # the first result now holds the second's
+            assert int(held[1]) > need
+            assert int(held[0][-1]) == kept.capacity
+    # a list filled into kept slots carries the kept offsets
+    assert dense_ops.neighbor_list(g, count, kept).off is held[0]
+    assert torch.equal(held[0], full.off)
     # a short buffer: clamped, flagged, and no slot past it is walked
     slots = grid_mod.ListSlots(capacity=need // 2)
     short = dense_ops.neighbor_list(g, count, slots)

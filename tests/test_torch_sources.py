@@ -13,7 +13,9 @@ csrc/solver_sweeps.cu (K7's two sweeps walk the list, K8's acceleration
 sweep the hits of its first sweep).
 
 No kernel source copies to or from the host, allocates, or waits for the
-card: one case per file of csrc/.
+card (every file of csrc/); and the grid stage's list offsets and pack are
+one launch each: the C entry launches once and resets nothing, and the
+pack's wrapper builds no ctypes pointer table per call.
 """
 
 import ast
@@ -82,6 +84,8 @@ def test_source_imports_no_jax(source):
 CSRC = ROOT / "wcsph_tpu_torch" / "csrc"
 # the kernel sources, as SOURCES lists the Python ones
 CUDA_SOURCES = ["bin.cu", "common.cuh", "solver_sweeps.cu", "sweeps.cu"]
+# the C entries of csrc/bin.cu that launch once, and their Python wrappers
+ONE_LAUNCH = ["nbr_list_offsets", "pack_rows"]
 
 
 def test_cuda_sources_never_wait_for_the_card():
@@ -89,13 +93,36 @@ def test_cuda_sources_never_wait_for_the_card():
     the device: a launch only enqueues work, so the step's stage from the
     bin through the list makes no host read (chip_smoke.py runs it under
     torch.cuda.set_sync_debug_mode("error") on the card).  The list above
-    is the tree's."""
+    is the tree's.
+
+    Each entry of ONE_LAUNCH launches one kernel (directly, or through a
+    static helper of bin.cu) and calls no cudaMemset; its wrapper in
+    engine.py builds no ``_Fields`` table (``_Fields``, ``_fields``,
+    ``_field_rows``)."""
     assert CUDA_SOURCES == sorted(f.name for f in CSRC.glob("*.cu*"))
     for source in CUDA_SOURCES:
         text = re.sub(r"//[^\n]*", "", (CSRC / source).read_text())
         assert not re.search(r"\bcudaMemcpy\w*\s*\(|Synchronize\s*\(|"
                              r"\bcudaMalloc\w*\s*\(|\bcudaFree\s*\(",
                              text), source
+
+    text = re.sub(r"//[^\n]*", "", (CSRC / "bin.cu").read_text())
+    launch = r"<<<|\bcudaLaunch\w*\s*\("
+    helpers = {m.group(1) for m in re.finditer(
+        r"^static [^(=;]*?\b(\w+)\s*\((.*?)\n}", text, re.S | re.M)
+        if re.search(launch, m.group(2))}
+    tree = ast.parse((ROOT / "wcsph_tpu_torch" / "engine.py").read_text())
+    wrappers = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    for name in ONE_LAUNCH:
+        body = re.search(rf'extern "C" int {name}\(.*?\n}}', text,
+                         re.S).group(0)
+        assert len(re.findall(launch, body)) == 1, name
+        assert not re.search(r"\bcudaMemset\w*\s*\(", body), name
+        assert not any(re.search(rf"\b{h}\s*\(", body) for h in helpers), name
+        called = {c.func.id for c in ast.walk(wrappers[name])
+                  if isinstance(c, ast.Call) and isinstance(c.func, ast.Name)}
+        assert called.isdisjoint({"_Fields", "_fields", "_field_rows"}), name
+        assert "_launch" in called, name
 # the __global__ functions of csrc/sweeps.cu that walk the step's list
 LIST_WALKERS = [
     "k1_div_kernel", "k2_kappa_kernel", "k3_kappa_kernel", "k3_div_kernel",
@@ -161,3 +188,4 @@ def test_solver_walkers_never_scan_the_cells():
     for walker in ("k5_list_kernel", "k8_acc_kernel"):
         assert not re.search(r"\bfor_each_neighbor\w*\s*\(|\.start\[",
                              bodies[walker]), walker
+

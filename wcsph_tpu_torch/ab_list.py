@@ -1,28 +1,28 @@
-"""A/B of the steps' sweeps against an older tree, on one card.
+"""A/B of the step's redesigned wrappers against an older tree, on one
+card.
 
     python -m wcsph_tpu_torch.ab_list --old out/old
 
 ``--old`` is an unpacked copy of an older commit of this repository
-(``git archive <commit> | tar -x -C out/old``).  Its ``csrc/sweeps.cu`` and
-``csrc/solver_sweeps.cu`` must define the entries of ``AB_KERNELS`` with
-this tree's C signatures, but K8, which must have the signature of
-``OLD_K8_ARGS`` (the K8 that scanned the cells in both sweeps); its
-``Geom`` must be this tree's or a leading part of it: this tree's ``Geom``
-is passed to the old kernels.  Run from the repository root.  In one
-process on one card:
+(``git archive <commit> | tar -x -C out/old``).  Its package is imported
+beside this one under another name, so that its own wrappers of
+``AB_KERNELS`` build and launch its own ``csrc/`` (into its own
+``_build/``); ``OLD_ARGS`` turns a call of this tree's wrapper into the
+arguments of the old one where the signature changed.  Run from the
+repository root.  In one process on one card:
 
-1. kernels: the old tree's two sources are built as second libraries
-   (into ``<old>/_ab_build``).  For each solver of ``AB_SOLVERS`` the
-   flagship dam break (side 100) runs 4 steps from rest; then one more step
-   from that state runs with the wrappers of ``AB_KERNELS`` recording the
-   operands the solver gives them, at the positions at rest and with every
-   liquid position jittered by a numpy-seeded uniform +-0.3 r.  Each
-   recorded call (the first of each wrapper, and of each K3 mode) is
-   replayed through its wrapper with the old and with the new library,
-   timed in turns (old, new, new, old) with CUDA events and compared bit
-   for bit; where the step built a list, the fill is timed alone, its slice
-   offsets alone, and both as its whole wrapper; ``step_calls`` sums each
-   side's times over the calls that the recorded step made;
+1. kernels: for each solver of ``AB_SOLVERS`` the flagship dam break (side
+   100) runs 4 steps from rest; then one more step from that state runs
+   with the wrappers of ``AB_KERNELS`` recording the arguments the solver
+   gives them, at the positions at rest and with every liquid position
+   jittered by a numpy-seeded uniform +-0.3 r.  Each recorded call (the
+   first of each wrapper) is replayed through the old tree's wrapper and
+   this tree's, timed in turns (old, new, new, old) with CUDA events beside
+   ``LIBRARY``'s PyTorch call of the same function, and compared bit for
+   bit; each side's device time and device kernels a call (torch.profiler),
+   and where its host time goes (``host_profile``); ``step_calls`` sums
+   each side's times over the calls that the recorded step made.  Where the
+   step built a list, its fill is timed alone and as its whole wrapper;
 2. steps: the five paths of ``bench.flagship_paths``, 3 warm-up and 10
    timed steps each, in child processes of the old tree and of this one, in
    turns (old, new, new, old), with each step's (divergence, pressure,
@@ -41,29 +41,46 @@ card's name and power limit.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
+import importlib
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from . import bench, engine
+from . import bench, dense_ops, engine
 
-AB_KERNELS = ("k1_density_alpha_drho", "k1_div_acc", "k1_visc_init",
-              "k1_vorticity", "k2_fused_kappa_drho", "k3_fused_iter_full",
-              "k4_fused_visc_iter", "k7_fused_jacobi_iter",
-              "k8_fused_pcisph_iter")
+AB_KERNELS = ("nbr_list_offsets", "pack_rows")
 AB_SOLVERS = ("dfsph", "iisph", "pcisph")   # the steps that call them
-# The older K8's C signature: no hit buffer (geometry, v*, p, dt, factor,
-# w0, adv, acc, partials, err, stream).
-OLD_K8_ARGS = [engine._G, *[ctypes.c_void_p] * 2, *[ctypes.c_float] * 3,
-               *[ctypes.c_void_p] * 5]
+# The older wrappers' arguments, from this tree's: the offsets of the
+# tree before the kept slots took float32 liquid flags and no slots.
+OLD_ARGS = {
+    "nbr_list_offsets": lambda count, liquid, capacity, slots=None: (
+        count, liquid.to(torch.float32), capacity),
+}
+
+
+def _library_pack(grid, fields):
+    rows = torch.cat([x.reshape(-1, x.shape[-1]) for x in fields])
+    src = torch.where(grid.liquid, grid.order, 0)
+    return lambda: rows.index_select(1, src)
+
+
+def _library_offsets(count, liquid, capacity, slots=None):
+    width = dense_ops.list_offsets(count, liquid)[0].diff()
+    return lambda: torch.cumsum(width, 0)
+
+
+# name -> (arguments of a recorded call -> the one PyTorch call that
+# computes the same function's core, as chip_smoke.py times it)
+LIBRARY = {"pack_rows": _library_pack, "nbr_list_offsets": _library_offsets}
 SIDE = 100         # the flagship dam break, 1M liquid particles
 REPS = 20          # timed calls per turn
 JITTER = 0.3       # of the particle radius
@@ -130,58 +147,19 @@ def compare_states(old_dir: Path, new_dir: Path) -> dict:
     return out
 
 
-def old_library(old_root: Path) -> dict:
-    """The old tree's ``AB_KERNELS`` entries, built from its csrc/sweeps.cu
-    and csrc/solver_sweeps.cu with this tree's nvcc flags (both nvcc
-    started together) and bound with this tree's signatures; the old K8
-    with ``OLD_K8_ARGS``, behind a function that takes the new K8's
-    arguments and passes it those it has."""
-    out = old_root / "_ab_build"
-    out.mkdir(exist_ok=True)
-    nvcc = engine._nvcc()
-    if nvcc is None:
-        raise RuntimeError("nvcc not found")
-    running = []
-    for stem in ("sweeps", "solver_sweeps"):
-        lib_path = out / f"libold_{stem}.so"
-        log = open(out / f"old_{stem}.ptxas.txt", "w")
-        running.append((lib_path, log, subprocess.Popen(
-            [nvcc, *engine.NVCC_FLAGS, "-o", str(lib_path),
-             str(old_root / "wcsph_tpu_torch" / "csrc" / f"{stem}.cu")],
-            stdout=log, stderr=subprocess.STDOUT)))
-    fns = {}
-    for lib_path, log, proc in running:
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed on the old tree: {log.name}")
-        log.close()
-        lib = ctypes.CDLL(str(lib_path))
-        for name in AB_KERNELS:
-            if hasattr(lib, name):
-                fn = getattr(lib, name)
-                fn.argtypes = (OLD_K8_ARGS if name == "k8_fused_pcisph_iter"
-                               else engine._SIGNATURES[name])
-                fn.restype = ctypes.c_int
-                fns[name] = fn
-    k8 = fns["k8_fused_pcisph_iter"]
-
-    def old_k8(g, vel_star, p, dt, factor, w0, width, hits, nhit, rec, over,
-               adv, acc, partials, err, stream):
-        return k8(g, vel_star, p, dt, factor, w0, adv, acc, partials, err,
-                  stream)
-
-    fns["k8_fused_pcisph_iter"] = old_k8
-    return fns
-
-
-@contextlib.contextmanager
-def using(fns: dict):
-    """The engine's wrappers launch ``fns`` in place of their own entries."""
-    own = engine.library()
-    engine._lib = {**own, **fns}
-    try:
-        yield
-    finally:
-        engine._lib = own
+def old_engine(old_root: Path):
+    """The old tree's ``engine`` module: its package imported under another
+    name, with its own wrappers, launch counters and library (built from
+    its own ``csrc/`` at first use)."""
+    name = "_ab_old_wcsph_tpu_torch"
+    pkg_dir = old_root / "wcsph_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg_dir / "__init__.py",
+        submodule_search_locations=[str(pkg_dir)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[name] = pkg
+    spec.loader.exec_module(pkg)
+    return importlib.import_module(name + ".engine")
 
 
 def _fresh(args):
@@ -193,18 +171,15 @@ def _fresh(args):
 
 def record_step(sim):
     """Run one step with the wrappers of ``AB_KERNELS`` and the fill
-    recording what the solver passes them: ({label: (wrapper name,
-    arguments of its first call)}, {label: calls in the step}).  The label
-    is the wrapper's name, with K3's mode."""
+    recording what the solver passes them: ({wrapper name: arguments of its
+    first call}, {wrapper name: calls in the step})."""
     first, count = {}, {}
     wrappers = {n: getattr(engine, n) for n in (*AB_KERNELS, "nbr_list_fill")}
 
     def recording(name):
         def call(*args):
-            label = " ".join([name, *(str(a) for a in args
-                                      if type(a) is int)])
-            first.setdefault(label, (name, _fresh(args)))
-            count[label] = count.get(label, 0) + 1
+            first.setdefault(name, _fresh(args))
+            count[name] = count.get(name, 0) + 1
             return wrappers[name](*args)
         return call
 
@@ -218,41 +193,87 @@ def record_step(sim):
     return first, count
 
 
-def _outputs(name, args):
-    """Every tensor that a call of the wrapper writes or returns."""
-    a = _fresh(args)
-    ret = getattr(engine, name)(*a)
-    ret = ret if isinstance(ret, tuple) else (ret,)
-    return [t for t in (*a, *ret) if isinstance(t, torch.Tensor)]
+def _tensors(ret):
+    """The tensors a wrapper returned (one, or a tuple or list of them)."""
+    return list(ret) if isinstance(ret, (tuple, list)) else [ret]
+
+
+def host_profile(fn, make_args, eng, reps: int = REPS) -> dict:
+    """Where one call's host time goes: microseconds a call on the host
+    clock (``reps`` calls enqueued back to back, operands made before);
+    microseconds a call of each C entry it launches, on its own with the
+    same arguments (the ctypes call and the launch; ``eng`` is the engine
+    module whose ``_launch`` the wrapper calls); torch.profiler's CPU
+    events a call (op, calls, self microseconds), the largest first."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    fn(*make_args())
+    calls = [make_args() for _ in range(reps)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for args in calls:
+        fn(*args)
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    calls = [make_args() for _ in range(reps)]
+    with tprofile(activities=[ProfilerActivity.CPU]) as prof:
+        for args in calls:
+            fn(*args)
+    torch.cuda.synchronize()
+    ops = sorted(((e.key, e.count / reps, e.self_cpu_time_total / reps)
+                  for e in prof.key_averages()), key=lambda o: -o[2])
+    seen, launch = [], eng._launch
+    eng._launch = lambda name, *args: (seen.append((name, args)),
+                                       launch(name, *args))[1]
+    try:
+        kept = fn(*make_args())     # its outputs stay alive for the calls
+    finally:
+        eng._launch = launch
+    c_us = {}
+    for name, args in seen:
+        entry = eng.library()[name]
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            entry(*args)
+        c_us[name] = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    del kept
+    return {"host_us": host_us, "c_entry_us": c_us, "cpu_events": ops[:8]}
 
 
 def kernels_ab(first, count, old) -> dict:
-    """Old and new library on every recorded call, in turns, the bits
-    compared; ``step_calls`` sums each side's times over the step's calls;
-    then, where the step built its list, the fill, alone and as its whole
-    wrapper."""
-    new = engine.library()
+    """Old and new wrapper on every recorded call, in turns, beside the
+    library call, the bits compared; each side's device time, device
+    kernels a call and host profile; ``step_calls`` sums each side's times
+    over the step's calls; then, where the step built its list, the fill,
+    alone and as its whole wrapper."""
     out = {}
-    for label, (name, args) in first.items():
-        if name == "nbr_list_fill":
+    for name in AB_KERNELS:
+        if name not in first:
             continue
-        res = []
-        for fns in (old, new):
-            with using(fns):
-                res.append(_outputs(name, args))
+        args = first[name]
+        adapt = OLD_ARGS.get(name, lambda *a: a)
+        sides = {"old": (getattr(old, name), lambda: adapt(*_fresh(args))),
+                 "new": (getattr(engine, name), lambda: _fresh(args))}
+        res = {s: _tensors(fn(*make())) for s, (fn, make) in sides.items()}
         torch.cuda.synchronize()
-        times = []
-        for fns in (old, new, new, old):
-            with using(fns):
-                times.append(bench.time_call(
-                    getattr(engine, name), lambda: _fresh(args), REPS))
-        out[label] = {
-            "old_ms": (times[0] + times[3]) / 2,
-            "new_ms": (times[1] + times[2]) / 2,
+        library = LIBRARY[name](*args)
+        times = {"old": [], "new": [], "library": []}
+        for s in ("old", "new", "new", "old"):
+            times[s].append(bench.time_call(*sides[s], REPS))
+            times["library"].append(bench.time_call(library, tuple, REPS))
+        out[name] = {
+            **{f"{s}_ms": sum(v) / len(v) for s, v in times.items()},
             "turns_ms": times,
-            "bit_equal": all(torch.equal(a, b) for a, b in zip(*res)),
+            **{f"{s}_device": bench.device_ms(*sides[s], REPS)
+               for s in sides},
+            **{f"{s}_host": host_profile(*sides[s], eng)
+               for s, eng in (("old", old), ("new", engine))},
+            "bit_equal": len(res["old"]) == len(res["new"]) and all(
+                torch.equal(a, b) for a, b in zip(res["old"], res["new"])),
             "max_abs_diff": max(float((a.double() - b.double()).abs().max())
-                                for a, b in zip(*res))}
+                                for a, b in zip(res["old"], res["new"]))}
     calls = {k: n for k, n in count.items() if k in out}
     out["step_calls"] = {
         "calls": calls,
@@ -261,7 +282,7 @@ def kernels_ab(first, count, old) -> dict:
            for side in ("old", "new")}}
     if "nbr_list_fill" not in first:
         return out
-    grid, cnt, slots = first["nbr_list_fill"][1]
+    grid, cnt, slots = first["nbr_list_fill"]
     nl = engine.nbr_list_fill(grid, cnt, slots)
     geom = engine._geom(grid)
 
@@ -272,15 +293,9 @@ def kernels_ab(first, count, old) -> dict:
 
     out["nbr_list_fill"] = {
         "kernel_ms": bench.time_call(fill, tuple, REPS),
-        "offsets_ms": bench.time_call(
-            engine.nbr_list_offsets, lambda: (cnt, grid.liq, slots.capacity),
-            REPS),
         "wrapper_ms": bench.time_call(engine.nbr_list_fill,
                                       lambda: (grid, cnt, slots), REPS),
         "slots": int(nl.need), "capacity": slots.capacity}
-    out["step_calls"]["new_plus_fill_ms"] = (
-        out["step_calls"]["new_ms"]
-        + count["nbr_list_fill"] * out["nbr_list_fill"]["wrapper_ms"])
     return out
 
 
@@ -294,7 +309,7 @@ def main(argv=None):
                          "torch.cuda.is_available() is False")
     card = bench.card_info()
     print(json.dumps({"card": card}), flush=True)
-    old = old_library(args.old.resolve())
+    old = old_engine(args.old.resolve())
 
     for solver in AB_SOLVERS:
         sim = bench.build_sim(SIDE, "cuda", solver)
@@ -311,12 +326,12 @@ def main(argv=None):
         for scene, pos in (("at rest", state.pos), ("jittered", jittered)):
             sim.state = state.replace(pos=pos)
             first, count = record_step(sim)
-            grid = next(iter(first.values()))[1][0]
+            grid = first["pack_rows"][0]
             if int(grid.cell_start[-1]) != state.n_total:
                 raise AssertionError(f"{scene}: a particle left the domain")
             fill = first.get("nbr_list_fill")
             # the list's pairs, or the step's last K8 hits
-            pairs = (int(fill[1][1][grid.liquid].sum()) if fill
+            pairs = (int(fill[1][grid.liquid].sum()) if fill
                      else int(grid.star.count.sum()))
             res = kernels_ab(first, count, old)
             print(json.dumps({"solver": solver, "scene": scene,

@@ -23,6 +23,8 @@ from . import engine
 from .scene import dam_break
 from .simulation import Simulation, default_config
 
+DEVICE_TRACES = 3    # traces device_ms takes before it gives up
+
 _TORCH = {"bin_sort_offsets": "cuda:bin_cells",
           "pack_unpack": "cuda:pack_rows,unpack_rows",
           "elementwise_and_host_loop_control": "torch"}
@@ -154,24 +156,35 @@ def time_call(fn, make_args, reps: int) -> float:
     return total / reps
 
 
-def device_ms(fn, make_args, reps: int) -> float:
-    """Mean device time of the kernels that one call ``fn(*make_args())``
-    launches, summed over them (torch.profiler): the call's work on the
-    card without the host's share (``make_args`` runs before the trace)."""
+def device_ms(fn, make_args, reps: int):
+    """(mean device time, device kernels) of one call ``fn(*make_args())``:
+    the time of the kernels it launches summed over them, and their count
+    (torch.profiler): the call's work on the card without the host's share
+    (``make_args`` runs before the trace).  A trace whose count of device
+    events is not a positive whole multiple of ``reps`` missed some (the
+    profiler drops one now and then) and is taken again, up to
+    ``DEVICE_TRACES`` times; then it raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    calls = [make_args() for _ in range(reps)]
     fn(*make_args())
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for args in calls:
-            fn(*args)
+    counts = []
+    for _ in range(DEVICE_TRACES):
+        calls = [make_args() for _ in range(reps)]
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / reps / 1e3
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for args in calls:
+                fn(*args)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev and len(dev) % reps == 0:
+            return (sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3,
+                    len(dev) // reps)
+        counts.append(len(dev))
+    raise RuntimeError(f"{DEVICE_TRACES} traces of {reps} calls caught "
+                       f"{counts} device events: none a whole multiple")
 
 
 def profile(sim: Simulation, steps: int) -> dict:

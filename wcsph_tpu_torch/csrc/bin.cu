@@ -23,29 +23,37 @@
 //     lies wholly outside the grid (the cell loops of common.cuh find no
 //     candidate for them).
 //   * pack_rows and unpack_rows move every field of a step in one launch
-//     each: pack reads each row's particle (order), unpack each particle's
-//     row (row_of, -1 outside the domain, where the default is kept).
+//     each: pack reads each row's particle (order) where the row's one-byte
+//     liquid flag is set and writes row k of its fields at dst + k n, one
+//     block the wrapper allocates; unpack reads each particle's row
+//     (row_of, -1 outside the domain, where the default is kept).
 //   * nbr_list_offsets turns the density sweep's counts into the sliced-ELL
-//     offsets of grid.NeighborList (one warp max per slice, then the scan),
-//     clamped to the capacity of the slot buffer that the step keeps from
-//     step to step, and writes the slots needed (unclamped) to a device
-//     scalar that the step reads with its first existing host read.
+//     offsets of grid.NeighborList, clamped to the capacity of the slot
+//     buffer that the step keeps from step to step, and writes the slots
+//     needed (unclamped) to a device scalar that the step reads with its
+//     first existing host read.  One cooperative launch: each block takes a
+//     contiguous tile of slices (one warp max per slice) and writes its
+//     tile's sum; after one grid-wide sync every block scans the few hundred
+//     tile sums itself and then its own tile from its prefix.  No status
+//     word, so nothing to reset between calls.
 //
-// One scan serves the cell offsets, the outside ranks and the slice
-// offsets: three launches, a per-block sum over contiguous chunks, one block
-// that scans those sums (in 64-bit), and a per-block scan of each chunk from
-// its block's prefix.
+// One three-launch scan serves the cell offsets and the outside ranks of
+// the bin: a per-block sum over contiguous chunks, one block that scans
+// those sums (in 64-bit), and a per-block scan of each chunk from its
+// block's prefix.
 //
 // What bounds them on the H100: bytes, and at 1M rows the launches.  The
 // bin moves ~45 bytes per particle once, but its scatter, sort and gathers
 // are scattered accesses and it runs ten launches; pack and unpack move 4
-// bytes per field and row plus the indices.
+// bytes per field and row plus the indices; the offsets read 5 bytes a row
+// and are bound by their one launch and grid sync (a few microseconds).
 //
 // A launch returns cudaGetLastError().
 
 #include <algorithm>
 #include <climits>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 constexpr int kThreads = 256;      // threads of the row kernels
@@ -53,14 +61,18 @@ constexpr int kScanThreads = 1024; // threads of the scan kernels (32 warps)
 constexpr int kScanBlocks = 1024;  // most blocks of a scan's chunked passes
                                    // (engine.SCAN_PARTIALS - 1)
 constexpr int kMaxFields = 16;     // field rows a pack or unpack moves
+constexpr int kPackSources = 5;    // fields one pack takes, DFSPH's five
+                                   // (engine.PACK_SOURCES)
+constexpr int kMaxTiles = kScanThreads;  // most blocks of the offsets' one
+                                         // grid (grid.OFFSET_TILES)
 
 static inline int blocks(long long n) {
   return n > 0 ? static_cast<int>((n + kThreads - 1) / kThreads) : 1;
 }
 
 // ---------------------------------------------------------------------------
-// The scan: out[k] = min(sum of in[0 .. k), clamp) for k = 0 .. n, and
-// *total = the unclamped sum of all n inputs.
+// The bin's scan: out[k] = min(sum of in[0 .. k), clamp) for k = 0 .. n,
+// and *total = the unclamped sum of all n inputs.
 // ---------------------------------------------------------------------------
 
 // Inclusive scan of v over the kScanThreads threads of a block, in 64 bits;
@@ -283,8 +295,8 @@ extern "C" int bin_cells(const float* pos, int n, int n_liquid, float dx,
 // Pack and unpack: every field row of a step in one launch
 // ---------------------------------------------------------------------------
 
-// Mirror: engine._Fields.  Field row k: src[k] -> dst[k]; unpack keeps
-// dflt[k] for particles outside the domain.
+// Mirror: engine._Fields (the unpack's).  Field row k: src[k] -> dst[k];
+// unpack keeps dflt[k] for particles outside the domain.
 struct Fields {
   const float* src[kMaxFields];
   float* dst[kMaxFields];
@@ -292,17 +304,33 @@ struct Fields {
   int k;
 };
 
-// Per-liquid (nl,) rows -> sorted (n,) rows; rows holding no liquid take 0.
-__global__ void pack_rows_kernel(Fields f, int n,
+// The pack's source rows, from the field bases the entry is given.
+struct PackRows {
+  const float* src[kMaxFields];
+};
+
+// Per-liquid (nl,) rows -> sorted rows k n .. k n + n - 1 of dst; rows
+// holding no liquid take 0.  The flag and the particle are loaded side by
+// side, then every field's gather before any store: a store may alias a
+// source for the compiler, which would otherwise wait out each gather's
+// latency before the next one issues.
+__global__ void pack_rows_kernel(PackRows f, int k, int n,
                                  const long long* __restrict__ order,
-                                 const float* __restrict__ liq) {
+                                 const unsigned char* __restrict__ liquid,
+                                 float* __restrict__ dst) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= n) return;
-  const bool l = liq[r] != 0.0f;
-  const long long p = l ? order[r] : 0;
+  const bool l = liquid[r] != 0;
+  const long long o = order[r];
+  const long long p = l ? o : 0;   // a boundary particle has no field row
+  float v[kMaxFields];
 #pragma unroll
-  for (int k = 0; k < kMaxFields; ++k) {
-    if (k < f.k) f.dst[k][r] = l ? __ldg(f.src[k] + p) : 0.0f;
+  for (int j = 0; j < kMaxFields; ++j) {
+    v[j] = (j < k && l) ? __ldg(f.src[j] + p) : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxFields; ++j) {
+    if (j < k) dst[static_cast<size_t>(j) * n + r] = v[j];
   }
 }
 
@@ -321,10 +349,25 @@ __global__ void unpack_rows_kernel(Fields f, int nl,
   }
 }
 
-extern "C" int pack_rows(const Fields* f, int n, const long long* order,
-                         const float* liq, void* stream) {
+// Field a (a < kPackSources) is rows[a] contiguous (nl,) rows from src[a]
+// (null and 0 past the last field); dst: (total rows, n), row k at k n.
+extern "C" int pack_rows(int n, int nl, const long long* order,
+                         const unsigned char* liquid, float* dst,
+                         const float* s0, int k0, const float* s1, int k1,
+                         const float* s2, int k2, const float* s3, int k3,
+                         const float* s4, int k4, void* stream) {
+  const float* const src[kPackSources] = {s0, s1, s2, s3, s4};
+  const int rows[kPackSources] = {k0, k1, k2, k3, k4};
+  PackRows f{};
+  int k = 0;
+  for (int a = 0; a < kPackSources; ++a) {
+    for (int c = 0; c < rows[a]; ++c) {
+      if (k == kMaxFields) return cudaErrorInvalidValue;
+      f.src[k++] = src[a] + static_cast<size_t>(c) * nl;
+    }
+  }
   pack_rows_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-      *f, n, order, liq);
+      f, k, n, order, liquid, dst);
   return cudaGetLastError();
 }
 
@@ -339,27 +382,104 @@ extern "C" int unpack_rows(const Fields* f, int nl, const int* row_of,
 // The neighbour list's slice offsets
 // ---------------------------------------------------------------------------
 
-// width[s] = 32 x the largest count among slice s's liquid rows.
-__global__ void slice_width_kernel(const int* __restrict__ count,
-                                   const float* __restrict__ liq, int m,
-                                   int s, int* __restrict__ width) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const int c = (i < m && liq[i] != 0.0f) ? count[i] : 0;
-  const int w = __reduce_max_sync(0xffffffffu, c);
-  if ((i & 31) == 0 && (i >> 5) < s) width[i >> 5] = 32 * w;
+// One launch of at most one resident grid (cooperative): block b takes
+// slices [b tile, b tile + tile).  Phase 1: each warp takes a slice at a
+// time, its width (32 x the largest count among its liquid rows) goes to
+// off[slice] and into the block's tile sum, tiles[b].  One grid-wide sync.
+// Phase 2: every block scans the tile sums (gridDim.x <= kMaxTiles, one a
+// thread) for its prefix and the total, then scans its own tile's widths in
+// place from that prefix, clamped to capacity; block 0 writes off[s] and
+// need.
+__global__ void __launch_bounds__(kScanThreads)
+    nbr_list_offsets_kernel(const int* __restrict__ count,
+                            const unsigned char* __restrict__ liquid, int m,
+                            int s, int tile, int capacity,
+                            int* __restrict__ off,
+                            long long* __restrict__ need,
+                            long long* __restrict__ tiles) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lo = min(static_cast<int>(blockIdx.x) * tile, s);
+  const int hi = min(lo + tile, s);
+  long long part = 0;
+  for (int k = lo + warp; k < hi; k += kScanThreads / 32) {
+    const int i = 32 * k + lane;
+    int c = 0;
+    if (i < m) {   // both loads issue before either is used
+      const int n = count[i];
+      c = liquid[i] != 0 ? n : 0;
+    }
+    const int w = __reduce_max_sync(0xffffffffu, c);
+    if (lane == 0) {
+      off[k] = 32 * w;
+      part += 32LL * w;
+    }
+  }
+  long long sum;
+  block_inclusive_scan(part, &sum);
+  if (threadIdx.x == 0) tiles[blockIdx.x] = sum;
+  cooperative_groups::this_grid().sync();
+
+  __shared__ long long prefix;
+  const long long t = threadIdx.x < gridDim.x ? __ldcg(tiles + threadIdx.x)
+                                              : 0;
+  long long total;
+  const long long incl = block_inclusive_scan(t, &total);
+  if (threadIdx.x == blockIdx.x) prefix = incl - t;
+  __syncthreads();
+  long long carry = prefix;
+  for (int b = lo; b < hi; b += kScanThreads) {
+    const int k = b + threadIdx.x;
+    const long long v = k < hi ? off[k] : 0;
+    long long chunk;
+    const long long in = block_inclusive_scan(v, &chunk);
+    if (k < hi) {
+      off[k] = static_cast<int>(
+          min(carry + in - v, static_cast<long long>(capacity)));
+    }
+    carry += chunk;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    off[s] = static_cast<int>(min(total, static_cast<long long>(capacity)));
+    *need = total;
+  }
 }
 
-// off (s + 1,) = the exclusive scan of the widths, clamped to the slot
-// buffer's capacity; *need = the slots the list needs.  width: s int32 of
-// scratch; partials: kScanBlocks int64.
-extern "C" int nbr_list_offsets(const int* count, const float* liq, int m,
-                                int capacity, int* width, int* off,
-                                long long* need, long long* partials,
+// off (s + 1,) = the exclusive scan of the slice widths, clamped to the
+// slot buffer's capacity; *need = the slots the list needs.  liquid: the
+// rows' one-byte liquid flags; tiles: kMaxTiles int64 of scratch.  The
+// grid is the blocks that fit on the card at once (occupancy, read again
+// when the current device changes), at most kMaxTiles and one per 32
+// slices; a launch the card refuses returns its error.
+extern "C" int nbr_list_offsets(const int* count, const unsigned char* liquid,
+                                int m, int capacity, int* off,
+                                long long* need, long long* tiles,
                                 void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int s = (m + 31) / 32;
-  slice_width_kernel<<<blocks(32LL * s), kThreads, 0, st>>>(count, liq, m, s,
-                                                           width);
-  scan(width, s, capacity, off, partials, need, st);
-  return cudaGetLastError();
+  static int resident_dev = -1;  // the device whose residency is cached
+  static int resident = 0;
+  int dev = 0;
+  int rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev != resident_dev) {
+    int per_sm = 0;
+    int sms = 0;
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, nbr_list_offsets_kernel, kScanThreads, 0);
+    if (rc != cudaSuccess) return rc;
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc != cudaSuccess) return rc;
+    if (per_sm * sms == 0) return cudaErrorCooperativeLaunchTooLarge;
+    resident = per_sm * sms;
+    resident_dev = dev;
+  }
+  int s = (m + 31) / 32;
+  const int grid =
+      std::max(1, std::min({resident, kMaxTiles, (s + 31) / 32}));
+  int tile = (s + grid - 1) / grid;
+  void* args[] = {&count, &liquid, &m,   &s,    &tile,
+                  &capacity, &off,   &need, &tiles};
+  rc = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(nbr_list_offsets_kernel), grid, kScanThreads,
+      args, 0, (cudaStream_t)stream);
+  return rc != cudaSuccess ? rc : cudaGetLastError();
 }

@@ -147,18 +147,24 @@ def bin_cells(pos: torch.Tensor, n_liquid: int, cfg: SimConfig):
             liquid.sum().to(torch.int32))
 
 
+def row_views(block: torch.Tensor, fields):
+    """The rows of a (K, M) block as the sorted form of each field, in
+    order: (M,) for an (N,) field, (k, M) for a (k, N) one."""
+    two = [x.dim() == 2 for x in fields]
+    parts = block.split_with_sizes([x.shape[0] if t else 1
+                                    for x, t in zip(fields, two)])
+    return [p if t else p[0] for p, t in zip(parts, two)]
+
+
 def pack_rows(grid: Grid, fields):
-    """Per-liquid (N_L,) or (k, N_L) fields -> sorted (M,) / (k, M); rows
-    that hold no liquid take 0."""
-    out = []
-    for x in fields:
-        if x.shape[-1] == 0:
-            out.append(torch.zeros(x.shape[:-1] + (grid.n,), dtype=x.dtype,
-                                   device=x.device))
-            continue
+    """Per-liquid (N_L,) or (k, N_L) fields -> sorted (M,) / (k, M), row
+    views of one (K, M) block; rows that hold no liquid take 0."""
+    stacked = torch.cat([x.reshape(-1, x.shape[-1]) for x in fields])
+    block = stacked.new_zeros((stacked.shape[0], grid.n))
+    if stacked.shape[-1]:
         src = torch.where(grid.liquid, grid.order, 0)
-        out.append(torch.where(grid.liquid, x[..., src], 0.0).to(x.dtype))
-    return out
+        block[:] = torch.where(grid.liquid, stacked[:, src], 0.0)
+    return row_views(block, fields)
 
 
 def unpack_rows(grid: Grid, packed, defaults):
@@ -177,11 +183,13 @@ def unpack_rows(grid: Grid, packed, defaults):
 # ---------------------------------------------------------------------------
 
 def list_offsets(count: torch.Tensor, liquid: torch.Tensor,
-                 capacity: int = 2 ** 31 - 1):
+                 capacity: int = 2 ** 31 - 1, slots: ListSlots | None = None):
     """((S + 1,) int32 first slot of each slice, clamped to ``capacity``;
     () int64 slots the list needs) from the neighbour count of each row (the
     density sweep's count) and the rows' liquid flags (bool or 0/1 float);
-    boundary rows take no slots."""
+    boundary rows take no slots.  Both are written into the kept tensors
+    of ``slots`` (``ListSlots.offsets``; a new one where None) and those
+    are returned."""
     liquid = liquid.bool()
     m = count.shape[0]
     s = -(-m // SLICE)
@@ -189,7 +197,11 @@ def list_offsets(count: torch.Tensor, liquid: torch.Tensor,
     c[:m] = torch.where(liquid, count.to(torch.int64), 0)
     off = torch.zeros(s + 1, dtype=torch.int64, device=count.device)
     off[1:] = torch.cumsum(c.view(s, SLICE).amax(1) * SLICE, 0)
-    return torch.clamp(off, max=capacity).to(torch.int32), off[-1].clone()
+    slots = ListSlots() if slots is None else slots
+    kept_off, kept_need, _ = slots.offsets(m, count.device)
+    kept_off.copy_(torch.clamp(off, max=capacity))
+    kept_need.copy_(off[-1])
+    return kept_off, kept_need
 
 
 def neighbor_list(grid: Grid, count: torch.Tensor,
@@ -203,12 +215,14 @@ def neighbor_list(grid: Grid, count: torch.Tensor,
     position and liquid flag.  The slots honour the capacity of ``slots``
     (sized here from this list's need where it is unsized): a list that
     needs more is clamped to it, as the fill kernel's, its pairs past a
-    row's slots are dropped and its flag is set."""
+    row's slots are dropped and its flag is set.  Its offsets and need are
+    the kept tensors of ``slots`` (``ListSlots.offsets``), as the
+    kernel's."""
     p = pairs_of(grid)
     m = grid.n
     need = int(list_offsets(count, grid.liquid)[1])
     slots = ListSlots.sized(slots, need)
-    off, need_t = list_offsets(count, grid.liquid, slots.capacity)
+    off, need_t = list_offsets(count, grid.liquid, slots.capacity, slots)
     keep = grid.liquid[p.i]
     order = torch.argsort(p.i[keep] * m + p.j[keep])
     i, j = p.i[keep][order], p.j[keep][order]

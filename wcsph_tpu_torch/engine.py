@@ -151,6 +151,7 @@ CUT_SLOTS = 40       # hits the density sweep's receiver keeps before it
                      # sums them (kCutSlots, csrc/common.cuh)
 SCAN_PARTIALS = 1025  # int64 scratch of a scan (kScanBlocks + 1, csrc/bin.cu)
 MAX_FIELDS = 16      # field rows one pack or unpack moves (kMaxFields)
+PACK_SOURCES = 5     # fields one pack takes (kPackSources): DFSPH's five
 
 
 def reset_launch_counts() -> None:
@@ -187,7 +188,7 @@ class _TensionParams(ctypes.Structure):
 
 
 class _Fields(ctypes.Structure):
-    """Mirror of ``struct Fields`` in csrc/bin.cu."""
+    """Mirror of ``struct Fields`` in csrc/bin.cu (the unpack's)."""
 
     _fields_ = [("src", ctypes.c_void_p * MAX_FIELDS),
                 ("dst", ctypes.c_void_p * MAX_FIELDS),
@@ -220,9 +221,9 @@ _SIGNATURES = {
     "nbr_list_fill": [_G, _P, _P, _P, _P, _P],
     "bin_cells": [_P, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P, _P],
-    "pack_rows": [_FS, _I, _P, _P, _P],
+    "pack_rows": [_I, _I, _P, _P, _P, *[_P, _I] * PACK_SOURCES, _P],
     "unpack_rows": [_FS, _I, _P, _P],
-    "nbr_list_offsets": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "nbr_list_offsets": [_P, _P, _I, _I, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -351,8 +352,11 @@ def _launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _stream() -> int:
+    """The raw handle of the current device's current stream:
+    ``torch.cuda.current_stream().cuda_stream`` without building a Stream
+    object."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 _plain_on_card = False     # set only by plain_twins()
@@ -374,9 +378,9 @@ def plain_twins():
 def _route(t: torch.Tensor) -> bool:
     """True for the kernel on the card, False for the plain twin (CPU
     tensors, or CUDA tensors inside ``plain_twins``)."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return not _plain_on_card
-    if t.device.type == "cpu":
+    if t.is_cpu:
         return False
     raise ValueError(f"no kernel or plain twin for device {t.device}")
 
@@ -503,27 +507,27 @@ def k4_fused_visc_iter(grid: Grid, x: torch.Tensor, r: torch.Tensor,
 
 
 def nbr_list_offsets(count: torch.Tensor, liquid: torch.Tensor,
-                     capacity: int = 2 ** 31 - 1):
+                     capacity: int = 2 ** 31 - 1,
+                     slots: ListSlots | None = None):
     """((S + 1,) int32 slice offsets of the neighbour list, clamped to
     ``capacity``; () int64 slots it needs) from the density sweep's count
-    (M,) and the rows' liquid flags (a bool or 0/1 float32 (M,))."""
+    (M,) and the rows' liquid flags (M,) (bool on the card).  With
+    ``slots``, both are its kept tensors (``ListSlots.offsets``),
+    overwritten: the call allocates nothing; without, those of a new
+    ``ListSlots``.  One launch."""
     if not _route(count):
-        return dense_ops.list_offsets(count, liquid, capacity)
+        return dense_ops.list_offsets(count, liquid, capacity, slots)
     m = count.shape[0]
-    liq = liquid.to(torch.float32)
-    if (count.dtype != torch.int32 or liq.shape != (m,)
-            or not count.is_contiguous() or liq.device != count.device):
+    if (count.dtype != torch.int32 or liquid.dtype != torch.bool
+            or liquid.shape != (m,) or not count.is_contiguous()
+            or not liquid.is_contiguous() or liquid.device != count.device):
         raise ValueError("count must be contiguous int32 (M,), beside the "
-                         "(M,) liquid flags on the card")
-    s = -(-m // 32)
-    off = torch.empty((s + 1,), dtype=torch.int32, device=count.device)
-    need = torch.empty((), dtype=torch.int64, device=count.device)
-    width = torch.empty((max(s, 1),), dtype=torch.int32, device=count.device)
-    partials = torch.empty((SCAN_PARTIALS,), dtype=torch.int64,
-                           device=count.device)
-    _launch("nbr_list_offsets", count.data_ptr(), liq.data_ptr(), m,
-            int(capacity), width.data_ptr(), off.data_ptr(), need.data_ptr(),
-            partials.data_ptr(), _stream())
+                         "(M,) bool liquid flags on the card")
+    slots = ListSlots() if slots is None else slots
+    off, need, tiles = slots.offsets(m, count.device)
+    _launch("nbr_list_offsets", count.data_ptr(), liquid.data_ptr(), m,
+            int(capacity), off.data_ptr(), need.data_ptr(), tiles.data_ptr(),
+            _stream())
     return off, need
 
 
@@ -532,8 +536,9 @@ def nbr_list_fill(grid: Grid, count: torch.Tensor,
     """Build the neighbour list of the grid's positions, keep it as
     ``grid.nbr`` and return it.  ``count`` (M,) is the density sweep's
     neighbour count of each row; the slice offsets follow from it on the
-    card (``nbr_list_offsets``), then the fill kernel writes the slots into
-    the buffer of ``slots``, kept from step to step, and each row's record.
+    card (``nbr_list_offsets``, into the kept tensors of ``slots``), then
+    the fill kernel writes the slots into the buffer of ``slots``, kept
+    from step to step, and each row's record.
     No host read, but where ``slots`` is unsized: its first fill reads the
     slots needed and sizes it (``ListSlots.sized``; a buffer of exactly
     that size where ``slots`` is None).  A list that needs more slots than
@@ -546,8 +551,8 @@ def nbr_list_fill(grid: Grid, count: torch.Tensor,
     if count.shape != (grid.n,) or count.device.type != "cuda":
         raise ValueError("count must be (M,), on the card")
     cap = None if slots is None else slots.capacity
-    off, need = nbr_list_offsets(count, grid.liq,
-                                 2 ** 31 - 1 if cap is None else cap)
+    off, need = nbr_list_offsets(count, grid.liquid,
+                                 2 ** 31 - 1 if cap is None else cap, slots)
     if cap is None:                      # the first fill's one host read
         slots = ListSlots.sized(slots, int(need))
     idx = slots.buffer(count.device)
@@ -622,19 +627,42 @@ def _fields(src, dst, dflt=()) -> _Fields:
     return f
 
 
+_NO_SOURCE = (None, 0)
+
+
 def pack_rows(grid: Grid, fields):
-    """Per-liquid (N_L,) or (k, N_L) fields -> sorted (M,) / (k, M), rows
-    that hold no liquid 0: every field in one launch."""
+    """Per-liquid (N_L,) or (k, N_L) fields (at most ``PACK_SOURCES``) ->
+    sorted (M,) / (k, M), rows that hold no liquid 0: row views, in the
+    order of ``fields``, of one (K, M) block allocated here, all written by
+    one launch."""
     if not fields or not _route(fields[0]):
         return dense_ops.pack_rows(grid, fields)
-    fields = [x.contiguous() for x in fields]
+    if len(fields) > PACK_SOURCES:
+        raise ValueError(f"{len(fields)} fields: one pack takes at most "
+                         f"{PACK_SOURCES}")
+    nl = fields[0].shape[-1]
+    held, args, k = [], [], 0     # held: the sources, alive until the launch
+    for x in fields:
+        if not x.is_contiguous():
+            x = x.contiguous()
+        shape = x.shape
+        if (x.dtype != torch.float32 or len(shape) > 2 or shape[-1] != nl
+                or not x.is_cuda):
+            raise ValueError("fields must be float32 (N_L,) or (k, N_L) on "
+                             "the card")
+        rows = shape[0] if len(shape) == 2 else 1
+        held.append(x)
+        args += (x.data_ptr(), rows)
+        k += rows
+    if k > MAX_FIELDS:
+        raise ValueError(f"{k} field rows: one launch moves at most "
+                         f"{MAX_FIELDS}")
     m = grid.n
-    out = [torch.empty(x.shape[:-1] + (m,), dtype=torch.float32,
-                       device=x.device) for x in fields]
-    f = _fields(_field_rows(fields, fields[0].shape[-1]), _field_rows(out, m))
-    _launch("pack_rows", ctypes.byref(f), m, grid.order.data_ptr(),
-            grid.liq.data_ptr(), _stream())
-    return out
+    out = held[0].new_empty((k, m))
+    _launch("pack_rows", m, nl, grid.order.data_ptr(),
+            grid.liquid.data_ptr(), out.data_ptr(), *args,
+            *_NO_SOURCE * (PACK_SOURCES - len(held)), _stream())
+    return dense_ops.row_views(out, fields)
 
 
 def unpack_rows(grid: Grid, packed, defaults):

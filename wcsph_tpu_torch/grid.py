@@ -48,6 +48,8 @@ from .config import SimConfig
 
 SLICE = 32   # rows per slice of the neighbour list: one warp
 HEADROOM = 1.25   # slots a list buffer is sized for, over the slots needed
+OFFSET_TILES = 1024   # int64 scratch of the offsets' tile sums (kMaxTiles,
+                      # csrc/bin.cu)
 
 
 class ListOverflow(Exception):
@@ -69,11 +71,18 @@ class ListSlots:
     ``HEADROOM`` (one host read; a PCISPH step, from its density sweep's
     largest count); sized, a fill whose list needs more clamps the list to
     it and flags the need, and the step replays after ``size_for`` the
-    need."""
+    need.
+
+    It also keeps the list's slice offsets and need (``offsets``), which
+    each fill overwrites as it overwrites the slots: a list held across the
+    next fill into the same ``ListSlots`` sees its slots and offsets
+    change."""
 
     def __init__(self, capacity: int | None = None):
         self.capacity = None
         self.idx: torch.Tensor | None = None
+        self._offsets = None
+        self._offsets_key = None
         if capacity is not None:
             self._set(capacity)
 
@@ -105,6 +114,21 @@ class ListSlots:
             self.idx = torch.empty((self.capacity,), dtype=torch.int32,
                                    device=device)
         return self.idx
+
+    def offsets(self, m: int, device):
+        """The kept (off (S + 1,) int32, need () int64, tile scratch
+        (``OFFSET_TILES``,) int64) of a list of M rows, allocated once per
+        M and device: each fill's ``engine.nbr_list_offsets`` (or its plain
+        twin) writes them."""
+        if self._offsets_key != (m, device):
+            self._offsets = (
+                torch.empty((-(-m // SLICE) + 1,), dtype=torch.int32,
+                            device=device),
+                torch.empty((), dtype=torch.int64, device=device),
+                torch.empty((OFFSET_TILES,), dtype=torch.int64,
+                            device=device))
+            self._offsets_key = (m, device)
+        return self._offsets
 
 
 @dataclasses.dataclass
