@@ -49,8 +49,12 @@ its own lines and raising on failure:
    the same work (``bound_ms``) and, for the grid stage, one PyTorch call
    that computes its core (``library_ms``, and its device time), the
    device time of its own kernels and their count a call (torch.profiler;
-   the kernel time is the whole wrapper's), gated for the list offsets
-   and the pack at one device kernel and 0 and 1 allocations a call.
+   the kernel time is the whole wrapper's), gated at one device kernel a
+   call for the pack, the unpack and the list offsets, at most four device
+   operations (kernels and memsets) for the bin, and 8, 1, 1 and 0
+   allocations a call for the bin, pack, unpack and offsets; and the bin
+   at side 24 (particles outside the domain), at 1M and at side 24 again,
+   back to back, each equal to its twin bit for bit.
 
 The line before the last is one JSON object with the per-kernel record;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -551,6 +555,12 @@ def check_grid_stage(pos, n_liquid, cfg, chk, rng):
     for a, b in zip(back, dense_ops.unpack_rows(grid, packed, defaults)):
         if not torch.equal(a, b):
             raise AssertionError("unpack_rows differs from its plain twin")
+    block = back[0]._base
+    if not (block is not None and block.shape == (11, n_liquid)
+            and all(x._base is block and x.is_contiguous() for x in back)
+            and back[3].data_ptr() == block[9].data_ptr()):
+        raise AssertionError("unpack_rows: the fields are not row views of "
+                             "one (11, N_L) block")
     out = grid.row_of[:n_liquid] < 0
     for a, x, d in zip(back, fields, defaults):
         if not torch.equal(torch.where(out, d, x), a):
@@ -559,12 +569,37 @@ def check_grid_stage(pos, n_liquid, cfg, chk, rng):
         chk.max_abs[name] = 0.0
     log(f"  bin_cells: order, offsets, cells, rows, positions, flags and "
         f"the liquid count equal to the plain stable sort ({grid.n} rows, "
-        f"{grid.n - m_in} outside the domain, last); pack_rows (row views "
-        f"of one block) and unpack_rows of DFSPH's five fields equal to "
-        f"their twins, and "
+        f"{grid.n - m_in} outside the domain, last); pack_rows and "
+        f"unpack_rows of DFSPH's five fields (each row views of one block) "
+        f"equal to their twins, and "
         f"{int(out.sum())} liquid particles outside kept their defaults")
     engine.LAUNCHES.update(saved)     # check launches are not main-path
     return grid
+
+
+def check_bin_alternating(calls):
+    """The bin kernel on ``calls`` (each (positions, n_liquid, cfg)) back to
+    back on one stream, then each call's outputs against its plain twin:
+    its kept scratch (the histogram zero between calls) serves grids of
+    other sizes in turn."""
+    import torch
+
+    from wcsph_tpu_torch import dense_ops, engine
+
+    saved = dict(engine.LAUNCHES)
+    got = [engine.bin_cells(*args) for args in calls]
+    torch.cuda.synchronize()
+    for c, (args, out) in enumerate(zip(calls, got)):
+        want = dense_ops.bin_cells(*args)
+        for name, a, b in zip(BIN_OUTPUTS, out, want):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"bin_cells, call {c} of the alternating "
+                                     f"sizes: {name} differs from the plain "
+                                     "stable sort")
+    engine.LAUNCHES.update(saved)     # check launches are not main-path
+    log(f"  bin_cells: {len(calls)} calls back to back at "
+        f"{[args[0].shape[1] for args in calls]} particles, every output "
+        f"equal to the plain stable sort")
 
 
 def check_list_capacity(grid, count, chk):
@@ -712,6 +747,16 @@ def allocations(fn, args):
     return torch.cuda.memory_stats()[key] - before
 
 
+# gates of the grid stage at 1M: the wrappers of one device kernel a call,
+# the most device operations (kernels and memsets) of one bin, and the
+# allocations one call makes (the bin's outputs; one block for the pack
+# and the unpack; none for the offsets into a sized ListSlots)
+ONE_KERNEL = ("pack_rows", "unpack_rows", "nbr_list_offsets")
+BIN_OPERATIONS = 4
+ALLOCATIONS = {"bin_cells": 8, "pack_rows": 1, "unpack_rows": 1,
+               "nbr_list_offsets": 0}
+
+
 def time_grid_stage(grid, pos, n_liquid, count, rng, reps_kernel=20,
                     reps_plain=5):
     """name -> (kernel ms, plain ms, library ms, device ms, device kernels
@@ -722,8 +767,8 @@ def time_grid_stage(grid, pos, n_liquid, count, rng, reps_kernel=20,
     cell keys for the bin, one gather (index_select of the stacked field
     rows) for pack and unpack, torch.cumsum of the slice widths for the
     offsets.  The offsets run as a step runs them, into a sized
-    ``ListSlots``.  Gates: the offsets and the pack launch one device
-    kernel a call; the offsets allocate nothing, the pack one block."""
+    ``ListSlots``.  Gates: ``ONE_KERNEL``, ``BIN_OPERATIONS`` and
+    ``ALLOCATIONS``."""
     import torch
 
     from wcsph_tpu_torch import dense_ops, engine
@@ -735,9 +780,7 @@ def time_grid_stage(grid, pos, n_liquid, count, rng, reps_kernel=20,
     fields = step_fields(n_liquid, pos.device, rng)
     defaults = step_fields(n_liquid, pos.device, rng)
     packed = engine.pack_rows(grid, fields)
-    keys = torch.where(grid.row_of >= 0, 0, cfg.num_cells).to(torch.int64)
-    keys[grid.order[: int(grid.cell_start[-1])]] = (
-        grid.cell[: int(grid.cell_start[-1])].to(torch.int64))
+    keys = dense_ops.cell_keys(pos, cfg)
     rows11 = torch.cat([f.reshape(-1, n_liquid) for f in fields])
     src = torch.where(grid.liquid, grid.order, 0)
     packed11 = torch.cat([p.reshape(-1, grid.n) for p in packed])
@@ -769,18 +812,20 @@ def time_grid_stage(grid, pos, n_liquid, count, rng, reps_kernel=20,
             f"{plain:.4f} ms, library {lib:.4f} ms (on the device "
             f"{lib_dev:.4f} ms, {lib_kernels:g} kernels), kernel / library "
             f"{ms / lib:.3f} (M={grid.n})")
-    allocs = {"nbr_list_offsets": allocations(
-                  engine.nbr_list_offsets, cases["nbr_list_offsets"][0]()),
-              "pack_rows": allocations(engine.pack_rows, (grid, fields))}
-    log(f"  allocations a call: nbr_list_offsets into a sized ListSlots "
-        f"{allocs['nbr_list_offsets']}, pack_rows {allocs['pack_rows']} "
-        f"(11 field rows)")
+    allocs = {name: allocations(getattr(engine, name), make())
+              for name, (make, _) in cases.items()}
+    log(f"  allocations a call: bin_cells {allocs['bin_cells']} (its "
+        f"outputs), pack_rows {allocs['pack_rows']}, unpack_rows "
+        f"{allocs['unpack_rows']} (11 field rows), nbr_list_offsets into a "
+        f"sized ListSlots {allocs['nbr_list_offsets']}")
     engine.LAUNCHES.update(saved)     # timing launches are not main-path
-    if (times["nbr_list_offsets"][4] != 1 or times["pack_rows"][4] != 1
-            or allocs != {"nbr_list_offsets": 0, "pack_rows": 1}):
-        raise AssertionError("nbr_list_offsets and pack_rows must launch "
-                             "one device kernel a call, and allocate 0 "
-                             "(into a sized ListSlots) and 1 block")
+    if (any(times[k][4] != 1 for k in ONE_KERNEL)
+            or not 0 < times["bin_cells"][4] <= BIN_OPERATIONS
+            or allocs != ALLOCATIONS):
+        raise AssertionError(
+            f"{', '.join(ONE_KERNEL)} must launch one device kernel a call "
+            f"and bin_cells at most {BIN_OPERATIONS} device operations; "
+            f"allocations a call must be {ALLOCATIONS}")
     return times
 
 
@@ -973,8 +1018,8 @@ def main():
                          **bench.flagship_paths(side)["dfsph+tension"][1])
     sim = Simulation(sc, cfg, device=dev)     # resolves the boundary volume
     chk = KernelCheck()
-    check_grid_stage(with_outside(sim.state.pos, sim.cfg), sc.n_liquid,
-                     sim.cfg, chk, np.random.RandomState(2))
+    small_bin = (with_outside(sim.state.pos, sim.cfg), sc.n_liquid, sim.cfg)
+    check_grid_stage(*small_bin, chk, np.random.RandomState(2))
     grid = build_grid(sim.state.pos, sc.n_liquid, sim.cfg)
     log(f"[phase 2] side {side} squeezed 0.92: M={grid.n} rows, "
         f"{grid.liquid_count} liquid")
@@ -1146,6 +1191,8 @@ def main():
     minp = kernel_inputs(mgrid, liq_pos, np.random.RandomState(1))
     check_grid_stage(mstate.pos, mstate.n_liquid, mgrid.cfg, chk,
                      np.random.RandomState(3))
+    check_bin_alternating([small_bin, (mstate.pos, mstate.n_liquid,
+                                       mgrid.cfg), small_bin])
     mcount = check_list(mgrid, minp["vel"], chk)
     check_list_capacity(mgrid, mcount, chk)
     cases = kernel_cases(mgrid, minp)

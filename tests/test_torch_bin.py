@@ -10,9 +10,9 @@ holds the kernels to bit for bit:
   liquid and a boundary particle outside the domain, whose rows come last
   and are inert (no cell, no pair, liquid flag 0, finite sweep outputs);
 * pack then unpack gives the fields back, and the liquid particle outside
-  the domain keeps its defaults; the packed fields are row views of one
-  block and equal the JAX package's pack (``wcsph_tpu.grid.
-  pack_liquid_many``, one stacked gather);
+  the domain keeps its defaults; the packed fields and the unpacked ones
+  are each row views of one block, and the packed equal the JAX package's
+  pack (``wcsph_tpu.grid.pack_liquid_many``, one stacked gather);
 * the list honours a slot capacity: clamped offsets, the need and the
   flag, raised at the step's first read (``Grid.read``), which also brings
   the liquid count; the offsets written into a kept ``ListSlots`` are its
@@ -171,6 +171,12 @@ def test_pack_then_unpack_gives_the_fields_back(case):
     for x, y in zip(fields, back):
         assert torch.equal(y[..., 1:], x[..., 1:])
         assert bool((y[..., 0] == 7.0).all())   # outside: its default
+    # row views, in order, of one (4, N_L) block
+    block = back[0]._base
+    assert block is not None and block.shape == (4, nl)
+    assert back[1]._base is block and back[1].is_contiguous()
+    assert back[0].data_ptr() == block.data_ptr()
+    assert back[1].data_ptr() == block[3].data_ptr()
 
 
 def test_list_honours_its_capacity(case):

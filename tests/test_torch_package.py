@@ -242,18 +242,28 @@ def test_kernel_tables_agree_with_sources(name):
         assert re.match(rf"(def|class) {what}\b", text), text
 
 
+# structs retired with their ctypes mirrors
+RETIRED_STRUCTS = {"Fields"}
+
+
 @pytest.mark.parametrize("struct,where", [
     ("Geom", "common.cuh"), ("TensionParams", "solver_sweeps.cu"),
     ("Fields", "bin.cu")])
 def test_ctypes_mirror_follows_the_cuda_struct(struct, where):
     """The ctypes mirror lists the fields of the CUDA struct in order (an
-    array field with the length of its ``constexpr int`` bound)."""
+    array field with the length of its ``constexpr int`` bound).  A struct
+    that Python no longer passes (``Fields``, the unpack's pointer table:
+    the unpack takes its fields' bases as plain arguments) is gone from
+    both sides."""
     import ctypes
 
-    mirror = getattr(engine, "_" + struct)
+    mirror = getattr(engine, "_" + struct, None)
     text = _cuda_entries()[1][PKG / "csrc" / where]
-    body = re.search(rf"struct {struct} {{(.*?)\n}};", text, re.S).group(1)
-    body = re.sub(r"//[^\n]*", "", body)
+    found = re.search(rf"struct {struct} {{(.*?)\n}};", text, re.S)
+    if struct in RETIRED_STRUCTS:
+        assert mirror is None and found is None
+        return
+    body = re.sub(r"//[^\n]*", "", found.group(1))
     fields = []
     for decl in body.split(";"):
         decl = decl.strip()

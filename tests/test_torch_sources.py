@@ -13,9 +13,10 @@ csrc/solver_sweeps.cu (K7's two sweeps walk the list, K8's acceleration
 sweep the hits of its first sweep).
 
 No kernel source copies to or from the host, allocates, or waits for the
-card (every file of csrc/); and the grid stage's list offsets and pack are
-one launch each: the C entry launches once and resets nothing, and the
-pack's wrapper builds no ctypes pointer table per call.
+card (every file of csrc/); the grid stage's list offsets, pack and unpack
+are one launch each: the C entry launches once and resets nothing, and the
+wrapper builds no ctypes pointer table per call; and the bin makes at most
+four launches and clears nothing.
 """
 
 import ast
@@ -85,7 +86,10 @@ CSRC = ROOT / "wcsph_tpu_torch" / "csrc"
 # the kernel sources, as SOURCES lists the Python ones
 CUDA_SOURCES = ["bin.cu", "common.cuh", "solver_sweeps.cu", "sweeps.cu"]
 # the C entries of csrc/bin.cu that launch once, and their Python wrappers
-ONE_LAUNCH = ["nbr_list_offsets", "pack_rows"]
+ONE_LAUNCH = ["nbr_list_offsets", "pack_rows", "unpack_rows"]
+# the most launches of the bin's C entry, those of its static helpers
+# counted in
+BIN_LAUNCHES = 4
 
 
 def test_cuda_sources_never_wait_for_the_card():
@@ -97,8 +101,10 @@ def test_cuda_sources_never_wait_for_the_card():
 
     Each entry of ONE_LAUNCH launches one kernel (directly, or through a
     static helper of bin.cu) and calls no cudaMemset; its wrapper in
-    engine.py builds no ``_Fields`` table (``_Fields``, ``_fields``,
-    ``_field_rows``)."""
+    engine.py builds no pointer table (engine.py defines no ``_Fields``,
+    ``_fields`` or ``_field_rows``, and bin.cu no ``struct Fields``).  The
+    bin's entry calls no cudaMemset and launches at most BIN_LAUNCHES
+    kernels, those of the static helpers it calls counted in."""
     assert CUDA_SOURCES == sorted(f.name for f in CSRC.glob("*.cu*"))
     for source in CUDA_SOURCES:
         text = re.sub(r"//[^\n]*", "", (CSRC / source).read_text())
@@ -108,11 +114,23 @@ def test_cuda_sources_never_wait_for_the_card():
 
     text = re.sub(r"//[^\n]*", "", (CSRC / "bin.cu").read_text())
     launch = r"<<<|\bcudaLaunch\w*\s*\("
-    helpers = {m.group(1) for m in re.finditer(
-        r"^static [^(=;]*?\b(\w+)\s*\((.*?)\n}", text, re.S | re.M)
-        if re.search(launch, m.group(2))}
+    helpers = {m.group(1): len(re.findall(launch, m.group(2)))
+               for m in re.finditer(r"^static [^(=;]*?\b(\w+)\s*\((.*?)\n}",
+                                    text, re.S | re.M)
+               if re.search(launch, m.group(2))}
     tree = ast.parse((ROOT / "wcsph_tpu_torch" / "engine.py").read_text())
     wrappers = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    defined = {t.id for n in tree.body if isinstance(n, ast.Assign)
+               for t in n.targets if isinstance(t, ast.Name)}
+    defined |= {n.name for n in tree.body
+                if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    assert defined.isdisjoint({"_Fields", "_FS", "_fields", "_field_rows"})
+    assert not re.search(r"\bstruct\s+Fields\b", text)
+    body = re.search(r'extern "C" int bin_cells\(.*?\n}', text, re.S).group(0)
+    assert not re.search(r"\bcudaMemset\w*\s*\(", body)
+    launches = len(re.findall(launch, body)) + sum(
+        n for h, n in helpers.items() if re.search(rf"\b{h}\s*\(", body))
+    assert 0 < launches <= BIN_LAUNCHES, launches
     for name in ONE_LAUNCH:
         body = re.search(rf'extern "C" int {name}\(.*?\n}}', text,
                          re.S).group(0)

@@ -57,30 +57,27 @@ import torch
 
 from . import bench, dense_ops, engine
 
-AB_KERNELS = ("nbr_list_offsets", "pack_rows")
+AB_KERNELS = ("unpack_rows", "bin_cells")
 AB_SOLVERS = ("dfsph", "iisph", "pcisph")   # the steps that call them
-# The older wrappers' arguments, from this tree's: the offsets of the
-# tree before the kept slots took float32 liquid flags and no slots.
-OLD_ARGS = {
-    "nbr_list_offsets": lambda count, liquid, capacity, slots=None: (
-        count, liquid.to(torch.float32), capacity),
-}
+# The older wrappers' arguments, from this tree's, where a signature
+# changed (none of the unpack's or the bin's did).
+OLD_ARGS = {}
 
 
-def _library_pack(grid, fields):
-    rows = torch.cat([x.reshape(-1, x.shape[-1]) for x in fields])
-    src = torch.where(grid.liquid, grid.order, 0)
-    return lambda: rows.index_select(1, src)
+def _library_unpack(grid, packed, defaults):
+    rows = torch.cat([p.reshape(-1, grid.n) for p in packed])
+    back = grid.row_of[: defaults[0].shape[-1]].clamp(min=0).to(torch.int64)
+    return lambda: rows.index_select(1, back)
 
 
-def _library_offsets(count, liquid, capacity, slots=None):
-    width = dense_ops.list_offsets(count, liquid)[0].diff()
-    return lambda: torch.cumsum(width, 0)
+def _library_bin(pos, n_liquid, cfg):
+    keys = dense_ops.cell_keys(pos, cfg)
+    return lambda: torch.sort(keys, stable=True)
 
 
 # name -> (arguments of a recorded call -> the one PyTorch call that
 # computes the same function's core, as chip_smoke.py times it)
-LIBRARY = {"pack_rows": _library_pack, "nbr_list_offsets": _library_offsets}
+LIBRARY = {"unpack_rows": _library_unpack, "bin_cells": _library_bin}
 SIDE = 100         # the flagship dam break, 1M liquid particles
 REPS = 20          # timed calls per turn
 JITTER = 0.3       # of the particle radius
@@ -231,6 +228,8 @@ def host_profile(fn, make_args, eng, reps: int = REPS) -> dict:
     finally:
         eng._launch = launch
     c_us = {}
+    # a wrapper's own scratch, freed at its return, stays in PyTorch's pool
+    # (nothing allocates in this loop), so its pointers stay valid here
     for name, args in seen:
         entry = eng.library()[name]
         t0 = time.perf_counter()
@@ -326,7 +325,7 @@ def main(argv=None):
         for scene, pos in (("at rest", state.pos), ("jittered", jittered)):
             sim.state = state.replace(pos=pos)
             first, count = record_step(sim)
-            grid = first["pack_rows"][0]
+            grid = first["unpack_rows"][0]
             if int(grid.cell_start[-1]) != state.n_total:
                 raise AssertionError(f"{scene}: a particle left the domain")
             fill = first.get("nbr_list_fill")

@@ -10,23 +10,38 @@
 // grid_from_prep), one stacked gather to pack (pack_many_padded, 194) and
 // one to unpack (unpack_many_direct, 274).  Here:
 //
-//   * bin_cells is a counting sort by cell.  One pass computes each
-//     particle's cell exactly as cell_of_positions does, floor((x - dmin) *
-//     float32(1 / cell size)), and takes a slot in its cell from an atomic
-//     histogram; a scan of the histogram gives the cell offsets; a scatter
-//     places each particle at its cell's offset plus its slot; then each
-//     cell's few rows are put in particle order by an insertion sort, so the
-//     permutation is the stable sort's whatever order the atomics took.
-//     Particles outside the domain take the rows after the last cell, in
-//     particle order (a scan of their flags ranks them), and are inert: in
-//     no cell's range, liquid flag 0, and a cell id whose 27-cell window
-//     lies wholly outside the grid (the cell loops of common.cuh find no
-//     candidate for them).
+//   * bin_cells is a counting sort by cell in four launches and no memset.
+//     (1) Each particle's cell, exactly as cell_of_positions computes it,
+//     floor((x - dmin) * float32(1 / cell size)), and a slot in its cell
+//     from an atomic histogram.  (2) One cooperative launch scans both the
+//     histogram (the cell offsets) and the particles' outside flags: tile
+//     sums, one grid sync, then each block scans the tile sums and its own
+//     tiles.  It zeroes each histogram bin once it has read it, puts the
+//     particles outside the domain on the rows after the last cell in
+//     particle order, and writes the count of liquid particles inside the
+//     domain, n_liquid - (outside particles below n_liquid): no atomic
+//     counter.  (3) A scatter places each particle at its cell's offset
+//     plus its slot.  (4) One thread per row takes its particle's rank in
+//     the cell's run (how many of the run's particles have a lower index),
+//     which puts the run in particle order whatever order the atomics
+//     took, so the permutation is the stable sort's, and writes the row's
+//     order, cell, position and flags and the particle's row.  The rows
+//     outside the domain are inert: in no cell's range, liquid flag 0, and
+//     a cell id whose 27-cell window lies wholly outside the grid (the cell
+//     loops of common.cuh find no candidate for them).
+//     The scratch (cell keys, slots, the scatter's rows, the histogram and
+//     the scan's tile sums) is kept by the caller from call to call; its
+//     histogram is all zero when a call starts (zeroed when allocated, and
+//     by every scan after it reads a bin), so no call clears it.
 //   * pack_rows and unpack_rows move every field of a step in one launch
-//     each: pack reads each row's particle (order) where the row's one-byte
-//     liquid flag is set and writes row k of its fields at dst + k n, one
-//     block the wrapper allocates; unpack reads each particle's row
-//     (row_of, -1 outside the domain, where the default is kept).
+//     each, between the per-liquid rows of at most kPackSources fields and
+//     one block of rows the wrapper allocates (row k at k x the row
+//     length): pack reads each row's particle (order) where the row's
+//     one-byte liquid flag is set; unpack reads each particle's row
+//     (row_of, -1 outside the domain, where the default is read).  Only
+//     the fields' bases and row counts cross the call; the entry builds
+//     the row table.  Each thread issues all its gathers before its
+//     stores.
 //   * nbr_list_offsets turns the density sweep's counts into the sliced-ELL
 //     offsets of grid.NeighborList, clamped to the capacity of the slot
 //     buffer that the step keeps from step to step, and writes the slots
@@ -37,43 +52,34 @@
 //     tile sums itself and then its own tile from its prefix.  No status
 //     word, so nothing to reset between calls.
 //
-// One three-launch scan serves the cell offsets and the outside ranks of
-// the bin: a per-block sum over contiguous chunks, one block that scans
-// those sums (in 64-bit), and a per-block scan of each chunk from its
-// block's prefix.
-//
 // What bounds them on the H100: bytes, and at 1M rows the launches.  The
-// bin moves ~45 bytes per particle once, but its scatter, sort and gathers
-// are scattered accesses and it runs ten launches; pack and unpack move 4
-// bytes per field and row plus the indices; the offsets read 5 bytes a row
-// and are bound by their one launch and grid sync (a few microseconds).
+// bin moves ~45 bytes per particle once, but its scatter and gathers are
+// scattered accesses; pack and unpack move 4 bytes per field and row plus
+// the indices; the offsets read 5 bytes a row and are bound by their one
+// launch and grid sync (a few microseconds).
 //
-// A launch returns cudaGetLastError().
+// A launch returns cudaGetLastError() or the cooperative launch's error.
 
 #include <algorithm>
-#include <climits>
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 constexpr int kThreads = 256;      // threads of the row kernels
-constexpr int kScanThreads = 1024; // threads of the scan kernels (32 warps)
-constexpr int kScanBlocks = 1024;  // most blocks of a scan's chunked passes
-                                   // (engine.SCAN_PARTIALS - 1)
+constexpr int kScanThreads = 1024; // threads of the cooperative scans
+                                   // (32 warps)
 constexpr int kMaxFields = 16;     // field rows a pack or unpack moves
-constexpr int kPackSources = 5;    // fields one pack takes, DFSPH's five
-                                   // (engine.PACK_SOURCES)
-constexpr int kMaxTiles = kScanThreads;  // most blocks of the offsets' one
-                                         // grid (grid.OFFSET_TILES)
+constexpr int kPackSources = 5;    // fields one pack or unpack takes,
+                                   // DFSPH's five (engine.PACK_SOURCES)
+constexpr int kMaxTiles = kScanThreads;  // most blocks of a cooperative
+                                         // scan's one grid
+                                         // (grid.OFFSET_TILES; the bin
+                                         // keeps two sets of tile sums,
+                                         // engine.BIN_TILES)
 
 static inline int blocks(long long n) {
   return n > 0 ? static_cast<int>((n + kThreads - 1) / kThreads) : 1;
 }
-
-// ---------------------------------------------------------------------------
-// The bin's scan: out[k] = min(sum of in[0 .. k), clamp) for k = 0 .. n,
-// and *total = the unclamped sum of all n inputs.
-// ---------------------------------------------------------------------------
 
 // Inclusive scan of v over the kScanThreads threads of a block, in 64 bits;
 // *total gets the block's sum.  Every thread of the block must call it.
@@ -102,139 +108,166 @@ __device__ long long block_inclusive_scan(long long v, long long* total) {
   return v;
 }
 
-// partials[b] = the sum of block b's chunk.
-__global__ void scan_reduce_kernel(const int* __restrict__ in, int n,
-                                   int chunk,
-                                   long long* __restrict__ partials) {
-  const int lo = blockIdx.x * chunk;
-  const int hi = min(lo + chunk, n);
-  long long s = 0;
-  for (int k = lo + threadIdx.x; k < hi; k += kScanThreads) s += in[k];
-  long long sum;
-  block_inclusive_scan(s, &sum);
-  if (threadIdx.x == 0) partials[blockIdx.x] = sum;
-}
+// The blocks of kScanThreads threads of a cooperative kernel that fit on
+// the current device at once (occupancy), kept in *cache for the device
+// last asked about.
+struct Residency {
+  int dev;
+  int blocks;
+};
 
-// partials[0 .. nb) -> their exclusive prefix sums; *total = their sum.
-__global__ void scan_partials_kernel(long long* __restrict__ partials, int nb,
-                                     long long* __restrict__ total) {
-  const long long v = threadIdx.x < nb ? partials[threadIdx.x] : 0;
-  long long sum;
-  const long long incl = block_inclusive_scan(v, &sum);
-  if (threadIdx.x < nb) partials[threadIdx.x] = incl - v;
-  if (threadIdx.x == 0) *total = sum;
-}
-
-// Each block scans its chunk tile by tile, from its prefix.
-__global__ void scan_apply_kernel(const int* __restrict__ in, int n,
-                                  int chunk,
-                                  const long long* __restrict__ partials,
-                                  const long long* __restrict__ total,
-                                  int clamp, int* __restrict__ out) {
-  const int lo = blockIdx.x * chunk;
-  const int hi = min(lo + chunk, n);
-  long long carry = partials[blockIdx.x];
-  for (int t = lo; t < hi; t += kScanThreads) {
-    const int k = t + threadIdx.x;
-    const long long v = k < hi ? in[k] : 0;
-    long long sum;
-    const long long incl = block_inclusive_scan(v, &sum);
-    if (k < hi) {
-      out[k] = static_cast<int>(min(carry + incl - v,
-                                    static_cast<long long>(clamp)));
-    }
-    carry += sum;
+static int resident_blocks(const void* kernel, Residency* cache,
+                           int* blocks_out) {
+  int dev = 0;
+  int rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev != cache->dev) {
+    int per_sm = 0;
+    int sms = 0;
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                       kScanThreads, 0);
+    if (rc != cudaSuccess) return rc;
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc != cudaSuccess) return rc;
+    if (per_sm * sms == 0) return cudaErrorCooperativeLaunchTooLarge;
+    cache->blocks = per_sm * sms;
+    cache->dev = dev;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    out[n] = static_cast<int>(min(*total, static_cast<long long>(clamp)));
-  }
-}
-
-// partials: kScanBlocks int64 of scratch.
-static void scan(const int* in, int n, int clamp, int* out,
-                 long long* partials, long long* total, cudaStream_t st) {
-  const int nb = n > 0 ? std::min(kScanBlocks, (n + kScanThreads - 1) /
-                                                   kScanThreads)
-                       : 1;
-  const int chunk = n > 0 ? (n + nb - 1) / nb : 0;
-  scan_reduce_kernel<<<nb, kScanThreads, 0, st>>>(in, n, chunk, partials);
-  scan_partials_kernel<<<1, kScanThreads, 0, st>>>(partials, nb, total);
-  scan_apply_kernel<<<nb, kScanThreads, 0, st>>>(in, n, chunk, partials,
-                                                 total, clamp, out);
+  *blocks_out = cache->blocks;
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
 // The bin
 // ---------------------------------------------------------------------------
 
-// Cell key of each particle (nc outside the domain), its slot in its cell,
-// its outside flag, and the count of liquid particles inside the domain.
+// Cell key of each particle (nc outside the domain) and, inside, its slot
+// in its cell.
 __global__ void bin_count_kernel(const float* __restrict__ pos, int n,
-                                 int n_liquid, float dx, float dy, float dz,
-                                 float inv, int gx, int gy, int gz,
+                                 float dx, float dy, float dz, float inv,
+                                 int gx, int gy, int gz,
                                  int* __restrict__ key, int* __restrict__ slot,
-                                 int* __restrict__ hist,
-                                 int* __restrict__ outside,
-                                 int* __restrict__ n_liq) {
+                                 int* __restrict__ hist) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
-  bool counted = false;
-  if (p < n) {
-    // float compares: a NaN or infinite position falls outside
-    const float fx = floorf((pos[p] - dx) * inv);
-    const float fy = floorf((pos[n + p] - dy) * inv);
-    const float fz = floorf((pos[2 * n + p] - dz) * inv);
-    const bool in = fx >= 0.0f && fx < static_cast<float>(gx) &&
-                    fy >= 0.0f && fy < static_cast<float>(gy) &&
-                    fz >= 0.0f && fz < static_cast<float>(gz);
-    const int k = in ? (static_cast<int>(fx) * gy + static_cast<int>(fy)) *
-                               gz +
-                           static_cast<int>(fz)
-                     : gx * gy * gz;
-    key[p] = k;
-    slot[p] = in ? atomicAdd(hist + k, 1) : 0;
-    outside[p] = in ? 0 : 1;
-    counted = in && p < n_liquid;
-  }
-  const unsigned votes = __ballot_sync(0xffffffffu, counted);
-  if ((threadIdx.x & 31) == 0 && votes != 0u) atomicAdd(n_liq, __popc(votes));
+  if (p >= n) return;
+  // float compares: a NaN or infinite position falls outside
+  const float fx = floorf((pos[p] - dx) * inv);
+  const float fy = floorf((pos[n + p] - dy) * inv);
+  const float fz = floorf((pos[2 * n + p] - dz) * inv);
+  const bool in = fx >= 0.0f && fx < static_cast<float>(gx) &&
+                  fy >= 0.0f && fy < static_cast<float>(gy) &&
+                  fz >= 0.0f && fz < static_cast<float>(gz);
+  const int k = (static_cast<int>(fx) * gy + static_cast<int>(fy)) * gz +
+                static_cast<int>(fz);
+  key[p] = in ? k : gx * gy * gz;
+  if (in) slot[p] = atomicAdd(hist + k, 1);
 }
 
-// tmp[row] = particle: a cell's particles from its offset in slot order,
-// the outside ones after the last cell in particle order.
+// One launch of at most one resident grid (cooperative): block b takes the
+// cells [b ctile, b ctile + ctile) and the particles [b ptile, b ptile +
+// ptile).  Phase 1: the block's sums of its cells' counts and of its
+// particles' outside flags go to tiles[b] and tiles[kMaxTiles + b].  One
+// grid-wide sync.  Phase 2: every block scans both sets of tile sums
+// (gridDim.x <= kMaxTiles, one a thread) for its prefixes and the totals,
+// then its cells from its prefix: start[c], and hist[c] = 0 once read; then,
+// where its tile holds any, the ranks of its outside particles: particle p
+// of rank k goes to row start[nc] + k (tmp).  The block whose tile holds
+// particle n_liquid writes n_liq = n_liquid - (outside particles below
+// it); block 0 writes start[nc], and n_liq where n_liquid = n.
+__global__ void __launch_bounds__(kScanThreads)
+    bin_scan_kernel(int* __restrict__ hist, int nc,
+                    const int* __restrict__ key, int n, int n_liquid,
+                    int ctile, int ptile, int* __restrict__ start,
+                    int* __restrict__ tmp, int* __restrict__ n_liq,
+                    long long* __restrict__ tiles) {
+  const int clo = min(static_cast<int>(blockIdx.x) * ctile, nc);
+  const int chi = min(clo + ctile, nc);
+  const int plo = min(static_cast<int>(blockIdx.x) * ptile, n);
+  const int phi = min(plo + ptile, n);
+  long long cs = 0;
+  long long ps = 0;
+  for (int c = clo + threadIdx.x; c < chi; c += kScanThreads) cs += hist[c];
+  for (int p = plo + threadIdx.x; p < phi; p += kScanThreads) {
+    ps += key[p] >= nc ? 1 : 0;
+  }
+  long long csum;
+  long long psum;
+  block_inclusive_scan(cs, &csum);
+  block_inclusive_scan(ps, &psum);
+  if (threadIdx.x == 0) {
+    tiles[blockIdx.x] = csum;
+    tiles[kMaxTiles + blockIdx.x] = psum;
+  }
+  cooperative_groups::this_grid().sync();
+
+  __shared__ long long prefix[2];
+  const bool mine = threadIdx.x < gridDim.x;
+  const long long ct = mine ? __ldcg(tiles + threadIdx.x) : 0;
+  const long long pt = mine ? __ldcg(tiles + kMaxTiles + threadIdx.x) : 0;
+  long long ctotal;
+  long long ptotal;
+  const long long cin = block_inclusive_scan(ct, &ctotal);
+  const long long pin = block_inclusive_scan(pt, &ptotal);
+  if (threadIdx.x == blockIdx.x) {
+    prefix[0] = cin - ct;
+    prefix[1] = pin - pt;
+  }
+  __syncthreads();
+  long long carry = prefix[0];
+  for (int b = clo; b < chi; b += kScanThreads) {
+    const int c = b + threadIdx.x;
+    const long long v = c < chi ? hist[c] : 0;
+    long long chunk;
+    const long long in = block_inclusive_scan(v, &chunk);
+    if (c < chi) {
+      start[c] = static_cast<int>(carry + in - v);
+      hist[c] = 0;
+    }
+    carry += chunk;
+  }
+  carry = prefix[1];
+  if (psum != 0) {
+    for (int b = plo; b < phi; b += kScanThreads) {
+      const int p = b + threadIdx.x;
+      const long long v = p < phi && key[p] >= nc ? 1 : 0;
+      long long chunk;
+      const long long rank = block_inclusive_scan(v, &chunk) - v;
+      if (v != 0) tmp[ctotal + carry + rank] = p;
+      if (p < phi && p == n_liquid) {
+        *n_liq = static_cast<int>(n_liquid - (carry + rank));
+      }
+      carry += chunk;
+    }
+  } else if (threadIdx.x == 0 && plo <= n_liquid && n_liquid < phi) {
+    *n_liq = static_cast<int>(n_liquid - carry);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    start[nc] = static_cast<int>(ctotal);
+    if (n_liquid >= n) *n_liq = static_cast<int>(n - ptotal);
+  }
+}
+
+// tmp[start[k] + slot] = p for every particle inside the domain.
 __global__ void bin_scatter_kernel(int n, int nc, const int* __restrict__ key,
                                    const int* __restrict__ slot,
                                    const int* __restrict__ start,
-                                   const int* __restrict__ orank,
                                    int* __restrict__ tmp) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= n) return;
   const int k = key[p];
-  tmp[k < nc ? start[k] + slot[p] : start[nc] + orank[p]] = p;
+  if (k < nc) tmp[start[k] + slot[p]] = p;
 }
 
-// Each cell's rows in particle order (insertion sort: ~8 rows a cell of
-// liquid at rest).
-__global__ void bin_sort_kernel(int nc, const int* __restrict__ start,
-                                int* __restrict__ tmp) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= nc) return;
-  const int b = start[c];
-  const int e = start[c + 1];
-  for (int a = b + 1; a < e; ++a) {
-    const int v = tmp[a];
-    int k = a - 1;
-    while (k >= b && tmp[k] > v) {
-      tmp[k + 1] = tmp[k];
-      --k;
-    }
-    tmp[k + 1] = v;
-  }
-}
-
-// The grid's row arrays from the permutation.
+// Row r's particle p = tmp[r] goes to row start[k] + (the particles of its
+// cell's run below p): the run in particle order.  A thread reads its
+// cell's run once, so a cell of L particles costs L reads on each of L
+// threads; the solvers keep the density near rest (~8 particles a cell of
+// liquid, a few times that where a splash compresses it).  The rows after
+// the last cell keep their place (particle order from the scan).
 __global__ void bin_rows_kernel(const float* __restrict__ pos, int n,
                                 int n_liquid, int nc, int outside_cell,
                                 const int* __restrict__ key,
+                                const int* __restrict__ start,
                                 const int* __restrict__ tmp,
                                 long long* __restrict__ order,
                                 int* __restrict__ row_of,
@@ -246,48 +279,72 @@ __global__ void bin_rows_kernel(const float* __restrict__ pos, int n,
   if (r >= n) return;
   const int p = tmp[r];
   const int k = key[p];
+  const float x = __ldg(pos + p);
+  const float y = __ldg(pos + n + p);
+  const float z = __ldg(pos + 2 * n + p);
   const bool in = k < nc;
+  int row = r;
+  if (in) {
+    const int b = start[k];
+    const int e = start[k + 1];
+    int rank = 0;
+    for (int a = b; a < e; ++a) rank += tmp[a] < p ? 1 : 0;
+    row = b + rank;
+  }
   const bool l = in && p < n_liquid;
-  order[r] = p;
-  row_of[p] = in ? r : -1;
-  cell[r] = in ? k : outside_cell;
-  pos_out[r] = pos[p];
-  pos_out[n + r] = pos[n + p];
-  pos_out[2 * n + r] = pos[2 * n + p];
-  liquid[r] = l ? 1 : 0;
-  liq[r] = l ? 1.0f : 0.0f;
+  order[row] = p;
+  row_of[p] = in ? row : -1;
+  cell[row] = in ? k : outside_cell;
+  pos_out[row] = x;
+  pos_out[n + row] = y;
+  pos_out[2 * n + row] = z;
+  liquid[row] = l ? 1 : 0;
+  liq[row] = l ? 1.0f : 0.0f;
 }
 
-// scratch: 5 n + 1 + nc int32; partials: kScanBlocks + 1 int64.
+// scratch: kept by the caller; 2 kMaxTiles int64 of tile sums, then int32
+// key, slot and tmp (cap each, cap >= n) and the histogram (nc), all zero
+// when the call starts and when it ends.  Four launches: count, the
+// cooperative scan (grid: the blocks that fit on the card at once, at most
+// kMaxTiles and one per kScanThreads cells or particles), scatter, rows.
 extern "C" int bin_cells(const float* pos, int n, int n_liquid, float dx,
                          float dy, float dz, float inv, int gx, int gy,
-                         int gz, int outside_cell, int* scratch,
-                         long long* partials, long long* order, int* row_of,
-                         int* cell, int* start, float* pos_out,
-                         unsigned char* liquid, float* liq, int* n_liq,
-                         void* stream) {
+                         int gz, int outside_cell, void* scratch, int cap,
+                         long long* order, int* row_of, int* cell,
+                         int* start, float* pos_out, unsigned char* liquid,
+                         float* liq, int* n_liq, void* stream) {
+  static Residency resident{-1, 0};
   cudaStream_t st = (cudaStream_t)stream;
-  const int nc = gx * gy * gz;
-  int* key = scratch;
-  int* slot = key + n;
-  int* outside = slot + n;
-  int* orank = outside + n;  // n + 1
-  int* tmp = orank + n + 1;
-  int* hist = tmp + n;       // nc
-  long long* total = partials + kScanBlocks;
-  cudaMemsetAsync(hist, 0, sizeof(int) * static_cast<size_t>(nc), st);
-  cudaMemsetAsync(n_liq, 0, sizeof(int), st);
+  int nc = gx * gy * gz;
+  long long* tiles = static_cast<long long*>(scratch);
+  int* key = reinterpret_cast<int*>(tiles + 2 * kMaxTiles);
+  int* slot = key + cap;
+  int* tmp = slot + cap;
+  int* hist = tmp + cap;
+  int most = 0;
+  int rc = resident_blocks(reinterpret_cast<const void*>(bin_scan_kernel),
+                           &resident, &most);
+  if (rc != cudaSuccess) return rc;
+  const int grid = std::max(
+      1, std::min({most, kMaxTiles,
+                   (std::max(nc, n) + kScanThreads - 1) / kScanThreads}));
+  int ctile = (nc + grid - 1) / grid;
+  int ptile = (n + grid - 1) / grid;
   bin_count_kernel<<<blocks(n), kThreads, 0, st>>>(
-      pos, n, n_liquid, dx, dy, dz, inv, gx, gy, gz, key, slot, hist,
-      outside, n_liq);
-  scan(hist, nc, INT_MAX, start, partials, total, st);
-  scan(outside, n, INT_MAX, orank, partials, total, st);
+      pos, n, dx, dy, dz, inv, gx, gy, gz, key, slot, hist);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  void* args[] = {&hist,  &nc,    &key,  &n,     &n_liquid, &ctile,
+                  &ptile, &start, &tmp,  &n_liq, &tiles};
+  rc = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(bin_scan_kernel), grid, kScanThreads, args, 0,
+      st);
+  if (rc != cudaSuccess) return rc;
   bin_scatter_kernel<<<blocks(n), kThreads, 0, st>>>(n, nc, key, slot, start,
-                                                     orank, tmp);
-  bin_sort_kernel<<<blocks(nc), kThreads, 0, st>>>(nc, start, tmp);
+                                                     tmp);
   bin_rows_kernel<<<blocks(n), kThreads, 0, st>>>(
-      pos, n, n_liquid, nc, outside_cell, key, tmp, order, row_of, cell,
-      pos_out, liquid, liq);
+      pos, n, n_liquid, nc, outside_cell, key, start, tmp, order, row_of,
+      cell, pos_out, liquid, liq);
   return cudaGetLastError();
 }
 
@@ -295,26 +352,35 @@ extern "C" int bin_cells(const float* pos, int n, int n_liquid, float dx,
 // Pack and unpack: every field row of a step in one launch
 // ---------------------------------------------------------------------------
 
-// Mirror: engine._Fields (the unpack's).  Field row k: src[k] -> dst[k];
-// unpack keeps dflt[k] for particles outside the domain.
-struct Fields {
+// The field rows of a pack or unpack, from the field bases the entry is
+// given: src[j] the packed or per-liquid row read, dflt[j] (unpack) the
+// default read outside the domain.
+struct FieldRows {
   const float* src[kMaxFields];
-  float* dst[kMaxFields];
   const float* dflt[kMaxFields];
-  int k;
 };
 
-// The pack's source rows, from the field bases the entry is given.
-struct PackRows {
-  const float* src[kMaxFields];
-};
+// Field a (a < kPackSources) is rows[a] contiguous rows of length len from
+// base[a] (null and 0 past the last field): row k of the table.  Returns
+// the rows, or -1 past kMaxFields.
+static int field_rows(const float* const* base, const int* rows, long long len,
+                      const float** table) {
+  int k = 0;
+  for (int a = 0; a < kPackSources; ++a) {
+    for (int c = 0; c < rows[a]; ++c) {
+      if (k == kMaxFields) return -1;
+      table[k++] = base[a] + c * len;
+    }
+  }
+  return k;
+}
 
 // Per-liquid (nl,) rows -> sorted rows k n .. k n + n - 1 of dst; rows
 // holding no liquid take 0.  The flag and the particle are loaded side by
 // side, then every field's gather before any store: a store may alias a
 // source for the compiler, which would otherwise wait out each gather's
 // latency before the next one issues.
-__global__ void pack_rows_kernel(PackRows f, int k, int n,
+__global__ void pack_rows_kernel(FieldRows f, int k, int n,
                                  const long long* __restrict__ order,
                                  const unsigned char* __restrict__ liquid,
                                  float* __restrict__ dst) {
@@ -334,18 +400,23 @@ __global__ void pack_rows_kernel(PackRows f, int k, int n,
   }
 }
 
-// Sorted (n,) rows -> per-liquid (nl,) rows; a liquid particle outside the
-// domain (row -1) keeps its default.
-__global__ void unpack_rows_kernel(Fields f, int nl,
-                                   const int* __restrict__ row_of) {
+// Sorted (m,) rows -> per-liquid rows k nl .. k nl + nl - 1 of dst; a
+// liquid particle outside the domain (row -1) reads its default.  The row
+// is loaded, then every field's gather before any store, as in the pack.
+__global__ void unpack_rows_kernel(FieldRows f, int k, int nl,
+                                   const int* __restrict__ row_of,
+                                   float* __restrict__ dst) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= nl) return;
   const int r = row_of[p];
+  float v[kMaxFields];
 #pragma unroll
-  for (int k = 0; k < kMaxFields; ++k) {
-    if (k < f.k) {
-      f.dst[k][p] = r >= 0 ? __ldg(f.src[k] + r) : __ldg(f.dflt[k] + p);
-    }
+  for (int j = 0; j < kMaxFields; ++j) {
+    if (j < k) v[j] = __ldg(r >= 0 ? f.src[j] + r : f.dflt[j] + p);
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxFields; ++j) {
+    if (j < k) dst[static_cast<size_t>(j) * nl + p] = v[j];
   }
 }
 
@@ -358,23 +429,32 @@ extern "C" int pack_rows(int n, int nl, const long long* order,
                          const float* s4, int k4, void* stream) {
   const float* const src[kPackSources] = {s0, s1, s2, s3, s4};
   const int rows[kPackSources] = {k0, k1, k2, k3, k4};
-  PackRows f{};
-  int k = 0;
-  for (int a = 0; a < kPackSources; ++a) {
-    for (int c = 0; c < rows[a]; ++c) {
-      if (k == kMaxFields) return cudaErrorInvalidValue;
-      f.src[k++] = src[a] + static_cast<size_t>(c) * nl;
-    }
-  }
+  FieldRows f{};
+  const int k = field_rows(src, rows, nl, f.src);
+  if (k < 0) return cudaErrorInvalidValue;
   pack_rows_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
       f, k, n, order, liquid, dst);
   return cudaGetLastError();
 }
 
-extern "C" int unpack_rows(const Fields* f, int nl, const int* row_of,
-                           void* stream) {
+// Packed field a (a < kPackSources) is rows[a] contiguous (m,) rows from
+// p_a, its default as many (nl,) rows from d_a (null and 0 past the last
+// field); dst: (total rows, nl), row k at k nl.
+extern "C" int unpack_rows(int m, int nl, const int* row_of, float* dst,
+                           const float* p0, int k0, const float* p1, int k1,
+                           const float* p2, int k2, const float* p3, int k3,
+                           const float* p4, int k4, const float* d0,
+                           const float* d1, const float* d2, const float* d3,
+                           const float* d4, void* stream) {
+  const float* const src[kPackSources] = {p0, p1, p2, p3, p4};
+  const float* const dflt[kPackSources] = {d0, d1, d2, d3, d4};
+  const int rows[kPackSources] = {k0, k1, k2, k3, k4};
+  FieldRows f{};
+  const int k = field_rows(src, rows, m, f.src);
+  if (k < 0) return cudaErrorInvalidValue;
+  field_rows(dflt, rows, nl, f.dflt);
   unpack_rows_kernel<<<blocks(nl), kThreads, 0, (cudaStream_t)stream>>>(
-      *f, nl, row_of);
+      f, k, nl, row_of, dst);
   return cudaGetLastError();
 }
 
@@ -455,26 +535,15 @@ extern "C" int nbr_list_offsets(const int* count, const unsigned char* liquid,
                                 int m, int capacity, int* off,
                                 long long* need, long long* tiles,
                                 void* stream) {
-  static int resident_dev = -1;  // the device whose residency is cached
-  static int resident = 0;
-  int dev = 0;
-  int rc = cudaGetDevice(&dev);
+  static Residency resident{-1, 0};
+  int most = 0;
+  int rc = resident_blocks(
+      reinterpret_cast<const void*>(nbr_list_offsets_kernel), &resident,
+      &most);
   if (rc != cudaSuccess) return rc;
-  if (dev != resident_dev) {
-    int per_sm = 0;
-    int sms = 0;
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, nbr_list_offsets_kernel, kScanThreads, 0);
-    if (rc != cudaSuccess) return rc;
-    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (rc != cudaSuccess) return rc;
-    if (per_sm * sms == 0) return cudaErrorCooperativeLaunchTooLarge;
-    resident = per_sm * sms;
-    resident_dev = dev;
-  }
   int s = (m + 31) / 32;
   const int grid =
-      std::max(1, std::min({resident, kMaxTiles, (s + 31) / 32}));
+      std::max(1, std::min({most, kMaxTiles, (s + 31) / 32}));
   int tile = (s + grid - 1) / grid;
   void* args[] = {&count, &liquid, &m,   &s,    &tile,
                   &capacity, &off,   &need, &tiles};

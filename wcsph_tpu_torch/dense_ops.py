@@ -116,15 +116,12 @@ def _pairs_at(grid: Grid, i: torch.Tensor, j: torch.Tensor,
 # The grid stage (twins of bin_cells, pack_rows, unpack_rows in csrc/bin.cu)
 # ---------------------------------------------------------------------------
 
-def bin_cells(pos: torch.Tensor, n_liquid: int, cfg: SimConfig):
-    """The sorted layout of ``grid.Grid`` for planar positions (3, N):
-    (order, row_of, cell, cell_start, sorted positions, liquid, liq, L).
-    A stable sort of the cell ids, the particles outside the domain keyed
-    ``num_cells`` (last, in particle order, cell id ``outside_cell``)."""
+def cell_keys(pos: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """(N,) int64 cell id of each planar position (3, N), ``num_cells``
+    outside the domain: floor((pos - dmin) * float32(1 / cell size))."""
     nc = cfg.num_cells
     gx, gy, gz = cfg.grid_res
     dev = pos.device
-    n = pos.shape[1]
     dmin = torch.tensor(cfg.domain_min, dtype=torch.float32, device=dev)
     inv = torch.tensor(np.float32(1.0 / cfg.cell_size), device=dev)
     f = torch.floor((pos - dmin[:, None]) * inv)
@@ -132,7 +129,18 @@ def bin_cells(pos: torch.Tensor, n_liquid: int, cfg: SimConfig):
     # float compares: a NaN or infinite position falls outside
     inbox = ((f >= 0.0) & (f < res[:, None])).all(0)
     c = torch.where(inbox[None], f, 0.0).to(torch.int64)
-    keys = torch.where(inbox, (c[0] * gy + c[1]) * gz + c[2], nc)
+    return torch.where(inbox, (c[0] * gy + c[1]) * gz + c[2], nc)
+
+
+def bin_cells(pos: torch.Tensor, n_liquid: int, cfg: SimConfig):
+    """The sorted layout of ``grid.Grid`` for planar positions (3, N):
+    (order, row_of, cell, cell_start, sorted positions, liquid, liq, L).
+    A stable sort of the cell ids, the particles outside the domain keyed
+    ``num_cells`` (last, in particle order, cell id ``outside_cell``)."""
+    nc = cfg.num_cells
+    dev = pos.device
+    n = pos.shape[1]
+    keys = cell_keys(pos, cfg)
     sorted_keys, order = torch.sort(keys, stable=True)
     start = torch.zeros(nc + 1, dtype=torch.int64, device=dev)
     start[1:] = torch.cumsum(torch.bincount(keys, minlength=nc + 1)[:nc], 0)
@@ -148,8 +156,8 @@ def bin_cells(pos: torch.Tensor, n_liquid: int, cfg: SimConfig):
 
 
 def row_views(block: torch.Tensor, fields):
-    """The rows of a (K, M) block as the sorted form of each field, in
-    order: (M,) for an (N,) field, (k, M) for a (k, N) one."""
+    """The rows of a (K, W) block as one tensor per field, in order: (W,)
+    for a one-dimensional field, (k, W) for a (k, ...) one."""
     two = [x.dim() == 2 for x in fields]
     parts = block.split_with_sizes([x.shape[0] if t else 1
                                     for x, t in zip(fields, two)])
@@ -168,13 +176,15 @@ def pack_rows(grid: Grid, fields):
 
 
 def unpack_rows(grid: Grid, packed, defaults):
-    """Sorted fields -> per-liquid; a liquid particle outside the domain
-    (row -1) keeps its ``defaults`` entry."""
-    out = []
-    for p, d in zip(packed, defaults):
-        rows = grid.row_of[: d.shape[-1]].to(torch.int64)
-        out.append(torch.where(rows >= 0, p[..., rows.clamp(min=0)], d))
-    return out
+    """Sorted fields -> per-liquid, row views of one (K, N_L) block; a
+    liquid particle outside the domain (row -1) keeps its ``defaults``
+    entry."""
+    nl = defaults[0].shape[-1]
+    stacked = torch.cat([p if p.dim() == 2 else p[None] for p in packed])
+    dflt = torch.cat([d if d.dim() == 2 else d[None] for d in defaults])
+    rows = grid.row_of[:nl].to(torch.int64)
+    block = torch.where(rows >= 0, stacked[:, rows.clamp(min=0)], dflt)
+    return row_views(block, defaults)
 
 
 # ---------------------------------------------------------------------------

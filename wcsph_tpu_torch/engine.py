@@ -78,7 +78,8 @@ import numpy as np
 import torch
 
 from . import dense_ops, kernels
-from .grid import Grid, ListSlots, NeighborList, StarHits, outside_cell
+from .grid import (OFFSET_TILES, Grid, ListSlots, NeighborList, StarHits,
+                   outside_cell)
 from .utils import mat3
 
 _PKG = Path(__file__).resolve().parent
@@ -149,9 +150,11 @@ LIST_REPLAYS = 0
 BLOCK = 256          # threads per block of every sweep (csrc/common.cuh)
 CUT_SLOTS = 40       # hits the density sweep's receiver keeps before it
                      # sums them (kCutSlots, csrc/common.cuh)
-SCAN_PARTIALS = 1025  # int64 scratch of a scan (kScanBlocks + 1, csrc/bin.cu)
+BIN_TILES = 2 * OFFSET_TILES   # int64 tile sums of the bin's scan: two
+                               # sets of kMaxTiles (csrc/bin.cu)
 MAX_FIELDS = 16      # field rows one pack or unpack moves (kMaxFields)
-PACK_SOURCES = 5     # fields one pack takes (kPackSources): DFSPH's five
+PACK_SOURCES = 5     # fields one pack or unpack takes (kPackSources):
+                     # DFSPH's five
 
 
 def reset_launch_counts() -> None:
@@ -187,18 +190,9 @@ class _TensionParams(ctypes.Structure):
         "cx", "cy", "cz", "radius2")]
 
 
-class _Fields(ctypes.Structure):
-    """Mirror of ``struct Fields`` in csrc/bin.cu (the unpack's)."""
-
-    _fields_ = [("src", ctypes.c_void_p * MAX_FIELDS),
-                ("dst", ctypes.c_void_p * MAX_FIELDS),
-                ("dflt", ctypes.c_void_p * MAX_FIELDS), ("k", ctypes.c_int)]
-
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _G = ctypes.POINTER(_Geom)
 _T = ctypes.POINTER(_TensionParams)
-_FS = ctypes.POINTER(_Fields)
 _SIGNATURES = {
     "k1_density_alpha_drho": [_G, _P, _P, _P],
     "k1_div_acc": [_G, _P, _P, _P],
@@ -219,10 +213,11 @@ _SIGNATURES = {
     "k8_fused_pcisph_iter": [_G, _P, _P, _F, _F, _F, _I, _P, _P, _P, _P, _P,
                              _P, _P, _P, _P],
     "nbr_list_fill": [_G, _P, _P, _P, _P, _P],
-    "bin_cells": [_P, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P,
+    "bin_cells": [_P, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _P, _I, _P, _P,
                   _P, _P, _P, _P, _P, _P, _P],
     "pack_rows": [_I, _I, _P, _P, _P, *[_P, _I] * PACK_SOURCES, _P],
-    "unpack_rows": [_FS, _I, _P, _P],
+    "unpack_rows": [_I, _I, _P, _P, *[_P, _I] * PACK_SOURCES,
+                    *[_P] * PACK_SOURCES, _P],
     "nbr_list_offsets": [_P, _P, _I, _I, _P, _P, _P, _P],
 }
 
@@ -568,10 +563,37 @@ def nbr_list_fill(grid: Grid, count: torch.Tensor,
 # The grid stage: bin, pack, unpack (csrc/bin.cu)
 # ---------------------------------------------------------------------------
 
+# the bin's scratch, kept from call to call here (build_grid's callers hold
+# no buffer of their own): (device index, stream) -> (int32 tensor,
+# particles, cells it holds), so that no two streams share one; its
+# histogram is all zero between calls
+_bin_scratch = {}
+
+
+def _bin_scratch_for(dev: torch.device, stream: int, n: int, nc: int):
+    """The kept scratch of the bin on this device and stream, for at least
+    n particles and nc cells: (tensor, particle capacity).  It grows, never
+    shrinks, and is zeroed when allocated (the kernel keeps its histogram
+    zero from then on)."""
+    key = (dev.index, stream)
+    held = _bin_scratch.get(key)
+    if held is None or held[1] < n or held[2] < nc:
+        cap = max(n, held[1] if held else 0)
+        ncap = max(nc, held[2] if held else 0)
+        # int32 words: the int64 tile sums, then key, slot, tmp and the
+        # histogram (the layout bin_cells in csrc/bin.cu reads)
+        held = (torch.zeros((2 * BIN_TILES + 3 * cap + ncap,),
+                            dtype=torch.int32, device=dev), cap, ncap)
+        _bin_scratch[key] = held
+    return held[0], held[1]
+
+
 def bin_cells(pos: torch.Tensor, n_liquid: int, cfg):
     """The sorted layout of ``grid.Grid`` for planar positions (3, N), no
     host read: (order, row_of, cell, cell_start, sorted positions, liquid,
-    liq, the () int32 liquid count inside the domain)."""
+    liq, the () int32 liquid count inside the domain).  It allocates its
+    eight outputs; its scratch is kept per device and stream
+    (``_bin_scratch``), so that a call neither allocates nor clears it."""
     if not _route(pos):
         return dense_ops.bin_cells(pos, n_liquid, cfg)
     n = pos.shape[1]
@@ -580,7 +602,7 @@ def bin_cells(pos: torch.Tensor, n_liquid: int, cfg):
         raise ValueError(f"row indices of the kernels are 32-bit: {n} "
                          "particles is too many")
     gx, gy, gz = cfg.grid_res
-    nc = cfg.num_cells
+    nc = gx * gy * gz
     dev = pos.device
 
     def empty(*shape, dtype=torch.int32):
@@ -590,41 +612,21 @@ def bin_cells(pos: torch.Tensor, n_liquid: int, cfg):
     start, pos_out = empty(nc + 1), empty(3, n, dtype=torch.float32)
     liquid, liq = empty(n, dtype=torch.bool), empty(n, dtype=torch.float32)
     n_liq = empty()
-    scratch, partials = empty(5 * n + 1 + nc), empty(SCAN_PARTIALS,
-                                                     dtype=torch.int64)
+    stream = _stream()
+    scratch, cap = _bin_scratch_for(dev, stream, n, nc)
     dmin = [float(np.float32(v)) for v in cfg.domain_min]
-    _launch("bin_cells", pos.data_ptr(), n, int(n_liquid), *dmin,
-            float(np.float32(1.0 / cfg.cell_size)), gx, gy, gz,
-            outside_cell(cfg), scratch.data_ptr(), partials.data_ptr(),
-            order.data_ptr(), row_of.data_ptr(), cell.data_ptr(),
-            start.data_ptr(), pos_out.data_ptr(), liquid.data_ptr(),
-            liq.data_ptr(), n_liq.data_ptr(), _stream())
+    try:
+        _launch("bin_cells", pos.data_ptr(), n, int(n_liquid), *dmin,
+                float(np.float32(1.0 / cfg.cell_size)), gx, gy, gz,
+                outside_cell(cfg), scratch.data_ptr(), cap, order.data_ptr(),
+                row_of.data_ptr(), cell.data_ptr(), start.data_ptr(),
+                pos_out.data_ptr(), liquid.data_ptr(), liq.data_ptr(),
+                n_liq.data_ptr(), stream)
+    except RuntimeError:
+        # a launch refused after the count may leave the histogram dirty
+        _bin_scratch.pop((dev.index, stream), None)
+        raise
     return order, row_of, cell, start, pos_out, liquid, liq, n_liq
-
-
-def _field_rows(tensors, width: int):
-    """The (width,) float32 rows of (width,) / (k, width) tensors, as
-    pointers, and their count."""
-    ptrs = []
-    for t in tensors:
-        if (t.dtype != torch.float32 or not t.is_contiguous()
-                or t.shape[-1] != width or t.device.type != "cuda"):
-            raise ValueError("fields must be contiguous float32 (..., "
-                             f"{width}) on the card")
-        k = t.numel() // width if width else 0
-        ptrs += [t.data_ptr() + 4 * width * c for c in range(k)]
-    if len(ptrs) > MAX_FIELDS:
-        raise ValueError(f"{len(ptrs)} field rows: one launch moves at most "
-                         f"{MAX_FIELDS}")
-    return ptrs
-
-
-def _fields(src, dst, dflt=()) -> _Fields:
-    f = _Fields()
-    for name, ptrs in (("src", src), ("dst", dst), ("dflt", dflt)):
-        getattr(f, name)[: len(ptrs)] = ptrs
-    f.k = len(dst)
-    return f
 
 
 _NO_SOURCE = (None, 0)
@@ -666,22 +668,46 @@ def pack_rows(grid: Grid, fields):
 
 
 def unpack_rows(grid: Grid, packed, defaults):
-    """Sorted (M,) / (k, M) fields -> per-liquid, a liquid particle outside
-    the domain keeping its ``defaults`` entry: every field in one launch."""
+    """Sorted (M,) / (k, M) fields (at most ``PACK_SOURCES``) -> per-liquid
+    (N_L,) / (k, N_L), a liquid particle outside the domain keeping its
+    ``defaults`` entry: row views, in the order of ``packed``, of one
+    (K, N_L) block allocated here, all written by one launch."""
     if not packed or not _route(packed[0]):
         return dense_ops.unpack_rows(grid, packed, defaults)
-    packed = [p.contiguous() for p in packed]
-    defaults = [d.contiguous() for d in defaults]
+    if len(packed) > PACK_SOURCES or len(defaults) != len(packed):
+        raise ValueError(f"{len(packed)} fields with {len(defaults)} "
+                         f"defaults: one unpack takes at most "
+                         f"{PACK_SOURCES}, each with its default")
+    m = grid.n
     nl = defaults[0].shape[-1]
-    out = [torch.empty_like(d) for d in defaults]
-    if [tuple(p.shape[:-1]) for p in packed] != [tuple(d.shape[:-1])
-                                                 for d in defaults]:
-        raise ValueError("each packed field needs a default of its shape")
-    f = _fields(_field_rows(packed, grid.n), _field_rows(out, nl),
-                _field_rows(defaults, nl))
-    _launch("unpack_rows", ctypes.byref(f), nl, grid.row_of.data_ptr(),
-            _stream())
-    return out
+    f32 = torch.float32
+    copies, args, dflt, k = [], [], [], 0   # copies: alive until the launch
+    for p, d in zip(packed, defaults):
+        if not p.is_contiguous():
+            p = p.contiguous()
+            copies.append(p)
+        if not d.is_contiguous():
+            d = d.contiguous()
+            copies.append(d)
+        shape = p.shape
+        if (p.dtype is not f32 or d.dtype is not f32 or not p.is_cuda
+                or not d.is_cuda or len(shape) > 2 or shape[-1] != m
+                or d.shape != (*shape[:-1], nl)):
+            raise ValueError("packed fields must be float32 (M,) or (k, M) "
+                             "on the card, each with a default of its shape "
+                             "and N_L columns")
+        rows = shape[0] if len(shape) == 2 else 1
+        args += (p.data_ptr(), rows)
+        dflt.append(d.data_ptr())
+        k += rows
+    if k > MAX_FIELDS:
+        raise ValueError(f"{k} field rows: one launch moves at most "
+                         f"{MAX_FIELDS}")
+    out = defaults[0].new_empty((k, nl))
+    pad = PACK_SOURCES - len(packed)
+    _launch("unpack_rows", m, nl, grid.row_of.data_ptr(), out.data_ptr(),
+            *args, *_NO_SOURCE * pad, *dflt, *(None,) * pad, _stream())
+    return dense_ops.row_views(out, defaults)
 
 
 def _sweep(name: str, grid: Grid, operands, shapes, n_out, *consts):

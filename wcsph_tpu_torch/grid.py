@@ -26,7 +26,10 @@ so a boundary neighbour contributes a zero velocity, kappa or omega, as the
 reference's ``j >= liquid_count`` branches do.
 
 The bin, pack and unpack are kernels on the card (``engine.bin_cells``,
-``pack_rows``, ``unpack_rows``) with plain twins in ``dense_ops``.
+``pack_rows``, ``unpack_rows``) with plain twins in ``dense_ops``.  The
+bin allocates only its outputs: its scratch is kept in ``engine`` from
+call to call, per device and stream.  Pack and unpack each return row
+views, in order, of one new block of rows.
 
 A DFSPH or IISPH step also keeps a neighbour list of its sorted positions
 (``NeighborList``, built by ``engine.nbr_list_fill`` right after the
@@ -49,7 +52,7 @@ from .config import SimConfig
 SLICE = 32   # rows per slice of the neighbour list: one warp
 HEADROOM = 1.25   # slots a list buffer is sized for, over the slots needed
 OFFSET_TILES = 1024   # int64 scratch of the offsets' tile sums (kMaxTiles,
-                      # csrc/bin.cu)
+                      # csrc/bin.cu; the bin's scan keeps two such sets)
 
 
 class ListOverflow(Exception):
@@ -292,7 +295,8 @@ def build_grid(pos: torch.Tensor, n_liquid: int, cfg: SimConfig) -> Grid:
 
 def pack(grid: Grid, fields: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Per-liquid (N_L,) or (k, N_L) fields -> sorted (M,) / (k, M); rows
-    that hold no liquid take 0.  One launch for all fields on the card."""
+    that hold no liquid take 0.  The fields are row views, in order, of one
+    (K, M) block; one launch for all fields on the card."""
     from . import engine
 
     return engine.pack_rows(grid, fields)
@@ -301,8 +305,8 @@ def pack(grid: Grid, fields: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 def unpack(grid: Grid, packed: Sequence[torch.Tensor],
            defaults: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Sorted fields -> per-liquid; liquid particles outside the domain
-    keep their ``defaults`` entry.  One launch for all fields on the
-    card."""
+    keep their ``defaults`` entry.  The fields are row views, in order, of
+    one (K, N_L) block; one launch for all fields on the card."""
     from . import engine
 
     return engine.unpack_rows(grid, packed, defaults)
