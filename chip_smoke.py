@@ -17,24 +17,26 @@ its own lines and raising on failure:
    adhesion on; first the grid stage, with three particles moved outside
    the domain: the bin's permutation, offsets and rows equal the plain
    stable sort's, and pack and unpack equal their twins; then the
-   neighbour list that K2, K3, K4, K7, ``k1_div_acc``, ``k1_visc_init``
-   and ``k1_vorticity`` walk: its slice offsets (whole and clamped to a
-   short buffer), the fill kernel's list and its per-row records equal the
-   plain build bit for bit, a fill into a short buffer is clamped and
-   flagged as the twin's, those seven raise on a grid without a list, and
-   a short count raises at the grid's first read; K8 into a hit buffer of
-   the widest row's hits and into one of half that width: its hits equal
-   the twin's slot for slot, and both flag the same row count; last the
-   density sweep on a block squeezed to 0.6 of its spacing, where
-   receivers have more hits than the sweep's per-thread buffer
-   (``engine.CUT_SLOTS``) and so sum it more than once;
+   neighbour list that K2, K3, K4, K6, K7, IISPH's three K5 entries,
+   ``k1_div_acc``, ``k1_visc_init`` and ``k1_vorticity`` walk: its slice
+   offsets (whole and clamped to a short buffer), the fill kernel's list
+   and its per-row records equal the plain build bit for bit, a fill into
+   a short buffer is clamped and flagged as the twin's, those eleven raise
+   on a grid without a list, and a short count raises at the grid's first
+   read; K8 into a hit buffer of the widest row's hits and into one of half
+   that width: its hits equal the twin's slot for slot, and both flag the
+   same row count; last the cut sweeps (the DFSPH density sweep, K5's
+   density and SESPH-force entries) on a block squeezed to 0.6 of its
+   spacing, where receivers have more hits than the density sweep's
+   per-thread buffer (``engine.CUT_SLOTS``) and so sum it more than once,
+   and K5's columns hold several 32-candidate chunks;
 3. whole steps: the 20-step golden scene of each of the four solvers on
    CUDA against ``tests/golden/<solver>_golden.npz``, and 3 steps of the
    pressurized side-8 scene, per solver and for DFSPH with tension, with
    the kernels against the plain twins on the card (per-step iteration
-   counts equal); then one DFSPH, one PCISPH and one IISPH step with the
-   buffer of the list (PCISPH: of K8's hits) forced to 64 slots, which
-   replay once to the unforced bits;
+   counts equal); then one DFSPH, one PCISPH, one IISPH and one DFSPH
+   with tension step with the buffer of the list (PCISPH: of K8's hits)
+   forced to 64 slots, which replay once to the unforced bits;
 4. the paths at full width, a dam break at side 100 (1M liquid particles):
    DFSPH (the first slice's main path), then SESPH, PCISPH, IISPH and DFSPH
    with surface tension; for each, warm-up steps, launch counters reset,
@@ -365,10 +367,11 @@ def check_list(grid, vel, chk):
 
 
 def check_list_required(grid, inp, count):
-    """K2, K3, K4, K7, k1_div_acc, k1_visc_init and k1_vorticity raise on
-    a grid whose step built no list, and a fill from a count below the pairs
-    within h (it would drop a neighbour) flags it, so that the grid's first
-    host read raises rather than the step walk a short list."""
+    """K2, K3, K4, K6, K7, IISPH's three K5 entries, k1_div_acc,
+    k1_visc_init and k1_vorticity raise on a grid whose step built no list,
+    and a fill from a count below the pairs within h (it would drop a
+    neighbour) flags it, so that the grid's first host read raises rather
+    than the step walk a short list."""
     import dataclasses
 
     import torch
@@ -404,7 +407,11 @@ def check_list_required(grid, inp, count):
                                      inp["a1"], inp["paux1"], inp["dt"], 1)),
              ("k7_fused_jacobi_iter", (bare, inp["dii"], inp["deninv"],
                                        inp["aii"], inp["b"],
-                                       inp["p"].clone(), inp["dt"]))]
+                                       inp["p"].clone(), inp["dt"])),
+             ("k5_iisph_adv", (bare, inp["vel"])),
+             ("k5_iisph_aii", (bare, inp["dii"])),
+             ("k5_iisph_force", (bare, inp["dpi"])),
+             ("k6_fused_tension", (bare, inp["ril"], inp["rho"]))]
     for name, args in calls:
         try:
             getattr(engine, name)(*args)
@@ -463,13 +470,17 @@ def check_k8_hits(grid, inp, chk):
 
 
 def check_dense(cfg, side, chk):
-    """The density sweep where receivers have more hits than its buffer:
-    the liquid block squeezed to 0.6 of its spacing (up to ~170
-    neighbours a receiver against CUT_SLOTS), against its plain twin."""
+    """The cut sweeps on the liquid block squeezed to 0.6 of its spacing,
+    against their plain twins: the density sweep where receivers have more
+    hits than its buffer (up to ~170 neighbours a receiver against
+    CUT_SLOTS), and K5's density and SESPH-force entries (the force with a
+    numpy-seeded pressure), whose columns hold more candidates than one
+    32-bit hit mask."""
     import torch
 
     from wcsph_tpu_torch import dense_ops, engine
     from wcsph_tpu_torch.grid import build_grid, pack
+    from wcsph_tpu_torch.kernels import cubic_w0
 
     r = cfg.particle_radius
     sc = squeezed_dam_break(side, 0.6, box_extent=side * 2 * r * 1.35)
@@ -478,16 +489,34 @@ def check_dense(cfg, side, chk):
         sc.positions.T.astype(np.float32)), device=dev), sc.n_liquid, cfg)
     vel = pack(grid, [torch.as_tensor(converging_velocity(
         sc.positions[: sc.n_liquid]), device=dev)])[0].contiguous()
-    case = ("k1_density_alpha_drho", "dense", lambda: (grid, vel),
-            lambda a, out: list(torch.split(out, (1, 1, 3, 1, 1))),
-            TOL_SWEEP)
-    check_kernels(grid, [case], chk)
+    rho = cfg.rest_density * (cfg.liquid_volume * cubic_w0(
+        cfg.support_radius) + dense_ops.density_alpha(grid)[0])
+    rinv = engine.rho_inv(rho).contiguous()
+    p = (torch.as_tensor(np.random.RandomState(5).rand(grid.n).astype(
+        np.float32) * 1e3, device=dev) * grid.liq).contiguous()
+    force = (vel, rinv, (rho / cfg.rest_density).contiguous(),
+             (p * rinv * rinv).contiguous(), p)
+    cases = [("k1_density_alpha_drho", "dense", lambda: (grid, vel),
+              lambda a, out: list(torch.split(out, (1, 1, 3, 1, 1))),
+              TOL_SWEEP),
+             ("k5_density_alpha", "dense", lambda: (grid,),
+              lambda a, out: list(torch.split(out, (1, 1))), TOL_SWEEP),
+             ("k5_sesph_force", "dense", lambda: (grid, *force),
+              lambda a, out: [out], TOL_SWEEP)]
+    check_kernels(grid, cases, chk)
     most = int(dense_ops.density_alpha_drho(grid, vel)[1].max())
     log(f"  dense block (squeeze 0.6, M={grid.n}): max count {most} against "
         f"{engine.CUT_SLOTS} slots a receiver")
-    if most <= engine.CUT_SLOTS:
+    # the rows of three z-consecutive cells of one (x, y) column: what one
+    # (dx, dy) step of the sweeps scans
+    start, gz = grid.cell_start, grid.cfg.grid_res[2]
+    first = torch.arange(grid.cfg.num_cells - 2, device=dev)
+    column = int((start[3:] - start[:-3])[first % gz <= gz - 3].max())
+    log(f"  dense block: the largest 3-cell column holds {column} "
+        "candidates against 32 a hit mask")
+    if most <= engine.CUT_SLOTS or column <= 32:
         raise AssertionError("the dense case never fills the density "
-                             "sweep's buffer")
+                             "sweep's buffer or a K5 hit mask")
 
 
 # ---------------------------------------------------------------------------
@@ -649,10 +678,11 @@ def check_list_capacity(grid, count, chk):
     engine.LAUNCHES.update(saved)
 
 
-def check_replay(solver, dev):
-    """One step of the pressurized side-8 scene with the buffer of the
-    list (PCISPH: of K8's hits) forced to 64 slots: it replays once and
-    gives the bits of the step with an unforced buffer."""
+def check_replay(solver, dev, over):
+    """One step of the pressurized side-8 scene (config overrides
+    ``over``) with the buffer of the list (PCISPH: of K8's hits) forced to
+    64 slots: it replays once and gives the bits of the step with an
+    unforced buffer."""
     import torch
 
     from wcsph_tpu_torch import engine
@@ -663,7 +693,8 @@ def check_replay(solver, dev):
     sc = squeezed_dam_break(8, 0.92, box_extent=0.9)
     lo, hi = sc.domain(pad=4 * r)
     sim = Simulation(sc, default_config(solver, particle_radius=r,
-                                        domain_min=lo, domain_max=hi),
+                                        domain_min=lo, domain_max=hi,
+                                        **over),
                      solver=solver, device=dev)
     state = sim.state.replace(vel=torch.as_tensor(converging_velocity(
         sc.positions[: sc.n_liquid]), device=dev))
@@ -676,12 +707,13 @@ def check_replay(solver, dev):
               "kappa_v")
     same = all(torch.equal(getattr(got, f), getattr(want, f))
                for f in fields) and got.diag == want.diag
-    log(f"[phase 3] {solver}: a step with 64 slots replayed {replays} "
+    tag = solver + (" + tension" if over else "")
+    log(f"[phase 3] {tag}: a step with 64 slots replayed {replays} "
         f"time(s) (buffer grown to {forced.capacity}) and "
         f"{'equals' if same else 'DIFFERS FROM'} the unforced step bit for "
         f"bit")
     if replays != 1 or not same:
-        raise AssertionError(f"{solver}: the forced-capacity step did not "
+        raise AssertionError(f"{tag}: the forced-capacity step did not "
                              "replay to the same bits")
 
 
@@ -892,10 +924,10 @@ def time_kernels(grid, cases, count, reps_kernel=20, reps_plain=5):
 # function of P and M]).  Words: the kernel's operand list, each input read
 # once and each output written once; scratch that a kernel keeps between
 # its own launches is not counted (K8's hits and records at x*), nor is the
-# neighbour list that K2, K3, K4, K7, k1_div_acc, k1_visc_init and
-# k1_vorticity read (the functions they compute do not need it; the fill
-# that writes it, slots and records, has its own row), nor the
-# shared-memory hit buffer of the density sweep and of K8.
+# neighbour list that K2, K3, K4, K6, K7, IISPH's K5 entries, k1_div_acc,
+# k1_visc_init and k1_vorticity read (the functions they compute do not
+# need it; the fill that writes it, slots and records, has its own row),
+# nor the shared-memory hit buffer of the density sweep and of K8.
 # Every sweep also reads the geometry once (positions 3, liquid flag 1,
 # cell id 1 per row, and the cell offsets).  Operations: float32 adds,
 # multiplies, divides and square roots of the one-sided formula per
@@ -1060,10 +1092,9 @@ def main():
         log(f"[phase 3] {solver} golden 20 steps on CUDA within golden "
             f"tolerances (max|dpos|={dpos:.2e})")
 
-    pressurized = [(s, {}) for s in SOLVERS] + [
-        ("dfsph", dict(tension_coff=0.25, tension_coff_b=0.4,
-                       adhesion_center=(0.0, -0.45, 0.0),
-                       adhesion_radius=0.3))]
+    tension = dict(tension_coff=0.25, tension_coff_b=0.4,
+                   adhesion_center=(0.0, -0.45, 0.0), adhesion_radius=0.3)
+    pressurized = [(s, {}) for s in SOLVERS] + [("dfsph", tension)]
     for solver, over in pressurized:
         psc = squeezed_dam_break(8, 0.90 if solver == "pcisph" else 0.92,
                                  box_extent=0.9)
@@ -1097,8 +1128,9 @@ def main():
                                  f"differ")
         np.testing.assert_allclose(traces[0][1], traces[1][1], rtol=2e-4,
                                    atol=2e-5)
-    for solver in ("dfsph", "pcisph", "iisph"):
-        check_replay(solver, dev)
+    for solver, over in (("dfsph", {}), ("pcisph", {}), ("iisph", {}),
+                         ("dfsph", tension)):
+        check_replay(solver, dev, over)
 
     # ---- phase 4: the paths at full width -----------------------------------
     # the kernels each path must launch

@@ -15,7 +15,9 @@ side-8 scene of tests/test_torch_step.py:
 * the twins of K3 (modes 0 and 1), K2, the visc-init and vorticity
   sweeps and K4 run on the walked pairs give the bits of the same twins on
   the cell-loop pair list;
-* an IISPH step builds the list from its density sweep's counts.
+* an IISPH step builds the list from its density sweep's counts, and the
+  twins of its K5 advection, a_ii and pressure-force sweeps give the same
+  bits over the walked pairs.
 """
 
 import numpy as np
@@ -225,8 +227,13 @@ def test_walk_reproduces_the_fused_sweeps(case, which):
 
 
 def test_iisph_step_builds_the_list_from_its_density_counts(_port):
-    """IISPH's viscosity PCG (K4) walks the list on the card: its step
-    builds it right after the density sweep, from that sweep's counts."""
+    """IISPH's viscosity PCG (K4), its advection, a_ii and pressure-force
+    sweeps (K5) and K7 walk the list on the card: its step builds it right
+    after the density sweep, from that sweep's counts; the twins of the K5
+    sweeps give the same bits over the listed pairs as over the cell
+    loop's."""
+    import dataclasses
+
     from wcsph_tpu_torch.solvers import iisph
 
     sc, sim = _pressurized("iisph")
@@ -241,3 +248,14 @@ def test_iisph_step_builds_the_list_from_its_density_counts(_port):
     for field in ("idx", "off", "rec"):
         assert torch.equal(getattr(g.nbr, field), getattr(want, field))
     assert int((g.nbr.idx >= 0).sum()) == int(count[g.liquid].sum()) > 0
+    walked = dataclasses.replace(g, pairs=dense_ops.list_pairs(g, g.nbr))
+    rng = np.random.RandomState(4)
+    liq = g.liq
+    vel = torch.as_tensor(rng.randn(3, g.n).astype(np.float32)) * liq
+    dii = torch.as_tensor(rng.randn(3, g.n).astype(np.float32)) * liq
+    dpi = torch.as_tensor(rng.rand(g.n).astype(np.float32)) * liq
+    for fn, arg in ((dense_ops.iisph_adv, vel), (dense_ops.iisph_aii, dii),
+                    (dense_ops.iisph_force, dpi)):
+        got, want = fn(walked, arg), fn(g, arg)
+        assert float(want.abs().max()) > 0, fn.__name__
+        assert torch.equal(got, want), fn.__name__

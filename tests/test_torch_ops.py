@@ -334,7 +334,9 @@ def test_density_and_sesph_force(squeezed):
 
 def test_fused_tension(squeezed):
     """K6's plain twin == surface_normals + tension_accel, with the cohesion
-    and the boundary-adhesion gates both active (asserted)."""
+    and the boundary-adhesion gates both active (asserted); and, over the
+    pairs of the step's neighbour list, which K6 walks on the card, the
+    twin gives the bits it gives over the cell loop's pairs."""
     case = squeezed
     stats = dense_ops.density_stats(case.grid, case.cfg, with_alpha=False)
     n1 = dense_ops.surface_normals(case.grid, case.cfg, stats.rho)
@@ -349,6 +351,16 @@ def test_fused_tension(squeezed):
         case.tg, cfg=case.tcfg.replace(tension_coff_b=0.0))
     _, t3 = engine.fused_tension(tg_na, rho)
     assert float((t2 - t3).abs().max()) > 0.0
+    # the list's pairs: each liquid receiver's neighbours in the cell loop's
+    # order, so the same float32 terms summed in the same order
+    nl = tdense.neighbor_list(case.tg, engine.density(case.tg)[1])
+    walked = dataclasses.replace(case.tg,
+                                 pairs=tdense.list_pairs(case.tg, nl))
+    ril = torch.where(case.tg.liquid, engine.rho_inv(rho), 0.0)
+    for got, want in zip(tdense.fused_tension(walked, ril, rho),
+                         tdense.fused_tension(case.tg, ril, rho)):
+        assert float(want.abs().max()) > 0.0
+        assert torch.equal(got, want)
 
 
 def test_starred_pair_list(case):

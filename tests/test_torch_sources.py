@@ -9,8 +9,8 @@ tests/test_torch_package.py::test_port_imports_no_jax.)
 The sweeps that run after a step's neighbour list is built walk that list
 and have no cell-loop form: one case per list-walking ``__global__`` of
 csrc/sweeps.cu, read with the device functions it calls, and one case for
-csrc/solver_sweeps.cu (K7's two sweeps walk the list, K8's acceleration
-sweep the hits of its first sweep).
+csrc/solver_sweeps.cu (K7's two sweeps, IISPH's three K5 entries and K6
+walk the list, K8's acceleration sweep the hits of its first sweep).
 
 No kernel source copies to or from the host, allocates, or waits for the
 card (every file of csrc/); the grid stage's list offsets, pack and unpack
@@ -184,10 +184,25 @@ def test_list_walker_never_scans_the_cells(kernel):
     assert not re.search(r"\bfor_each_neighbor(_at)?\s*\(", text)
 
 
+# the K5 entries of the steps that build no list (SESPH, PCISPH; IISPH's
+# density sweep builds it), with their emits: they cut, then sum
+LISTLESS_K5 = {"k5_density_alpha": "DensityAlpha",
+               "k5_sesph_force": "SesphForce"}
+# the wrappers of engine.py whose solver_sweeps.cu kernels walk the list
+LISTED_SOLVER_WRAPPERS = ["k5_iisph_adv", "k5_iisph_aii", "k5_iisph_force",
+                          "k6_fused_tension"]
+
+
 def test_solver_walkers_never_scan_the_cells():
-    """K7's two sweeps run the listed sweep kernel, which walks the step's
-    list, and K8's acceleration sweep walks the hits of its first sweep:
-    neither scans a candidate cell."""
+    """K7's two sweeps, IISPH's three K5 entries and both launches of K6
+    run the listed sweep kernel, which walks the step's list, and K8's
+    acceleration sweep walks the hits of its first sweep: none scans a
+    candidate cell.  K5's entries of the steps without a list launch the
+    cut sweep kernel, which cuts the cells' candidates into register masks
+    before it sums (for_each_neighbor_masked) and never runs the single
+    cell loop; no single-loop sweep kernel is left.
+    Each listed wrapper asks ``_geom`` for the list (``listed=True``), so
+    that on the card it raises where the grid has none."""
     text = (CSRC / "solver_sweeps.cu").read_text()
     bodies = _bodies(text)
 
@@ -195,15 +210,51 @@ def test_solver_walkers_never_scan_the_cells():
         return re.search(rf'extern "C" int {name}\(.*?\n}}', text,
                          re.S).group(0)
 
-    k7 = entry("k7_fused_jacobi_iter")
-    assert re.findall(r"\blaunch_(\w*)sweep\(g, (\w+)\{", k7) == [
+    def launched(name):
+        return re.findall(r"\blaunch_(\w*)sweep\(\s*g, (\w+)\{", entry(name))
+
+    assert launched("k7_fused_jacobi_iter") == [
         ("list_", "IisphDij"), ("list_", "IisphS")]
+    assert launched("k5_iisph_adv") == [("list_", "IisphAdv")]
+    assert launched("k5_iisph_aii") == [("list_", "IisphAii")]
+    assert launched("k5_iisph_force") == [("list_", "IisphForce")]
+    assert launched("k6_fused_tension") == [
+        ("list_", "SurfaceNormals"), ("list_", "TensionAccel")]
+    for name, emit in LISTLESS_K5.items():
+        assert launched(name) == [("cut_", emit)], name
+    launch = re.search(r"static int launch_cut_sweep\(.*?\n}", text,
+                       re.S).group(0)
+    assert re.search(r"\bk5_cut_kernel<E><<<", launch)
+    assert re.search(r"\bfor_each_neighbor_masked\s*\(",
+                     bodies["k5_cut_kernel"])
+    assert not re.search(r"\bfor_each_neighbor\s*\(",
+                         bodies["k5_cut_kernel"])
+    assert "k5_sweep_kernel" not in bodies
     launch = re.search(r"static int launch_list_sweep\(.*?\n}", text,
                        re.S).group(0)
     assert re.search(r"\bk5_list_kernel<E><<<", launch)
-    assert re.search(r"\bfor_each_listed\s*\(", bodies["k5_list_kernel"])
+    assert re.search(r"\bfor_each_listed(_record)?\s*\(",
+                     bodies["k5_list_kernel"])
     assert re.search(r"\bk8_acc_kernel<<<", entry("k8_fused_pcisph_iter"))
     for walker in ("k5_list_kernel", "k8_acc_kernel"):
         assert not re.search(r"\bfor_each_neighbor\w*\s*\(|\.start\[",
                              bodies[walker]), walker
+    # TensionAccel takes the neighbour's position from the walk's record
+    tension = re.search(r"struct TensionAccel \{.*?\n\};", text,
+                        re.S).group(0)
+    assert re.search(r"\brj\.x\b", tension)
+    assert not re.search(r"\bg\.pos\[", tension)
 
+    tree = ast.parse((ROOT / "wcsph_tpu_torch" / "engine.py").read_text())
+    wrappers = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+    def asks_for_the_list(name):
+        return any(k.arg == "listed" and isinstance(k.value, ast.Constant)
+                   and k.value.value is True
+                   for c in ast.walk(wrappers[name])
+                   if isinstance(c, ast.Call) for k in c.keywords)
+
+    for name in LISTED_SOLVER_WRAPPERS:
+        assert asks_for_the_list(name), name
+    for name in LISTLESS_K5:
+        assert not asks_for_the_list(name), name

@@ -11,14 +11,15 @@ beside this one under another name, so that its own wrappers of
 arguments of the old one where the signature changed.  Run from the
 repository root.  In one process on one card:
 
-1. kernels: for each solver of ``AB_SOLVERS`` the flagship dam break (side
-   100) runs 4 steps from rest; then one more step from that state runs
-   with the wrappers of ``AB_KERNELS`` recording the arguments the solver
-   gives them, at the positions at rest and with every liquid position
-   jittered by a numpy-seeded uniform +-0.3 r.  Each recorded call (the
-   first of each wrapper) is replayed through the old tree's wrapper and
-   this tree's, timed in turns (old, new, new, old) with CUDA events beside
-   ``LIBRARY``'s PyTorch call of the same function, and compared bit for
+1. kernels: for each path of ``AB_SOLVERS`` (``bench.flagship_paths``) the
+   flagship dam break (side 100) runs 4 steps from rest; then one more step
+   from that state runs with the wrappers of ``AB_KERNELS`` recording the
+   arguments the solver gives them, at the positions at rest and with every
+   liquid position jittered by a numpy-seeded uniform +-0.3 r.  Each
+   recorded call (the first of each wrapper) is replayed through the old
+   tree's wrapper and this tree's, timed in turns (old, new, new, old) with
+   CUDA events, beside ``LIBRARY``'s PyTorch call of the same function
+   where there is one, and compared bit for
    bit; each side's device time and device kernels a call (torch.profiler),
    and where its host time goes (``host_profile``); ``step_calls`` sums
    each side's times over the calls that the recorded step made.  Where the
@@ -55,29 +56,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import bench, dense_ops, engine
+from . import bench, engine
 
-AB_KERNELS = ("unpack_rows", "bin_cells")
-AB_SOLVERS = ("dfsph", "iisph", "pcisph")   # the steps that call them
+AB_KERNELS = ("k5_density_alpha", "k5_sesph_force", "k5_iisph_adv",
+              "k5_iisph_aii", "k5_iisph_force", "k6_fused_tension")
+# the paths of bench.flagship_paths whose steps call them
+AB_SOLVERS = ("sesph", "pcisph", "iisph", "dfsph+tension")
 # The older wrappers' arguments, from this tree's, where a signature
-# changed (none of the unpack's or the bin's did).
+# changed (none of the K5 entries' or K6's did).
 OLD_ARGS = {}
-
-
-def _library_unpack(grid, packed, defaults):
-    rows = torch.cat([p.reshape(-1, grid.n) for p in packed])
-    back = grid.row_of[: defaults[0].shape[-1]].clamp(min=0).to(torch.int64)
-    return lambda: rows.index_select(1, back)
-
-
-def _library_bin(pos, n_liquid, cfg):
-    keys = dense_ops.cell_keys(pos, cfg)
-    return lambda: torch.sort(keys, stable=True)
-
-
 # name -> (arguments of a recorded call -> the one PyTorch call that
-# computes the same function's core, as chip_smoke.py times it)
-LIBRARY = {"unpack_rows": _library_unpack, "bin_cells": _library_bin}
+# computes the same function's core, as chip_smoke.py times it); none
+# computes a sweep over a cell list
+LIBRARY = {}
 SIDE = 100         # the flagship dam break, 1M liquid particles
 REPS = 20          # timed calls per turn
 JITTER = 0.3       # of the particle radius
@@ -241,6 +232,15 @@ def host_profile(fn, make_args, eng, reps: int = REPS) -> dict:
     return {"host_us": host_us, "c_entry_us": c_us, "cpu_events": ops[:8]}
 
 
+def _device_ms(fn, make_args):
+    """``bench.device_ms`` of REPS calls, or why it is not measured: the
+    profiler now and then drops device events from every trace of a run."""
+    try:
+        return bench.device_ms(fn, make_args, REPS)
+    except RuntimeError as e:
+        return {"not measured": str(e)}
+
+
 def kernels_ab(first, count, old) -> dict:
     """Old and new wrapper on every recorded call, in turns, beside the
     library call, the bits compared; each side's device time, device
@@ -257,16 +257,19 @@ def kernels_ab(first, count, old) -> dict:
                  "new": (getattr(engine, name), lambda: _fresh(args))}
         res = {s: _tensors(fn(*make())) for s, (fn, make) in sides.items()}
         torch.cuda.synchronize()
-        library = LIBRARY[name](*args)
-        times = {"old": [], "new": [], "library": []}
+        library = LIBRARY[name](*args) if name in LIBRARY else None
+        times = {"old": [], "new": []}
+        if library is not None:
+            times["library"] = []
         for s in ("old", "new", "new", "old"):
             times[s].append(bench.time_call(*sides[s], REPS))
-            times["library"].append(bench.time_call(library, tuple, REPS))
+            if library is not None:
+                times["library"].append(bench.time_call(library, tuple,
+                                                        REPS))
         out[name] = {
             **{f"{s}_ms": sum(v) / len(v) for s, v in times.items()},
             "turns_ms": times,
-            **{f"{s}_device": bench.device_ms(*sides[s], REPS)
-               for s in sides},
+            **{f"{s}_device": _device_ms(*sides[s]) for s in sides},
             **{f"{s}_host": host_profile(*sides[s], eng)
                for s, eng in (("old", old), ("new", engine))},
             "bit_equal": len(res["old"]) == len(res["new"]) and all(
@@ -310,8 +313,10 @@ def main(argv=None):
     print(json.dumps({"card": card}), flush=True)
     old = old_engine(args.old.resolve())
 
-    for solver in AB_SOLVERS:
-        sim = bench.build_sim(SIDE, "cuda", solver)
+    paths = bench.flagship_paths(SIDE)
+    for path in AB_SOLVERS:
+        solver, over = paths[path]
+        sim = bench.build_sim(SIDE, "cuda", solver, **over)
         for _ in range(4):
             sim.step()
         state = sim.state
@@ -325,15 +330,17 @@ def main(argv=None):
         for scene, pos in (("at rest", state.pos), ("jittered", jittered)):
             sim.state = state.replace(pos=pos)
             first, count = record_step(sim)
-            grid = first["unpack_rows"][0]
+            # every recorded wrapper takes the step's grid first
+            grid = next(iter(first.values()))[0]
             if int(grid.cell_start[-1]) != state.n_total:
                 raise AssertionError(f"{scene}: a particle left the domain")
             fill = first.get("nbr_list_fill")
-            # the list's pairs, or the step's last K8 hits
+            # the list's pairs, or the step's last K8 hits, or neither
             pairs = (int(fill[1][grid.liquid].sum()) if fill
-                     else int(grid.star.count.sum()))
+                     else int(grid.star.count.sum()) if grid.star is not None
+                     else None)
             res = kernels_ab(first, count, old)
-            print(json.dumps({"solver": solver, "scene": scene,
+            print(json.dumps({"solver": path, "scene": scene,
                               "rows": grid.n, "pairs": pairs, "card": card,
                               "kernels": res}), flush=True)
             del first, grid, fill

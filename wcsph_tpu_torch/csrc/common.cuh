@@ -13,7 +13,8 @@
 //     shared memory, and then sums the pair terms over its own hits only,
 //     in the same order; PCISPH's cut takes the positions of its 16-byte
 //     records at the moved positions x*, the candidates staying those of
-//     the cells;
+//     the cells; K5's sweeps of the steps without a list cut in registers
+//     instead (for_each_neighbor_masked: a bit mask per 32 candidates);
 //   * or, where the step has built its neighbour list (Geom.nl_idx, see
 //     for_each_listed), walks that list: the same pairs in the same order,
 //     with no candidate to cut, each neighbour's position and liquid flag
@@ -129,6 +130,56 @@ __device__ __forceinline__ void for_each_neighbor(const Geom& g, int i,
   }
 }
 
+// The same calls as for_each_neighbor, in the same order and with the same
+// pair arithmetic, with the cut and the body apart but no shared memory:
+// each (dx, dy) column's candidates are cut 32 at a time into a bit mask
+// in a register, and f then runs over that chunk's set bits, lowest first,
+// recomputing the geometry from the same loads (same bits).  The warp runs
+// the body as often as its busiest lane has hits in the chunk, not at every
+// candidate where any lane has one, and the L1 cache keeps its full size
+// for the candidates' positions.
+template <class F>
+__device__ __forceinline__ void for_each_neighbor_masked(const Geom& g, int i,
+                                                         F& f) {
+  const int M = g.M;
+  const float xi = g.pos[i], yi = g.pos[M + i], zi = g.pos[2 * M + i];
+  const int c = g.cell[i];
+  const int cz = c % g.gz;
+  const int cy = (c / g.gz) % g.gy;
+  const int cx = c / (g.gz * g.gy);
+  const int z0 = max(cz - 1, 0);
+  const int z1 = min(cz + 1, g.gz - 1);
+  for (int dx = -1; dx <= 1; ++dx) {
+    const int nx = cx + dx;
+    if (nx < 0 || nx >= g.gx) continue;
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int ny = cy + dy;
+      if (ny < 0 || ny >= g.gy) continue;
+      const int base = (nx * g.gy + ny) * g.gz;
+      const int je = g.start[base + z1 + 1];
+      for (int j0 = g.start[base + z0]; j0 < je; j0 += 32) {
+        const int n = min(32, je - j0);
+        unsigned hit = 0u;
+        for (int k = 0; k < n; ++k) {
+          const int j = j0 + k;
+          const float rx = xi - g.pos[j];
+          const float ry = yi - g.pos[M + j];
+          const float rz = zi - g.pos[2 * M + j];
+          if (j != i && rx * rx + ry * ry + rz * rz <= g.h2) hit |= 1u << k;
+        }
+        while (hit != 0u) {
+          const int j = j0 + __ffs(hit) - 1;
+          hit &= hit - 1u;
+          const float rx = xi - g.pos[j];
+          const float ry = yi - g.pos[M + j];
+          const float rz = zi - g.pos[2 * M + j];
+          f(j, rx, ry, rz, rx * rx + ry * ry + rz * rz);
+        }
+      }
+    }
+  }
+}
+
 // Where the cut loop reads a row's position: the planar Geom.pos ...
 struct PlanarPos {
   const float* pos;
@@ -212,17 +263,18 @@ __device__ __forceinline__ void for_each_neighbor_cut(const Geom& g, int i,
   sum();
 }
 
-// Calls f(j, rx, ry, rz, d2, lj) for every listed neighbour j of row i,
-// lj its liquid flag, in the list's order, which is the order of
-// for_each_neighbor (the fill, nbr_list_fill in sweeps.cu, writes what that
-// loop finds): the pair geometry is the same arithmetic on the same pairs,
-// so a sum over the list has the bits of the same sum over the cells.
-// Thread t of a warp reads slot 32 k + t of its slice, so each k is one
-// coalesced line; the neighbour's position and flag come in one 16-byte
-// record; padding slots are skipped, never summed as zero terms (+0.0 is
-// not neutral at -0.0).
+// Calls f(j, rx, ry, rz, d2, rj) for every listed neighbour j of row i,
+// rj its record (x, y, z, liquid flag) as loaded, in the list's order,
+// which is the order of for_each_neighbor (the fill, nbr_list_fill in
+// sweeps.cu, writes what that loop finds): the pair geometry is the same
+// arithmetic on the same pairs, so a sum over the list has the bits of the
+// same sum over the cells.  Thread t of a warp reads slot 32 k + t of its
+// slice, so each k is one coalesced line; the neighbour's position and
+// flag come in one 16-byte record; padding slots are skipped, never summed
+// as zero terms (+0.0 is not neutral at -0.0).
 template <class F>
-__device__ __forceinline__ void for_each_listed(const Geom& g, int i, F& f) {
+__device__ __forceinline__ void for_each_listed_record(const Geom& g, int i,
+                                                       F& f) {
   const float4 ri = __ldg(g.nl_rec + i);
   const int b = g.nl_off[i >> 5];
   const int n = (g.nl_off[(i >> 5) + 1] - b) >> 5;
@@ -236,8 +288,17 @@ __device__ __forceinline__ void for_each_listed(const Geom& g, int i, F& f) {
     const float ry = ri.y - rj.y;
     const float rz = ri.z - rj.z;
     const float d2 = rx * rx + ry * ry + rz * rz;
-    f(j, rx, ry, rz, d2, rj.w);
+    f(j, rx, ry, rz, d2, rj);
   }
+}
+
+// The same walk, calling f(j, rx, ry, rz, d2, lj) with lj the neighbour's
+// liquid flag (its record's .w).
+template <class F>
+__device__ __forceinline__ void for_each_listed(const Geom& g, int i, F& f) {
+  auto flag = [&](int j, float rx, float ry, float rz, float d2,
+                  const float4& rj) { f(j, rx, ry, rz, d2, rj.w); };
+  for_each_listed_record(g, i, flag);
 }
 
 // Fixed-order tree over one block; thread 0 stores the block's partial.

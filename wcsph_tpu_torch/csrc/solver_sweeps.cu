@@ -13,19 +13,29 @@
 // programs of the phase before wrote), each phase is its own launch on one
 // stream.
 //
-// What bounds the cell-loop sweeps on the H100 is what bounds those of
+// What bounds a cell-loop sweep on the H100 is what bounds those of
 // sweeps.cu: the candidate loop (~216 candidates per receiver, ~13% within
 // h) with the neighbour rows coming from L1/L2, not the tens of MB of
 // operands in device memory.  So the sweeps that can avoid it do:
-//   * K7 runs after the IISPH step has built its neighbour list, and its
-//     two sweeps walk it (k5_list_kernel, for_each_listed): ~30 listed
-//     pairs per receiver, bound by the gathers of the neighbours' fields;
+//   * the sweeps that run after the step has built its neighbour list walk
+//     it (k5_list_kernel, for_each_listed_record): ~30 listed pairs per
+//     receiver, bound by the gathers of the neighbours' fields.  These are
+//     IISPH's three K5 emits and K7's two sweeps (the IISPH step builds the
+//     list after its density sweep), and both launches of K6 (the DFSPH
+//     step builds it before its tension);
 //   * K8's pairs are those within h at the moved positions x*, which change
 //     from iteration to iteration, so it cannot walk the step's list; but
 //     its two sweeps of one iteration share the same x*, so the first cuts
 //     the candidates once (for_each_neighbor_cut on 16-byte records of x*)
-//     and writes its hits to a buffer, which the second walks.
-// The other K5 emits and K6 scan the cells (k5_sweep_kernel).
+//     and writes its hits to a buffer, which the second walks;
+//   * K5's density and SESPH-force emits run on steps that build no list
+//     (SESPH, PCISPH; IISPH's density sweep builds it), so they scan the
+//     cells, but cut each column's candidates, 32 at a time, into a bit
+//     mask in a register before they sum over the hits (k5_cut_kernel,
+//     for_each_neighbor_masked).  The shared-memory cut of the DFSPH
+//     density sweep (for_each_neighbor_cut) was slower than the single
+//     loop for these light bodies on particles at rest: its 40 KB a block
+//     take the L1 cache the candidate loop reads from (PERF.md).
 //
 // A launch returns cudaGetLastError().
 
@@ -35,22 +45,30 @@
 // K5: the one-sided sweep.  Replaces _build_sweep (engine.py:279), the
 // function that runs an emit's one-sided __call__ over the full 27-cell
 // window: each receiver sums the emit over its own neighbours and nothing is
-// written to the other end of a pair.  One generic kernel, templated on an
+// written to the other end of a pair.  Two generic kernels, templated on an
 // emit functor:
 //   E::kOut      number of accumulated channels
 //   E::kAllRows  true: every row receives; false: liquid rows (0 elsewhere)
 //   E::Row       what the receiver holds in registers; e.row(g, i) loads it
-//   e.pair(g, row, j, rx, ry, rz, d2, lj, acc)   the per-pair body, lj the
-//                                                neighbour's liquid flag
+//   e.pair(g, row, j, rx, ry, rz, d2, n, acc)    the per-pair body
 //   e.finish(g, i, acc)                          the per-row epilogue
-// k5_sweep_kernel scans the cells; k5_list_kernel walks the step's list
-// (the same pairs in the same order, so the same bits), for the emits that
-// run after the list is built and receive on liquid rows only (the list
-// holds the pairs of the liquid rows).
+// where n is what the kernel knows of the neighbour:
+//   * k5_cut_kernel scans the cells, for the emits that run where no list
+//     exists: each column's candidates are cut into a register bit mask,
+//     then the emit runs over the hits (for_each_neighbor_masked: the
+//     single loop's calls in its order, so its bits); n is the neighbour's
+//     liquid flag;
+//   * k5_list_kernel walks the step's list (the same pairs in the same
+//     order as the cell loop, so the same bits), for the emits that run
+//     after the list is built and receive on liquid rows only (the list
+//     holds the pairs of the liquid rows); n is the neighbour's record,
+//     the float4 (x, y, z, liquid flag) the walk has already loaded, so an
+//     emit that needs the neighbour's position (TensionAccel) reads no
+//     other array for it.
 // ---------------------------------------------------------------------------
 
 template <class E>
-__global__ void k5_sweep_kernel(Geom g, E e) {
+__global__ void k5_cut_kernel(Geom g, E e) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= g.M) return;
   float acc[E::kOut];
@@ -61,7 +79,7 @@ __global__ void k5_sweep_kernel(Geom g, E e) {
     auto f = [&](int j, float rx, float ry, float rz, float d2) {
       e.pair(g, row, j, rx, ry, rz, d2, g.liq[j], acc);
     };
-    for_each_neighbor(g, i, f);
+    for_each_neighbor_masked(g, i, f);
   }
   e.finish(g, i, acc);
 }
@@ -76,17 +94,18 @@ __global__ void k5_list_kernel(Geom g, E e) {
   for (int k = 0; k < E::kOut; ++k) acc[k] = 0.0f;
   if (g.liq[i] != 0.0f) {
     const typename E::Row row = e.row(g, i);
-    auto f = [&](int j, float rx, float ry, float rz, float d2, float lj) {
-      e.pair(g, row, j, rx, ry, rz, d2, lj, acc);
+    auto f = [&](int j, float rx, float ry, float rz, float d2,
+                 const float4& rj) {
+      e.pair(g, row, j, rx, ry, rz, d2, rj, acc);
     };
-    for_each_listed(g, i, f);
+    for_each_listed_record(g, i, f);
   }
   e.finish(g, i, acc);
 }
 
 template <class E>
-static int launch_sweep(const Geom* g, const E& e, void* stream) {
-  k5_sweep_kernel<E><<<blocks_of(g->M), kBlock, 0, (cudaStream_t)stream>>>(
+static int launch_cut_sweep(const Geom* g, const E& e, void* stream) {
+  k5_cut_kernel<E><<<blocks_of(g->M), kBlock, 0, (cudaStream_t)stream>>>(
       *g, e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -181,7 +200,9 @@ struct IisphAdv {
     return Row{vel[i], vel[g.M + i], vel[2 * g.M + i]};
   }
   __device__ void pair(const Geom& g, const Row& r, int j, float rx, float ry,
-                       float rz, float d2, float lj, float* acc) const {
+                       float rz, float d2, const float4& rj,
+                       float* acc) const {
+    const float lj = rj.w;
     const int M = g.M;
     const float gs = kernel_gs(g, d2);
     const float vgs = volume_of(g, lj) * gs;
@@ -211,7 +232,9 @@ struct IisphAii {
     return Row{dii[i], dii[g.M + i], dii[2 * g.M + i]};
   }
   __device__ void pair(const Geom& g, const Row& r, int, float rx, float ry,
-                       float rz, float d2, float lj, float* acc) const {
+                       float rz, float d2, const float4& rj,
+                       float* acc) const {
+    const float lj = rj.w;
     const float f = kernel_gs(g, d2) * (r.dx * rx + r.dy * ry + r.dz * rz);
     acc[0] += volume_of(g, lj) * f;
   }
@@ -232,7 +255,9 @@ struct IisphForce {
   float* out;
   __device__ Row row(const Geom&, int i) const { return Row{dpi[i]}; }
   __device__ void pair(const Geom& g, const Row& r, int j, float rx, float ry,
-                       float rz, float d2, float lj, float* acc) const {
+                       float rz, float d2, const float4& rj,
+                       float* acc) const {
+    const float lj = rj.w;
     const float c =
         lj * (g.vl * (r.dpi + dpi[j])) + (1.0f - lj) * g.vs * r.dpi;
     const float fg = c * kernel_gs(g, d2);
@@ -254,6 +279,13 @@ struct IisphForce {
 //      sweep's epilogue;
 //   2. _TensionAccel (2519) on those normals: Akinci cohesion, curvature and
 //      boundary adhesion.
+// Both walk the step's neighbour list (k5_list_kernel), which the DFSPH
+// step builds after its density sweep, before its tension; both receive on
+// liquid rows only (SurfaceNormals' epilogue writes h 0 at the others).
+// TensionAccel's adhesion-region test reads the neighbour's position from
+// the record the walk has loaded, not from three planar gathers.  What
+// bounds them is the gathers per listed neighbour: the record and ril for
+// the normals; the record, rho and the three normals for the tension.
 // ---------------------------------------------------------------------------
 
 struct SurfaceNormals {
@@ -265,7 +297,8 @@ struct SurfaceNormals {
   float* out;
   __device__ Row row(const Geom&, int) const { return Row{}; }
   __device__ void pair(const Geom& g, const Row&, int j, float rx, float ry,
-                       float rz, float d2, float, float* acc) const {
+                       float rz, float d2, const float4&,
+                       float* acc) const {
     const float c = mass * ril[j] * kernel_gs(g, d2);
     acc[0] += c * rx;
     acc[1] += c * ry;
@@ -305,7 +338,9 @@ struct TensionAccel {
     return Row{rho[i], n[i], n[g.M + i], n[2 * g.M + i]};
   }
   __device__ void pair(const Geom& g, const Row& r, int j, float rx, float ry,
-                       float rz, float d2, float lj, float* acc) const {
+                       float rz, float d2, const float4& rj,
+                       float* acc) const {
+    const float lj = rj.w;
     const int M = g.M;
     const float h = g.h;
     const float dist = sqrtf(fmaxf(d2, 1.0e-12f));
@@ -322,9 +357,10 @@ struct TensionAccel {
     const float arg =
         fmaxf(-4.0f * dist * dist / h + 6.0f * dist - 2.0f * h, 0.0f);
     const float w_adh = dist > 0.5f * h ? t.adh_k * sqrtf(sqrtf(arg)) : 0.0f;
-    const float ex = g.pos[j] - t.cx;
-    const float ey = g.pos[M + j] - t.cy;
-    const float ez = g.pos[2 * M + j] - t.cz;
+    // the neighbour's own position, from its record (the floats of g.pos)
+    const float ex = rj.x - t.cx;
+    const float ey = rj.y - t.cy;
+    const float ez = rj.z - t.cz;
     const bool in_region = ex * ex + ey * ey + ez * ez < t.radius2;
     const float adh_gate = (pair_ok && in_region) ? 1.0f - lj : 0.0f;
     const float c_rad = t.coh * w_coh * inv_dist * gate +
@@ -368,7 +404,9 @@ struct IisphDij {
   float* out;
   __device__ Row row(const Geom&, int) const { return Row{}; }
   __device__ void pair(const Geom& g, const Row&, int j, float rx, float ry,
-                       float rz, float d2, float lj, float* acc) const {
+                       float rz, float d2, const float4& rj,
+                       float* acc) const {
+    const float lj = rj.w;
     const float fac = -lj * deninv[j] * p[j];
     const float fg = fac * kernel_gs(g, d2);
     acc[0] += fg * rx;
@@ -395,7 +433,9 @@ struct IisphS {
     return Row{dij[i], dij[g.M + i], dij[2 * g.M + i], deninv[i] * p[i]};
   }
   __device__ void pair(const Geom& g, const Row& r, int j, float rx, float ry,
-                       float rz, float d2, float lj, float* acc) const {
+                       float rz, float d2, const float4& rj,
+                       float* acc) const {
+    const float lj = rj.w;
     const int M = g.M;
     const float gs = kernel_gs(g, d2);
     const float dij_dot_i = gs * (r.dx * rx + r.dy * ry + r.dz * rz);
@@ -564,7 +604,7 @@ __global__ void k8_acc_kernel(Geom g, const float4* __restrict__ xs,
 // ---------------------------------------------------------------------------
 
 extern "C" int k5_density_alpha(const Geom* g, float* out, void* stream) {
-  return launch_sweep(g, DensityAlpha{out}, stream);
+  return launch_cut_sweep(g, DensityAlpha{out}, stream);
 }
 
 extern "C" int k5_sesph_force(const Geom* g, const float* vel,
@@ -572,33 +612,33 @@ extern "C" int k5_sesph_force(const Geom* g, const float* vel,
                               const float* pi, const float* p, float a_liq,
                               float b_sol, float d0, float rho0, float* out,
                               void* stream) {
-  return launch_sweep(
+  return launch_cut_sweep(
       g, SesphForce{vel, rinv, rr, pi, p, a_liq, b_sol, d0, rho0, out},
       stream);
 }
 
 extern "C" int k5_iisph_adv(const Geom* g, const float* vel, float* out,
                             void* stream) {
-  return launch_sweep(g, IisphAdv{vel, out}, stream);
+  return launch_list_sweep(g, IisphAdv{vel, out}, stream);
 }
 
 extern "C" int k5_iisph_aii(const Geom* g, const float* dii, float* out,
                             void* stream) {
-  return launch_sweep(g, IisphAii{dii, out}, stream);
+  return launch_list_sweep(g, IisphAii{dii, out}, stream);
 }
 
 extern "C" int k5_iisph_force(const Geom* g, const float* dpi, float* out,
                               void* stream) {
-  return launch_sweep(g, IisphForce{dpi, out}, stream);
+  return launch_list_sweep(g, IisphForce{dpi, out}, stream);
 }
 
 extern "C" int k6_fused_tension(const Geom* g, const float* ril,
                                 const float* rho, const TensionParams* t,
                                 float mass, float* normals, float* acc,
                                 void* stream) {
-  int e = launch_sweep(g, SurfaceNormals{ril, mass, normals}, stream);
+  int e = launch_list_sweep(g, SurfaceNormals{ril, mass, normals}, stream);
   if (e != 0) return e;
-  return launch_sweep(g, TensionAccel{rho, normals, *t, acc}, stream);
+  return launch_list_sweep(g, TensionAccel{rho, normals, *t, acc}, stream);
 }
 
 extern "C" int k7_fused_jacobi_iter(const Geom* g, const float* dii,

@@ -25,8 +25,8 @@ K2     ``k2_fused_kappa_drho``     gated kappa sweep, then divergence sweep
 K3     ``k3_fused_iter_full``      whole divergence / pressure iteration
 K4     ``k4_fused_visc_iter``      whole viscosity-PCG iteration
 K5     ``k5_density_alpha``,       one-sided sweep templated on its emit,
-       ``k5_sesph_force``,         one launch per call
-       ``k5_iisph_adv``,
+       ``k5_sesph_force``,         one launch per call; the IISPH three
+       ``k5_iisph_adv``,           walk the list, the other two cut, then sum
        ``k5_iisph_aii``,
        ``k5_iisph_force``
 K6     ``k6_fused_tension``        surface normals, then tension on them
@@ -34,17 +34,19 @@ K7     ``k7_fused_jacobi_iter``    whole IISPH relaxed-Jacobi iteration
 K8     ``k8_fused_pcisph_iter``    whole PCISPH prediction iteration
 =====  ==========================  =========================================
 
-Seven walkers read the step's neighbour list (``grid.NeighborList``)
+Eleven walkers read the step's neighbour list (``grid.NeighborList``)
 instead of the 27 cells: K2, K3, ``k1_div_acc`` (which shares K2's
-divergence launch), ``k1_visc_init``, ``k1_vorticity``, K4 and K7.  A DFSPH
+divergence launch), ``k1_visc_init``, ``k1_vorticity``, K4, K7, IISPH's
+three K5 entries (``k5_iisph_adv``, ``k5_iisph_aii``, ``k5_iisph_force``)
+and K6 (``k6_fused_tension``, both of its launches).  A DFSPH
 or IISPH step builds the list once, right after its density sweep, with
 ``nbr_list_offsets`` and ``nbr_list_fill``, kernels of the port's own
 design that no TPU kernel corresponds to (``OWN_KERNELS``), as are the
 step's bin, pack and unpack (``bin_cells``, ``pack_rows``, ``unpack_rows``:
-XLA ops in the JAX package).  On the card the seven walkers raise where the
-grid has no list; their plain twins need none.  From the positions to the
-filled list no wrapper reads anything back to the host (the list's first
-fill sizes its buffer: one read).
+XLA ops in the JAX package).  On the card the eleven walkers raise where
+the grid has no list; their plain twins need none.  From the positions to
+the filled list no wrapper reads anything back to the host (the list's
+first fill sizes its buffer: one read).
 
 K8's pairs are those at PCISPH's moved positions, new in every iteration:
 its first sweep cuts the cells' candidates there and writes its hits into
@@ -55,6 +57,11 @@ a buffer of a uniform width (``grid.StarHits``, in the step's kept
 it), so it scans the cells, in two phases: each receiver first cuts its
 candidates into ``CUT_SLOTS`` slots of shared memory, then sums the pair
 terms over its own hits, in the single loop's order and with its bits.
+``k5_density_alpha`` and ``k5_sesph_force`` run on steps that build no
+list (SESPH, PCISPH; ``k5_density_alpha`` before IISPH's) and scan the
+cells too, but cut each column's candidates, 32 at a time, into a bit mask
+in a register before they sum over the hits: the same calls in the same
+order, so the single loop's bits, with no shared memory.
 
 The libraries are built at first use on CUDA: one ``nvcc`` per
 ``csrc/*.cu``, all started together, for ``sm_90a`` into ``_build/``, keyed
@@ -140,7 +147,8 @@ OWN_KERNELS = {
                          "clamped to its kept slot capacity",
                          dense_ops.list_offsets),
     "nbr_list_fill": (_SRC, "the neighbour list that K2, K3, k1_div_acc, "
-                      "k1_visc_init, k1_vorticity, K4 and K7 walk",
+                      "k1_visc_init, k1_vorticity, K4, K7, IISPH's K5 "
+                      "entries and K6 walk",
                       dense_ops.neighbor_list),
 }
 LAUNCHES = {name: 0 for name in (*KERNELS, *OWN_KERNELS)}
@@ -710,13 +718,15 @@ def unpack_rows(grid: Grid, packed, defaults):
     return dense_ops.row_views(out, defaults)
 
 
-def _sweep(name: str, grid: Grid, operands, shapes, n_out, *consts):
+def _sweep(name: str, grid: Grid, operands, shapes, n_out, *consts,
+           listed: bool = False):
     """Launch a K5 entry: checked operands, then constants, then the
-    (n_out, M) output."""
+    (n_out, M) output; ``listed``: the entry walks the step's neighbour
+    list (see ``_geom``)."""
     _check(*operands, shapes=shapes)
     out = torch.empty((n_out, grid.n), dtype=torch.float32,
                       device=grid.device)
-    _launch(name, ctypes.byref(_geom(grid)),
+    _launch(name, ctypes.byref(_geom(grid, listed)),
             *[t.data_ptr() for t in operands], *consts, out.data_ptr(),
             _stream())
     return out
@@ -745,19 +755,22 @@ def k5_sesph_force(grid: Grid, vel: torch.Tensor, rinv: torch.Tensor,
 def k5_iisph_adv(grid: Grid, vel: torch.Tensor) -> torch.Tensor:
     if not _route(vel):
         return dense_ops.iisph_adv(grid, vel)
-    return _sweep("k5_iisph_adv", grid, [vel], [(3, grid.n)], 5)
+    return _sweep("k5_iisph_adv", grid, [vel], [(3, grid.n)], 5,
+                  listed=True)
 
 
 def k5_iisph_aii(grid: Grid, dii: torch.Tensor) -> torch.Tensor:
     if not _route(dii):
         return dense_ops.iisph_aii(grid, dii)
-    return _sweep("k5_iisph_aii", grid, [dii], [(3, grid.n)], 1)[0]
+    return _sweep("k5_iisph_aii", grid, [dii], [(3, grid.n)], 1,
+                  listed=True)[0]
 
 
 def k5_iisph_force(grid: Grid, dpi: torch.Tensor) -> torch.Tensor:
     if not _route(dpi):
         return dense_ops.iisph_force(grid, dpi)
-    return _sweep("k5_iisph_force", grid, [dpi], [(grid.n,)], 3)
+    return _sweep("k5_iisph_force", grid, [dpi], [(grid.n,)], 3,
+                  listed=True)
 
 
 def k6_fused_tension(grid: Grid, ril: torch.Tensor, rho: torch.Tensor):
@@ -775,9 +788,9 @@ def k6_fused_tension(grid: Grid, ril: torch.Tensor, rho: torch.Tensor):
         t["coh"], t["adh"], t["curv"], t["rho0x2"], cfg.eps, t["coh_k"],
         t["coh_c"], t["adh_k"], *cfg.adhesion_center,
         cfg.adhesion_radius ** 2)
-    _launch("k6_fused_tension", ctypes.byref(_geom(grid)), ril.data_ptr(),
-            rho.data_ptr(), ctypes.byref(params), cfg.liquid_mass,
-            normals.data_ptr(), acc.data_ptr(), _stream())
+    _launch("k6_fused_tension", ctypes.byref(_geom(grid, listed=True)),
+            ril.data_ptr(), rho.data_ptr(), ctypes.byref(params),
+            cfg.liquid_mass, normals.data_ptr(), acc.data_ptr(), _stream())
     return normals, acc
 
 

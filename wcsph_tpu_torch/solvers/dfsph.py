@@ -3,12 +3,13 @@
 
 One step: bin + pack (``bin_and_pack``) -> density + DFSPH factor alpha
 (+ warm-start drho, one K1 sweep) -> the step's neighbour list (its slice
-offsets and one fill kernel; the K2, K3, K4, vorticity and advected-density
-sweeps below walk it) -> divergence solve (warm start K2, iterations K3
-mode 0) -> non-pressure forces (gravity, surface tension when on: K6,
-implicit-viscosity PCG: K1 + K4, micropolar vorticity: K1) -> adaptive CFL
-dt -> velocity update -> constant-density solve (advected density K1,
-iterations K3 mode 1) -> unpack + position update.
+offsets and one fill kernel; every sweep below walks it: K2, K3, K6, K4,
+K1's visc-init, vorticity and advected-density sweeps) -> divergence solve
+(warm start K2, iterations K3 mode 0) -> non-pressure forces (gravity,
+surface tension when on: K6, implicit-viscosity PCG: K1 + K4, micropolar
+vorticity: K1) -> adaptive CFL dt -> velocity update -> constant-density
+solve (advected density K1, iterations K3 mode 1) -> unpack + position
+update.
 
 The solver loops end on the host: each iteration's error is read back and
 tested there (``Grid.read``), with the JAX package's loop contracts and

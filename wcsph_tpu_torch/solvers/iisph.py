@@ -3,11 +3,11 @@
 
 One step: bin + pack (``bin_and_pack``) -> density (K5 ``_DensityAlpha``)
 -> the step's neighbour list from its counts (its slice offsets and one fill
-kernel; K4 below walks it) ->
-implicit viscosity (block-Jacobi PCG: K1 + K4, ``viscosity.py``) -> advection
-coefficients d_ii, a_ii, advected density (K5 ``_IisphAdv``, ``_IisphAii``),
-pressure warm start 0.5 p -> relaxed-Jacobi loop, one K7 call per iteration
--> pressure force (K5 ``_IisphForce``) -> integrate.  As in the JAX package,
+kernel; every sweep below walks it) -> implicit viscosity (block-Jacobi
+PCG: K1 + K4, ``viscosity.py``) -> advection coefficients d_ii, a_ii,
+advected density (K5 ``_IisphAdv``, ``_IisphAii``), pressure warm start
+0.5 p -> relaxed-Jacobi loop, one K7 call per iteration -> pressure force
+(K5 ``_IisphForce``) -> integrate.  As in the JAX package,
 and unlike the Taichi reference, each iteration starts from the pressure of
 the one before (omega = 0.5), and d_ii / a_ii use the per-type neighbour
 volume.
@@ -63,7 +63,8 @@ def density_and_list(grid: Grid, slots: ListSlots | None = None):
     """(rho, count) of the density sweep (iisph.py:254-268), then the
     step's neighbour list from its counts, into ``slots``: no host read
     once ``slots`` is sized.  Positions stay put until the position update:
-    the viscosity PCG's matvec (K4) walks this list."""
+    the viscosity sweeps (K1's visc-init, K4), the advection and a_ii
+    sweeps, K7 and the pressure-force sweep walk this list."""
     rhop, cntp = engine.density(grid)
     engine.nbr_list_fill(grid, cntp, slots)
     return rhop, cntp
