@@ -29,7 +29,11 @@ its own lines and raising on failure:
    density and SESPH-force entries) on a block squeezed to 0.6 of its
    spacing, where receivers have more hits than the density sweep's
    per-thread buffer (``engine.CUT_SLOTS``) and so sum it more than once,
-   and K5's columns hold several 32-candidate chunks;
+   and K5's columns hold several 32-candidate chunks; at side 24 and on
+   the 0.6 block the surface kernels (``aniso_moments``, its count bit for
+   bit, ``aniso_g`` and ``mc_field`` plain and anisotropic), and on each
+   kernel field the device extractor under budgets sized from the field
+   against the host extractor: the same triangles, vertices within 1e-5;
 3. whole steps: the 20-step golden scene of each of the four solvers on
    CUDA against ``tests/golden/<solver>_golden.npz``, and 3 steps of the
    pressurized side-8 scene, per solver and for DFSPH with tension, with
@@ -56,7 +60,19 @@ its own lines and raising on failure:
    operations (kernels and memsets) for the bin, and 8, 1, 1 and 0
    allocations a call for the bin, pack, unpack and offsets; and the bin
    at side 24 (particles outside the domain), at 1M and at side 24 again,
-   back to back, each equal to its twin bit for bit.
+   back to back, each equal to its twin bit for bit;
+5. surface reconstruction of the DFSPH path's 1M state: ``reconstruct``
+   with the host and the device extractor, plain and anisotropic, the
+   launch counters reset just before and read just after (the bin, the
+   density sweep, ``mc_field``, ``aniso_moments`` and ``aniso_g``
+   launched); then the three kernels against their plain twins at those
+   shapes, each field's active cubes and triangles, the device extractor
+   under budgets sized from them (nothing dropped, equal to the host
+   extractor) and under its default budgets (what they drop, printed), and
+   ms a call (CUDA events) of the density sweep, the three kernels and
+   their twins, ``torch.linalg.eigh`` of aniso_g's matrices, both
+   extractor runs and the whole ``reconstruct(on_device=True)``, the host
+   extractor's seconds, and the kernels' bounds.
 
 The line before the last is one JSON object with the per-kernel record;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -504,6 +520,7 @@ def check_dense(cfg, side, chk):
              ("k5_sesph_force", "dense", lambda: (grid, *force),
               lambda a, out: [out], TOL_SWEEP)]
     check_kernels(grid, cases, chk)
+    check_surface(grid, chk, "squeeze 0.6")
     most = int(dense_ops.density_alpha_drho(grid, vel)[1].max())
     log(f"  dense block (squeeze 0.6, M={grid.n}): max count {most} against "
         f"{engine.CUT_SLOTS} slots a receiver")
@@ -517,6 +534,352 @@ def check_dense(cfg, side, chk):
     if most <= engine.CUT_SLOTS or column <= 32:
         raise AssertionError("the dense case never fills the density "
                              "sweep's buffer or a K5 hit mask")
+
+
+# ---------------------------------------------------------------------------
+# Surface reconstruction: the field and anisotropy kernels, the extractors
+# ---------------------------------------------------------------------------
+
+SURFACE_KERNELS = ("mc_field", "aniso_moments", "aniso_g")
+MOMENTS = (1, 3, 6, 1)   # aniso_moments' fields: sum w, sum w x, the six
+                         # covariance sums, the count
+
+
+def surface_inputs(grid):
+    """(gated coefficients, smoothed centres, G) of the grid, as
+    ``reconstruct`` forms them: the density sweep, then the anisotropy
+    moments and eigh, on the kernels."""
+    from wcsph_tpu_torch import engine
+    from wcsph_tpu_torch.surface import aniso, field
+
+    rho, _ = engine.density(grid)
+    an = aniso.compute(grid)
+    return (field.gated_coefficients(grid, rho),
+            aniso.smoothed_positions(grid, an), an.g)
+
+
+def mc_need(dense):
+    """(active cubes, triangles) that marching cubes needs for the field:
+    the budgets under which ``marching_cubes_device`` drops nothing (one
+    host read)."""
+    import torch
+
+    from wcsph_tpu_torch.surface import mc, tables
+
+    config = mc.cube_configs(dense).reshape(-1).to(torch.int64)
+    per_case = torch.as_tensor(
+        (tables.TRI_TABLE[:, :-1].reshape(256, -1, 3)[:, :, 0] >= 0).sum(1),
+        device=dense.device)
+    active = (config != 0) & (config != 255)
+    return tuple(torch.stack([active.sum(), per_case[config].sum()])
+                 .tolist())
+
+
+def aniso_g_args(grid, mom):
+    from wcsph_tpu_torch.surface import aniso
+
+    return (grid, mom, aniso.KR, aniso.KS, aniso.KN, aniso.MIN_NEIGHBORS)
+
+
+def check_moments(grid, chk, what):
+    """aniso_moments against its plain twin (the count bit for bit, the
+    sums within TOL_SWEEP), then aniso_g against its twin (torch's eigh)
+    on those moments, within TOL_FUSED: the eigendecompositions differ in
+    their rounding.  Returns the moments."""
+    import torch
+
+    from wcsph_tpu_torch import dense_ops, engine
+
+    saved = dict(engine.LAUNCHES)
+    got = engine.aniso_moments(grid)
+    want = dense_ops.aniso_moments(grid)
+    torch.cuda.synchronize()
+    if not torch.equal(got[10], want[10]):
+        raise AssertionError(f"aniso_moments ({what}): counts differ")
+    for c, (a, b) in enumerate(zip(torch.split(got, MOMENTS),
+                                   torch.split(want, MOMENTS))):
+        chk.close("aniso_moments", a, b, TOL_SWEEP, f"[{what} out {c}]")
+    args = aniso_g_args(grid, want)
+    g = engine.aniso_g(*args)
+    chk.close("aniso_g", g, dense_ops.aniso_g(*args), TOL_FUSED,
+              f"[{what}]")
+    clamped = int((g[0] != args[4]).sum())
+    log(f"  aniso_g ({what}): {clamped} of {grid.n} rows take the clamped "
+        "spectral G, the rest kn I")
+    engine.LAUNCHES.update(saved)     # check launches are not main-path
+    return want
+
+
+def check_surface(grid, chk, what):
+    """aniso_moments and mc_field (plain and anisotropic) against their
+    plain twins, and on each kernel field the device extractor, under
+    budgets sized from the field, against the host extractor: the same
+    triangles, vertices within 1e-5, nothing dropped.  Returns the kernel
+    fields."""
+    import torch
+
+    from wcsph_tpu_torch import dense_ops, engine
+    from wcsph_tpu_torch.surface import field, mc
+
+    check_moments(grid, chk, what)
+    saved = dict(engine.LAUNCHES)
+    coeff, xs, g = surface_inputs(grid)
+    fields = {}
+    for label, args in (("plain", (grid.pos, coeff)),
+                        ("anisotropic", (xs, coeff, g))):
+        fields[label] = engine.mc_field(grid, *args)
+        scale = chk.close("mc_field", fields[label],
+                          dense_ops.mc_field(grid, *args), TOL_SWEEP,
+                          f"[{what} {label}]")
+        if not scale > 0.5:
+            raise AssertionError(f"mc_field ({what}, {label}): max|phi| "
+                                 f"{scale} never reaches the isolevel")
+    origin, spacing = field.mc_grid_geometry(grid.cfg)
+    for label, dense in fields.items():
+        n_act, n_tri = mc_need(dense)
+        hv, ht = mc.marching_cubes(dense.cpu().numpy(), origin, spacing,
+                                   max_vertices=3 * n_tri)
+        dv, n, dropped = mc.marching_cubes_device(
+            dense, origin, spacing, max_active=n_act,
+            max_vertices=3 * n_tri)
+        n, dropped = torch.stack([n, dropped]).tolist()
+        if dropped or n != n_tri or ht.shape[0] != n_tri or n == 0:
+            raise AssertionError(f"marching cubes ({what}, {label}): device "
+                                 f"{n} triangles ({dropped} dropped), host "
+                                 f"{ht.shape[0]}, needed {n_tri}")
+        np.testing.assert_allclose(dv[: 3 * n].cpu().numpy(), hv,
+                                   rtol=1e-5, atol=1e-5)
+        log(f"  marching cubes ({what}, {label}): device extractor equals "
+            f"the host extractor on the kernel's field: {n} triangles of "
+            f"{n_act} active cubes, vertices within 1e-5, 0 dropped")
+    engine.LAUNCHES.update(saved)     # check launches are not main-path
+    return fields
+
+
+# float32 operations of one field term (a point and a candidate within the
+# support: r 3, d^2 5, W 8, coeff W and the sum 2; anisotropic also 2 G r,
+# 18) and of aniso_moments per pair with a liquid receiver (the geometry 8
+# and the count 1 per pair; per liquid neighbour the weight 5 twice, pass
+# 1's four sums 7, pass 2's offsets and six sums 21); aniso_g per row: the
+# six divides, at most 8 sweeps of 3 Jacobi rotations of ~40, the clamp
+# and G's 45 (an upper count: a row stops sweeping once it is diagonal)
+FIELD_OPS = {"plain": 18, "anisotropic": 36}
+MOMENT_OPS = (2 * 8 + 1, 5 + 7 + 5 + 21)
+G_OPS = 6 + 8 * 3 * 40 + 10 + 45
+
+
+def surface_bounds(grid, terms, pairs):
+    """(bound ms, by) of mc_field per variant and of aniso_moments, from
+    the bytes each input read once and output written once and the
+    operations this run's data needs (``terms``: the field's terms within
+    the support per variant; ``pairs``: (pairs with a liquid receiver, of
+    them with a liquid neighbour))."""
+    m = grid.n
+    nc = grid.cfg.num_cells
+    start = nc + 1
+    out = {}
+    for label, words in (("plain", 4 * m), ("anisotropic", 13 * m)):
+        t_bytes = 4 * (words + start + 64 * nc) / PEAK_BYTES_PER_S
+        t_ops = FIELD_OPS[label] * terms[label] / PEAK_FP32_FLOPS
+        out[label] = (max(t_bytes, t_ops) * 1e3,
+                      "bytes" if t_bytes >= t_ops else "operations")
+    t_bytes = 4 * (5 * m + start + 11 * m) / PEAK_BYTES_PER_S
+    t_ops = (MOMENT_OPS[0] * pairs[0] + MOMENT_OPS[1] * pairs[1]) / (
+        PEAK_FP32_FLOPS)
+    out["aniso_moments"] = (max(t_bytes, t_ops) * 1e3,
+                            "bytes" if t_bytes >= t_ops else "operations")
+    # the moments' rows it reads (sum w, the six sums, the count), the
+    # liquid flag, G's nine rows written
+    t_bytes = 4 * (8 + 1 + 9) * m / PEAK_BYTES_PER_S
+    t_ops = G_OPS * m / PEAK_FP32_FLOPS
+    out["aniso_g"] = (max(t_bytes, t_ops) * 1e3,
+                      "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def surface_times(grid, args, dense, n_act, n_tri, state, cfg, anisotropic):
+    """ms a call (CUDA events) of one field variant's stages at the grid's
+    shapes: the field kernel and its plain twin (``args``: its operands),
+    the device extractor on ``dense`` under budgets sized for it and
+    under its defaults, and the whole ``reconstruct(on_device=True)``."""
+    from wcsph_tpu_torch import dense_ops, engine
+    from wcsph_tpu_torch.bench import time_call
+    from wcsph_tpu_torch.surface import field, mc
+    from wcsph_tpu_torch.surface.reconstruction import reconstruct
+
+    origin, spacing = field.mc_grid_geometry(cfg)
+    return {
+        "mc_field": time_call(engine.mc_field, lambda: (grid, *args), 10),
+        "mc_field_plain": time_call(dense_ops.mc_field,
+                                    lambda: (grid, *args), 1),
+        "extractor_sized": time_call(
+            mc.marching_cubes_device,
+            lambda: (dense, origin, spacing, 0.5, n_act, 3 * n_tri), 5),
+        "extractor_default": time_call(
+            mc.marching_cubes_device, lambda: (dense, origin, spacing), 5),
+        "reconstruct_device": time_call(
+            reconstruct,
+            lambda: (state, cfg, 0.5, anisotropic, mc.MAX_VERTEX, True), 3)}
+
+
+def surface_full_width(state, cfg, chk, card):
+    """Phase 5: reconstruct the 1M state on the card, host and device
+    extractors, plain and anisotropic, with the launch counts set to 0
+    just before and read just after; then the kernels against their plain
+    twins at those shapes, the device extractor under budgets sized from
+    each field (nothing dropped, equal to the host extractor) and under
+    its default budgets (what they drop), and the times.  Returns the
+    launches, the per-kernel (ms, plain ms), bounds and the record."""
+    import warnings
+
+    import torch
+
+    from wcsph_tpu_torch import dense_ops, engine
+    from wcsph_tpu_torch.bench import time_call
+    from wcsph_tpu_torch.grid import build_grid
+    from wcsph_tpu_torch.surface import field, mc
+    from wcsph_tpu_torch.surface.reconstruction import reconstruct
+
+    variants = (("plain", False), ("anisotropic", True))
+    engine.reset_launch_counts()
+    meshes = {}
+    for label, anisotropic in variants:
+        for where, on_device in (("host", False), ("device", True)):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                v, t = reconstruct(state, cfg, anisotropic=anisotropic,
+                                   on_device=on_device)
+                secs = time.perf_counter() - t0
+            said = [str(w.message) for w in caught]
+            meshes[f"{label} {where}"] = {"triangles": int(t.shape[0]),
+                                          "s": secs, "warnings": said}
+            if not (t.shape[0] > 0 and np.isfinite(v).all()
+                    and v.shape == (3 * t.shape[0], 3)):
+                raise AssertionError(f"reconstruct ({label}, {where}) gave "
+                                     "no finite mesh")
+            log(f"[phase 5] reconstruct {label}, {where} extractor: "
+                f"{t.shape[0]} triangles in {secs:.3f} s (first call) on "
+                f"{card}; warnings {said}")
+    launches = dict(engine.LAUNCHES)
+    ran = {k: v for k, v in launches.items() if v}
+    log(f"[phase 5] launches of the four reconstructions: {ran}")
+    missing = [k for k in ("bin_cells", "k5_density_alpha", *SURFACE_KERNELS)
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"reconstruct did not launch {missing}")
+
+    grid = build_grid(state.pos, state.n_liquid, cfg)
+    mom = check_moments(grid, chk, "1M")
+    saved = dict(engine.LAUNCHES)
+    coeff, xs, g = surface_inputs(grid)
+    origin, spacing = field.mc_grid_geometry(cfg)
+    times, terms, record = {}, {}, {"reconstruct": meshes}
+    for label, anisotropic in variants:
+        args = (grid.pos, coeff) if not anisotropic else (xs, coeff, g)
+        dense = engine.mc_field(grid, *args)
+        chk.close("mc_field", dense, dense_ops.mc_field(grid, *args),
+                  TOL_SWEEP, f"[1M {label}]")
+        terms[label] = dense_ops.mc_field_terms(grid, *args)
+        n_act, n_tri = mc_need(dense)
+        dv, n, dropped = mc.marching_cubes_device(
+            dense, origin, spacing, max_active=n_act, max_vertices=3 * n_tri)
+        n, dropped = torch.stack([n, dropped]).tolist()
+        _, n_def, drop_def = mc.marching_cubes_device(dense, origin, spacing)
+        n_def, drop_def = torch.stack([n_def, drop_def]).tolist()
+        t0 = time.perf_counter()
+        hv, ht = mc.marching_cubes(dense.cpu().numpy(), origin, spacing,
+                                   max_vertices=3 * n_tri)
+        host_s = time.perf_counter() - t0
+        if dropped or n != n_tri or ht.shape[0] != n_tri:
+            raise AssertionError(f"marching cubes at 1M ({label}): device "
+                                 f"{n} triangles ({dropped} dropped) under "
+                                 f"sized budgets, host {ht.shape[0]}, "
+                                 f"needed {n_tri}")
+        np.testing.assert_allclose(dv[: 3 * n].cpu().numpy(), hv,
+                                   rtol=1e-5, atol=1e-5)
+        del dv, hv
+        with warnings.catch_warnings():
+            # each default-budget reconstruct warns of what it drops
+            warnings.simplefilter("ignore")
+            times[label] = surface_times(grid, args, dense, n_act, n_tri,
+                                         state, cfg, anisotropic)
+        times[label]["host_extractor_s"] = host_s
+        record[label] = {"active_cubes": n_act, "triangles": n_tri,
+                         "vertices": 3 * n_tri, "field_terms": terms[label],
+                         "default_budgets": {"triangles": n_def,
+                                             "dropped": drop_def},
+                         **times[label]}
+        log(f"[phase 5] {label} field at M={grid.n}: {n_act} active cubes, "
+            f"{n_tri} triangles ({3 * n_tri} vertices) needed; under sized "
+            f"budgets the device extractor kept all ({dropped} dropped) and "
+            f"equals the host extractor (vertices within 1e-5); under its "
+            f"default budgets (262144 cubes, {mc.MAX_VERTEX} vertices) it "
+            f"kept {n_def} triangles and dropped {drop_def}")
+        log(f"[phase 5] {label} on {card}: mc_field "
+            f"{times[label]['mc_field']:.4f} ms (plain "
+            f"{times[label]['mc_field_plain']:.4f}), device extractor "
+            f"{times[label]['extractor_sized']:.4f} ms sized, "
+            f"{times[label]['extractor_default']:.4f} ms default budgets, "
+            f"whole reconstruct(on_device=True) "
+            f"{times[label]['reconstruct_device']:.4f} ms, host extractor "
+            f"{host_s:.3f} s")
+    liq_i = grid.liquid[dense_ops.pairs_of(grid).i]
+    liq_j = dense_ops.pairs_of(grid).liq_j != 0
+    pairs = (int(liq_i.sum()), int((liq_i & liq_j).sum()))
+    cov = mom[4:10] / torch.clamp(mom[0], min=1e-12)
+    cov3 = torch.stack([cov[[0, 1, 2]], cov[[1, 3, 4]], cov[[2, 4, 5]]]
+                       ).permute(2, 0, 1).contiguous()
+
+    def eigh_library(c):
+        # one call of the whole batch fails on the card (dense_ops.EIG_CHUNK)
+        return [torch.linalg.eigh(part)
+                for part in torch.split(c, dense_ops.EIG_CHUNK)]
+
+    try:     # one call of the whole batch, as a library would be called
+        eigh_once = time_call(torch.linalg.eigh, lambda: (cov3,), 3)
+        refused = None
+    except RuntimeError as e:
+        eigh_once, refused = None, f"{type(e).__name__}: {str(e)[:100]}"
+    said = (f"{eigh_once:.4f} ms" if refused is None
+            else f"refused ({refused})")
+    log(f"[phase 5] torch.linalg.eigh, one call of {grid.n} 3x3 matrices: "
+        f"{said}")
+    extra = {
+        "eigh_one_call": eigh_once, "eigh_one_call_refused": refused,
+        "density": time_call(engine.density, lambda: (grid,), 10),
+        "aniso_moments": time_call(engine.aniso_moments, lambda: (grid,), 10),
+        "aniso_moments_plain": time_call(dense_ops.aniso_moments,
+                                         lambda: (grid,), 2),
+        "aniso_g": time_call(engine.aniso_g,
+                             lambda: aniso_g_args(grid, mom), 10),
+        "aniso_g_plain": time_call(dense_ops.aniso_g,
+                                   lambda: aniso_g_args(grid, mom), 2),
+        "eigh": time_call(eigh_library, lambda: (cov3,), 3),
+        "eigh_calls": -(-grid.n // dense_ops.EIG_CHUNK)}
+    record.update(extra)
+    engine.LAUNCHES.update(saved)     # timing launches are not the path's
+    bound = surface_bounds(grid, terms, pairs)
+    log(f"[phase 5] on {card}, M={grid.n}: density "
+        f"{extra['density']:.4f} ms, aniso_moments "
+        f"{extra['aniso_moments']:.4f} ms (plain "
+        f"{extra['aniso_moments_plain']:.4f}), aniso_g "
+        f"{extra['aniso_g']:.4f} ms (plain {extra['aniso_g_plain']:.4f}), "
+        f"torch.linalg.eigh of the same {grid.n} 3x3 matrices (library, "
+        f"{extra['eigh_calls']} calls of {dense_ops.EIG_CHUNK}) "
+        f"{extra['eigh']:.4f} ms; field terms {terms}, moment pairs "
+        f"{pairs}; bounds {bound}")
+    record["bounds"] = bound
+    kernel_times = {
+        "mc_field": (times["plain"]["mc_field"],
+                     times["plain"]["mc_field_plain"]),
+        "aniso_moments": (extra["aniso_moments"],
+                          extra["aniso_moments_plain"]),
+        "aniso_g": (extra["aniso_g"], extra["aniso_g_plain"],
+                    extra["eigh_one_call"])}
+    return launches, kernel_times, {"mc_field": bound["plain"],
+                                    "aniso_moments": bound["aniso_moments"],
+                                    "aniso_g": bound["aniso_g"]}, record
 
 
 # ---------------------------------------------------------------------------
@@ -1065,6 +1428,7 @@ def main():
         raise AssertionError("a kernel entry has no case")
     check_kernels(grid, cases, chk)
     check_k8_hits(grid, inp, chk)
+    check_surface(grid, chk, f"side {side}")
     check_dense(sim.cfg, side, chk)
     log("[phase 2] every kernel agrees with its plain twin")
 
@@ -1205,7 +1569,8 @@ def main():
             mstate, mcfg = msim.state, msim.cfg
         del msim
         torch.cuda.empty_cache()
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items()
+               if v <= 0 and k not in SURFACE_KERNELS]
     if missing:
         raise AssertionError(f"no full-width path launched {missing}")
 
@@ -1238,28 +1603,47 @@ def main():
     times.update({k: v[:2] for k, v in grid_times.items()})
     counts = pair_counts(mgrid, minp, mstate.n_liquid)
     bound = bounds(mgrid, counts, k_fields=11)
-    log(f"[phase 4] pairs within h at M={mgrid.n}: {counts}")
+    rows = mgrid.n
+    log(f"[phase 4] pairs within h at M={rows}: {counts}")
     for name, (ms, by) in bound.items():
         log(f"  {name}: bound {ms:.4f} ms by {by}; kernel "
             f"{times[name][0] / ms:.1f}x its bound")
 
+    # ---- phase 5: surface reconstruction at full width --------------------
+    del mgrid, minp, cases, mcount
+    torch.cuda.empty_cache()
+    surf_launches, surf_times, surf_bound, surface = surface_full_width(
+        mstate, mcfg, chk, card)
+    for name in SURFACE_KERNELS:
+        launches[name] = surf_launches[name]
+        log(f"  {name}: bound {surf_bound[name][0]:.4f} ms by "
+            f"{surf_bound[name][1]}; kernel "
+            f"{surf_times[name][0] / surf_bound[name][0]:.1f}x its bound")
+    times.update({k: v[:2] for k, v in surf_times.items()})
+    bound.update(surf_bound)
+    library = {k: v[2] for k, v in grid_times.items()}
+    # torch.linalg.eigh in one call; None where the card refuses the batch
+    library["aniso_g"] = surf_times["aniso_g"][2]
+
     # no single PyTorch call computes a neighbour sweep over a cell list (or
-    # the list itself): library yardsticks only for the grid stage
+    # the list itself, or the surface's field or moments over the cells'
+    # windows): library yardsticks for the grid stage and for aniso_g
+    # (torch.linalg.eigh of the same matrices)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": chk.max_abs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bound[name][0], "bound_by": bound[name][1],
-         "library_ms": grid_times[name][2] if name in grid_times else None}
+         "library_ms": library.get(name)}
         for name, (src, rep, _) in [
             *engine.KERNELS.items(),
             *[(n, (src, "none: " + what, tw))
               for n, (src, what, tw) in engine.OWN_KERNELS.items()]]],
-        "card": card, "rows": mgrid.n, "pairs": counts,
+        "card": card, "rows": rows, "pairs": counts,
         "grid_stage_device_ms": {k: v[3] for k, v in grid_times.items()},
         "grid_stage_kernels_per_call": {k: v[4]
                                         for k, v in grid_times.items()},
-        "paths": path_records}
+        "paths": path_records, "surface": surface}
     log(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -194,15 +194,17 @@ def _cuda_entries():
     return entries, src
 
 
-# the port's own kernels (no TPU counterpart): the grid stage and the list
+# the port's own kernels (no TPU counterpart): the grid stage, the list and
+# the surface reconstruction's field and anisotropy moments and matrices
 OWN_KERNEL_NAMES = ["bin_cells", "pack_rows", "unpack_rows",
-                    "nbr_list_offsets", "nbr_list_fill"]
+                    "nbr_list_offsets", "nbr_list_fill", "mc_field",
+                    "aniso_moments", "aniso_g"]
 
 
 def test_kernel_tables_list_the_same_entries():
     """KERNELS has the 15 counterparts of TPU kernels and OWN_KERNELS the
-    port's own (the bin, pack, unpack, and the neighbour list's offsets and
-    fill); LAUNCHES and _SIGNATURES have the names of both, and they are
+    port's own (the bin, pack, unpack, the neighbour list's offsets and
+    fill, and the surface's field, anisotropy moments and G); LAUNCHES and _SIGNATURES have the names of both, and they are
     exactly the ``extern "C"`` entries of csrc/.  Each of the port's own
     has a wrapper of its name, a source that defines its entry, a plain
     twin and a ctypes signature with as many parameters as the entry."""

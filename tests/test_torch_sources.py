@@ -50,7 +50,14 @@ SOURCES = [
     "wcsph_tpu_torch/solvers/pcisph.py",
     "wcsph_tpu_torch/solvers/sesph.py",
     "wcsph_tpu_torch/state.py",
+    "wcsph_tpu_torch/surface/__init__.py",
+    "wcsph_tpu_torch/surface/aniso.py",
+    "wcsph_tpu_torch/surface/field.py",
+    "wcsph_tpu_torch/surface/mc.py",
+    "wcsph_tpu_torch/surface/reconstruction.py",
+    "wcsph_tpu_torch/surface/tables.py",
     "wcsph_tpu_torch/utils/__init__.py",
+    "wcsph_tpu_torch/utils/debug_export.py",
     "wcsph_tpu_torch/utils/mat3.py",
     "wcsph_tpu_torch/utils/objio.py",
     "wcsph_tpu_torch/viscosity.py",
@@ -84,7 +91,8 @@ def test_source_imports_no_jax(source):
 
 CSRC = ROOT / "wcsph_tpu_torch" / "csrc"
 # the kernel sources, as SOURCES lists the Python ones
-CUDA_SOURCES = ["bin.cu", "common.cuh", "solver_sweeps.cu", "sweeps.cu"]
+CUDA_SOURCES = ["bin.cu", "common.cuh", "solver_sweeps.cu", "surface.cu",
+                "sweeps.cu"]
 # the C entries of csrc/bin.cu that launch once, and their Python wrappers
 ONE_LAUNCH = ["nbr_list_offsets", "pack_rows", "unpack_rows"]
 # the most launches of the bin's C entry, those of its static helpers

@@ -679,3 +679,182 @@ def fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, pr: torch.Tensor,
     acc = -torch.zeros((3, m), dtype=vals.dtype,
                        device=vals.device).index_add_(-1, p.i[keep], vals)
     return adv, acc, torch.sum(liq * excess)
+
+
+# ---------------------------------------------------------------------------
+# Surface reconstruction (twins of mc_field and aniso_moments in
+# csrc/surface.cu) and the debug color field
+# ---------------------------------------------------------------------------
+
+MC_SUB = 4    # reconstruction points per grid cell and axis
+FIELD_TERMS = 1 << 26   # (point, candidate) terms the plain field holds at
+                        # once: points are taken in chunks of this size
+
+
+def field_offsets(cfg: SimConfig) -> np.ndarray:
+    """(MC_SUB,) float32 offsets of the reconstruction points along one
+    axis of a cell: k h / MC_SUB, rounded once (``_point_offsets`` of
+    ``wcsph_tpu/surface/field.py``).  Point p = (a, b, c), p = 16 a + 4 b +
+    c, of cell (cx, cy, cz) lies at dmin + c_axis h + offset."""
+    return (np.arange(MC_SUB) * (cfg.cell_size / MC_SUB)).astype(np.float32)
+
+
+def _field_terms(grid: Grid, x: torch.Tensor, coeff: torch.Tensor,
+                 g: torch.Tensor | None):
+    """Yields (p0, p1, cell (Q,), terms (p1 - p0, Q)): the terms
+    coeff_j W of points p0 .. p1 - 1 of every cell, over the (cell,
+    candidate) pairs of the cells' 27-cell windows (the binning of
+    ``grid``) whose candidate has coeff != 0, evaluated at ``x`` and, with
+    ``g`` (9, M) row-major, at |2 G_j r|."""
+    cfg = grid.cfg
+    gx, gy, gz = cfg.grid_res
+    nc = cfg.num_cells
+    dev = grid.device
+    start = grid.cell_start.to(torch.int64)
+    cells = torch.arange(nc, device=dev)
+    cz = cells % gz
+    cy = (cells // gz) % gy
+    cx = cells // (gy * gz)
+    z0 = torch.clamp(cz - 1, min=0)
+    z1 = torch.clamp(cz + 1, max=gz - 1)
+    cc, jj = [], []
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            nx, ny = cx + dx, cy + dy
+            ok = (nx >= 0) & (nx < gx) & (ny >= 0) & (ny < gy)
+            base = (nx.clamp(0, gx - 1) * gy + ny.clamp(0, gy - 1)) * gz
+            jb = start[base + z0]
+            cnt = torch.where(ok, start[base + z1 + 1] - jb, 0)
+            total = int(cnt.sum())
+            c = torch.repeat_interleave(cells, cnt, output_size=total)
+            first = torch.cumsum(cnt, 0) - cnt
+            j = (torch.repeat_interleave(jb - first, cnt, output_size=total)
+                 + torch.arange(total, device=dev))
+            keep = coeff[j] != 0.0
+            cc.append(c[keep])
+            jj.append(j[keep])
+    c, j = torch.cat(cc), torch.cat(jj)
+    dmin = torch.tensor(cfg.domain_min, dtype=torch.float32, device=dev)
+    step = torch.tensor(np.float32(cfg.cell_size), device=dev)
+    origin = (dmin[:, None] + torch.stack([cx, cy, cz]).to(torch.float32)
+              * step)[:, c]                                    # (3, Q)
+    off = torch.as_tensor(field_offsets(cfg), device=dev)
+    xj, cj = x[:, j], coeff[j]
+    gj = None if g is None else g[:, j]
+    n_pt = MC_SUB ** 3
+    chunk = max(1, min(n_pt, FIELD_TERMS // max(int(c.shape[0]), 1)))
+    for p0 in range(0, n_pt, chunk):
+        p = torch.arange(p0, min(p0 + chunk, n_pt), device=dev)
+        pts = torch.stack([off[p // (MC_SUB * MC_SUB)],
+                           off[(p // MC_SUB) % MC_SUB], off[p % MC_SUB]])
+        r = origin[:, None, :] + pts[:, :, None] - xj[:, None, :]  # (3, P, Q)
+        if gj is None:
+            d2 = r[0] * r[0] + r[1] * r[1] + r[2] * r[2]
+        else:
+            gr = [2.0 * (gj[3 * a][None] * r[0] + gj[3 * a + 1][None] * r[1]
+                         + gj[3 * a + 2][None] * r[2]) for a in range(3)]
+            d2 = gr[0] * gr[0] + gr[1] * gr[1] + gr[2] * gr[2]
+        w = kernels.cubic_w_scalar(torch.sqrt(torch.clamp(d2, min=0.0)),
+                                   cfg.support_radius)
+        yield p0, p0 + p.shape[0], c, cj[None] * w
+
+
+def mc_field(grid: Grid, x: torch.Tensor, coeff: torch.Tensor,
+             g: torch.Tensor | None = None) -> torch.Tensor:
+    """The scalar field phi = sum_j coeff_j W(|p - x_j|, h) (with ``g``:
+    W(|2 G_j (p - x_j)|, h)) at the MC_SUB^3 points of every grid cell,
+    over the candidates of the cell's 27-cell window, in the dense layout
+    (gx MC_SUB, gy MC_SUB, gz MC_SUB) of ``field_to_dense``
+    (``mc_field_packed`` of ``wcsph_tpu/surface/field.py``)."""
+    gx, gy, gz = grid.cfg.grid_res
+    s = MC_SUB
+    phi = torch.zeros((s ** 3, grid.cfg.num_cells), dtype=torch.float32,
+                      device=grid.device)
+    for p0, p1, c, terms in _field_terms(grid, x, coeff, g):
+        phi[p0:p1].index_add_(1, c, terms)
+    return (phi.reshape(s, s, s, gx, gy, gz).permute(3, 0, 4, 1, 5, 2)
+            .reshape(gx * s, gy * s, gz * s))
+
+
+def mc_field_terms(grid: Grid, x: torch.Tensor, coeff: torch.Tensor,
+                   g: torch.Tensor | None = None) -> int:
+    """The terms of ``mc_field`` that are not zero: (point, particle)
+    pairs within the kernel's support, with coeff != 0."""
+    return sum(int((t != 0.0).sum()) for *_, t in _field_terms(
+        grid, x, coeff, g))
+
+
+def aniso_moments(grid: Grid) -> torch.Tensor:
+    """(11, M) at liquid receivers (0 elsewhere), over the pairs within h
+    (self excluded): [sum w, sum w x_j (3), sum w d_a d_b (xx, xy, xz, yy,
+    yz, zz), count], w = liq_j (1 - (|r| / 2h)^3), d = x_j - mean_i about
+    the weighted mean mean_i = sum w x_j / max(sum w, 1e-12) (x_i where
+    sum w = 0), count = the pairs, boundary neighbours too
+    (``compute`` of ``wcsph_tpu/surface/aniso.py``, its two passes)."""
+    p = pairs_of(grid)
+    m = grid.n
+    dist = torch.sqrt(torch.clamp(p.d2, min=0.0))
+    q = dist / (2.0 * grid.cfg.support_radius)
+    liq_i = grid.liq[p.i]
+    w = liq_i * p.liq_j * (1.0 - q * q * q)
+    xj = grid.pos[:, p.j]
+    first = _sum(p, m, torch.cat([w[None], w * xj]))
+    sw = first[0]
+    mean = torch.where(sw > 0.0, first[1:4] / torch.clamp(sw, min=1e-12),
+                       grid.pos)
+    d = xj - mean[:, p.i]
+    second = _sum(p, m, torch.stack(
+        [w * d[a] * d[b]
+         for a, b in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))]
+        + [liq_i]))
+    return torch.cat([first, second])
+
+
+EIG_CHUNK = 16384   # matrices a torch.linalg.eigh call takes here: on the
+                    # card its batched cuSOLVER call refuses the flagship's
+                    # 1.1M at once (CUSOLVER_STATUS_INVALID_VALUE)
+
+
+def aniso_g(grid: Grid, mom: torch.Tensor, kr: float, ks: float, kn: float,
+            min_neighbors: int) -> torch.Tensor:
+    """(9, M) row-major G from ``aniso_moments``' sums (the spectral clamp
+    of ``wcsph_tpu/surface/aniso.py``, ParticleData.py:246-278): the
+    covariance c = sums / max(sum w, 1e-12), its eigenvalues ascending,
+    s0 the largest, the others clamped from below to s0 / kr, G = R
+    diag(1 / (ks s~)) R^T; kn I where the row is not liquid, has at most
+    ``min_neighbors`` neighbours, or s0 <= 0."""
+    xx, xy, xz, yy, yz, zz = mom[4:10] / torch.clamp(mom[0], min=1e-12)
+    cov = torch.stack([torch.stack([xx, xy, xz], -1),
+                       torch.stack([xy, yy, yz], -1),
+                       torch.stack([xz, yz, zz], -1)], -2)      # (M, 3, 3)
+    parts = [torch.linalg.eigh(c) for c in torch.split(cov, EIG_CHUNK)]
+    eigval = torch.cat([p[0] for p in parts])
+    eigvec = torch.cat([p[1] for p in parts])
+    s0 = eigval[:, 2]
+    s1 = torch.maximum(eigval[:, 1], s0 / kr)
+    s2 = torch.maximum(eigval[:, 0], s0 / kr)
+    inv = torch.stack([1.0 / (ks * torch.clamp(s2, min=1e-20)),
+                       1.0 / (ks * torch.clamp(s1, min=1e-20)),
+                       1.0 / (ks * torch.clamp(s0, min=1e-20))], -1)
+    gm = torch.einsum("mij,mj,mkj->mik", eigvec, inv, eigvec)
+    ok = (mom[10] > min_neighbors) & (s0 > 0.0) & grid.liquid
+    eye = torch.eye(3, dtype=torch.float32, device=mom.device) * kn
+    return torch.where(ok[:, None, None], gm, eye).reshape(-1, 9).T
+
+
+def color_field(grid: Grid, rho: torch.Tensor):
+    """Smoothed color function c_i and its normalized gradient, a surface
+    indicator, at every row: (color (M,), grad (3, M)) (``color_field`` of
+    ``wcsph_tpu/dense_ops.py``, ParticleData.compute_color_map).  A liquid
+    neighbour weighs m / max(rho_j, 1), a boundary one its Akinci volume;
+    the gradient sums liquid neighbours only."""
+    cfg = grid.cfg
+    p = pairs_of(grid)
+    m = cfg.liquid_mass
+    rinv = m / torch.clamp(rho, min=1.0)
+    coeff = torch.where(p.liq_j != 0.0, rinv[p.j], cfg.solid_volume)
+    color = (rinv * kernels.cubic_w0(cfg.support_radius)
+             + _sum(p, grid.n, coeff * p.w))
+    c = p.liq_j * rinv[p.j] * color[p.j] * p.gs
+    grad = _sum(p, grid.n, c * p.r) / torch.clamp(color, min=1e-12)[None]
+    return color, grad

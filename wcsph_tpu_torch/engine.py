@@ -48,6 +48,14 @@ the grid has no list; their plain twins need none.  From the positions to
 the filled list no wrapper reads anything back to the host (the list's
 first fill sizes its buffer: one read).
 
+The surface reconstruction has three kernels of its own (``OWN_KERNELS``,
+``csrc/surface.cu``; XLA in the JAX package): ``mc_field``,
+the scalar field at the reconstruction points, one block per grid cell
+over its 27-cell window, plain or anisotropic; ``aniso_moments``, the
+anisotropy estimator's weighted mean and covariance sums, two launches of
+one cell scan; and ``aniso_g``, its matrices G, a 3x3 eigendecomposition
+per row.
+
 K8's pairs are those at PCISPH's moved positions, new in every iteration:
 its first sweep cuts the cells' candidates there and writes its hits into
 a buffer of a uniform width (``grid.StarHits``, in the step's kept
@@ -99,6 +107,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _SRC = "wcsph_tpu_torch/csrc/sweeps.cu"
 _SRC2 = "wcsph_tpu_torch/csrc/solver_sweeps.cu"
 _BIN = "wcsph_tpu_torch/csrc/bin.cu"
+_SURF = "wcsph_tpu_torch/csrc/surface.cu"
 _ENG = "wcsph_tpu/pallas/engine.py:"
 _SYM = _ENG + "441 (_build_sweep_sym, emit "
 _ONE = _ENG + "279 (_build_sweep, emit "
@@ -150,6 +159,16 @@ OWN_KERNELS = {
                       "k1_visc_init, k1_vorticity, K4, K7, IISPH's K5 "
                       "entries and K6 walk",
                       dense_ops.neighbor_list),
+    "mc_field": (_SURF, "the surface's scalar field at the reconstruction "
+                 "points, plain and anisotropic (XLA's window sweep, "
+                 "wcsph_tpu/surface/field.py:57)", dense_ops.mc_field),
+    "aniso_moments": (_SURF, "the anisotropy estimator's weighted mean and "
+                      "covariance sums (XLA's two window sweeps, "
+                      "wcsph_tpu/surface/aniso.py:45)",
+                      dense_ops.aniso_moments),
+    "aniso_g": (_SURF, "the anisotropy estimator's matrices G from its "
+                "moments (XLA's batched eigh, wcsph_tpu/surface/aniso.py:"
+                "105)", dense_ops.aniso_g),
 }
 LAUNCHES = {name: 0 for name in (*KERNELS, *OWN_KERNELS)}
 # steps run again because their neighbour list outgrew its slot buffer
@@ -227,6 +246,9 @@ _SIGNATURES = {
     "unpack_rows": [_I, _I, _P, _P, *[_P, _I] * PACK_SOURCES,
                     *[_P] * PACK_SOURCES, _P],
     "nbr_list_offsets": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "mc_field": [_G, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _P, _P],
+    "aniso_moments": [_G, _P, _P],
+    "aniso_g": [_I, _P, _P, _F, _F, _F, _I, _P, _P],
 }
 
 _lib = None
@@ -853,6 +875,63 @@ def k8_fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, p: torch.Tensor,
             acc.data_ptr(), partials.data_ptr(), err.data_ptr(), _stream())
     grid.star = hits
     return adv, acc, err
+
+
+# ---------------------------------------------------------------------------
+# Surface reconstruction (csrc/surface.cu)
+# ---------------------------------------------------------------------------
+
+def mc_field(grid: Grid, x: torch.Tensor, coeff: torch.Tensor,
+             g: torch.Tensor | None = None) -> torch.Tensor:
+    """The surface's scalar field at the reconstruction points, dense
+    (gx MC_SUB, gy MC_SUB, gz MC_SUB) (``dense_ops.mc_field``): positions
+    ``x`` (3, M), coefficients ``coeff`` (M,) (0 for a row that does not
+    contribute) and, anisotropic, G (9, M); the candidates are those of
+    the grid's cells."""
+    if not _route(x):
+        return dense_ops.mc_field(grid, x, coeff, g)
+    cfg = grid.cfg
+    m = grid.n
+    operands = [x, coeff] + ([] if g is None else [g])
+    _check(*operands, shapes=[(3, m), (m,), (9, m)])
+    s = dense_ops.MC_SUB
+    shape = tuple(n * s for n in cfg.grid_res)
+    if math.prod(shape) >= 2 ** 31:
+        raise ValueError(f"a dense field of {shape} points is too many for "
+                         "the kernel's 32-bit indices")
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    off = dense_ops.field_offsets(cfg)
+    dmin = [float(np.float32(v)) for v in cfg.domain_min]
+    _launch("mc_field", ctypes.byref(_geom(grid)), x.data_ptr(),
+            coeff.data_ptr(), None if g is None else g.data_ptr(), *dmin,
+            float(np.float32(cfg.cell_size)), *map(float, off[1:]),
+            out.data_ptr(), _stream())
+    return out
+
+
+def aniso_moments(grid: Grid) -> torch.Tensor:
+    """(11, M) weighted moments of the anisotropy estimator at liquid rows
+    (``dense_ops.aniso_moments``), in two launches of one kernel."""
+    if not _route(grid.pos):
+        return dense_ops.aniso_moments(grid)
+    out = torch.empty((11, grid.n), dtype=torch.float32, device=grid.device)
+    _launch("aniso_moments", ctypes.byref(_geom(grid)), out.data_ptr(),
+            _stream())
+    return out
+
+
+def aniso_g(grid: Grid, mom: torch.Tensor, kr: float, ks: float, kn: float,
+            min_neighbors: int) -> torch.Tensor:
+    """(9, M) row-major G of the anisotropy estimator from the (11, M)
+    moments of ``aniso_moments`` (``dense_ops.aniso_g``)."""
+    if not _route(mom):
+        return dense_ops.aniso_g(grid, mom, kr, ks, kn, min_neighbors)
+    m = grid.n
+    _check(mom, grid.liq, shapes=[(11, m), (m,)])
+    out = torch.empty((9, m), dtype=torch.float32, device=mom.device)
+    _launch("aniso_g", m, mom.data_ptr(), grid.liq.data_ptr(), kr, ks, kn,
+            int(min_neighbors), out.data_ptr(), _stream())
+    return out
 
 
 # ---------------------------------------------------------------------------

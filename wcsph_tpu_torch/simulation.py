@@ -6,6 +6,8 @@ On a CUDA device every pair sweep of the step, and its bin, pack, unpack
 and neighbour list, run a hand kernel (``engine.py``); on the CPU the same
 step runs their plain PyTorch twins.
 Asking for CUDA where there is none raises, as PyTorch does.
+Its host views (``positions``, ``liquid_positions``, ``grid_stats``) return
+numpy values, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -15,9 +17,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import engine
 from .boundary import akinci_solid_volume_scale
 from .config import SimConfig
-from .grid import ListSlots
+from .grid import ListSlots, build_grid
 from .scene import Scene
 from .solvers import dfsph, iisph, pcisph, sesph
 from .state import FluidState, has_nan, init_state
@@ -70,6 +73,35 @@ class Simulation:
         for _ in range(n_steps):
             self.step()
         return self.state
+
+    # ---- host-side views (state is planar (3, n); host API is (n, 3)) ----
+    def positions(self) -> np.ndarray:
+        return self.state.pos.T.cpu().numpy()
+
+    def liquid_positions(self) -> np.ndarray:
+        return self.state.pos[:, : self.state.n_liquid].T.cpu().numpy()
+
+    def grid_stats(self) -> dict:
+        """Neighbour-structure diagnostics (reference get_max_neighbour /
+        max-cell-occupancy prints, HashGrid.py:127-152), in one host read:
+        the most neighbours of a liquid particle (the density sweep's
+        count), the most particles of a cell and the cells holding any.
+        The port caps no cell: ``cell_capacity`` is the configured (inert)
+        value and ``overflow`` is 0."""
+        grid = build_grid(self.state.pos, self.state.n_liquid, self.cfg)
+        _, count = engine.density(grid)
+        occ = grid.cell_start[1:] - grid.cell_start[:-1]
+        max_nbr, max_occ, nonempty = torch.stack([
+            torch.where(grid.liquid, count, 0).max(), occ.max(),
+            (occ > 0).sum()]).tolist()
+        return {
+            "max_neighbors": max_nbr,
+            "max_cell_occupancy": max_occ,
+            "cell_capacity": self.cfg.cell_capacity,
+            "nonempty_cells": nonempty,
+            "num_cells": self.cfg.num_cells,
+            "overflow": 0,
+        }
 
     def telemetry(self) -> dict:
         s = self.state

@@ -1,7 +1,8 @@
-"""Wavefront OBJ reader (vertices + triangle faces), pure numpy.
+"""Wavefront OBJ reader and writer (vertices + triangle faces), pure numpy.
 
-``load_obj`` of ``wcsph_tpu/utils/objio.py``, without its optional native
-parser.
+``load_obj``, ``save_obj`` and ``save_point_cloud`` of
+``wcsph_tpu/utils/objio.py``, without its optional native parser and
+writer.
 """
 
 from __future__ import annotations
@@ -35,3 +36,19 @@ def load_obj(path: str) -> Tuple[np.ndarray, np.ndarray]:
     v = np.asarray(verts, dtype=np.float32) if verts else np.zeros((0, 3), np.float32)
     f_arr = np.asarray(faces, dtype=np.int32) if faces else np.zeros((0, 3), np.int32)
     return v, f_arr
+
+
+def save_obj(path: str, vertices: np.ndarray,
+             faces: np.ndarray | None = None) -> None:
+    """Write vertices (and optional 0-based triangle faces) to an OBJ file."""
+    vertices = np.asarray(vertices, np.float32)
+    with open(path, "w") as f:
+        for v in vertices:
+            f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+        if faces is not None:
+            for tri in np.asarray(faces):
+                f.write(f"f {tri[0] + 1} {tri[1] + 1} {tri[2] + 1}\n")
+
+
+def save_point_cloud(path: str, points: np.ndarray) -> None:
+    save_obj(path, points, None)
