@@ -72,7 +72,25 @@ its own lines and raising on failure:
    ms a call (CUDA events) of the density sweep, the three kernels and
    their twins, ``torch.linalg.eigh`` of aniso_g's matrices, both
    extractor runs and the whole ``reconstruct(on_device=True)``, the host
-   extractor's seconds, and the kernels' bounds.
+   extractor's seconds, and the kernels' bounds;
+6. the mesh-scene tooling: the sampler's phase kernel against its twin
+   (``poisson_phase``: the kernel-driven and the twin-driven sampler on the
+   showcase's weir tank at r = 0.025, two z-chunks, bit for bit, order
+   included) and the rasterizer's (``splat_points`` on the 1M state at
+   512x512, radius 3, bit for bit), with the splat's times beside its twin
+   and ``scatter_reduce_`` of the same keys; then the showcase path
+   (``wcsph_tpu_torch.examples.run_showcase``): its shell sampled on the
+   card at r = 0.0125 (12 chunks, 3,240 phase launches), 126,900 liquid
+   particles, DFSPH with tension and adhesion for 120 frames x 8 steps, a
+   768x512 frame every 10 frames through ``Canvas`` written as PNG under
+   out/showcase, one anisotropic reconstruct, the launch counts set to 0
+   just before and read just after; gates: the shell within 0.5% of the
+   committed shell's 106,734 points, every point within 1e-4 of its face,
+   no two points of one face closer than 0.999 r, no NaN, overflow 0, no
+   wall leak; the run's numbers beside benchmarks/showcase.json's; then
+   the sampler at r = 0.0125 again, whole and its phase launches alone,
+   and once more through the twin, which counts the work of the phase
+   kernel's bound and must give the same shell.
 
 The line before the last is one JSON object with the per-kernel record;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -883,6 +901,399 @@ def surface_full_width(state, cfg, chk, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the mesh-scene tooling, the showcase end to end
+# ---------------------------------------------------------------------------
+
+TOOLING_KERNELS = ("poisson_phase", "splat_points")
+# the JAX package's record of the showcase (a TPU run: its shell is the
+# committed asset; only its counts and physics are compared here)
+SHOWCASE_RECORD = os.path.join(HERE, "benchmarks", "showcase.json")
+SHOWCASE_SHELL = os.path.join(HERE, "examples", "assets",
+                              "showcase_shell_0.0125.npy")
+SHELL_COUNT_TOL = 0.005       # the port's shell within 0.5% of its count
+SHELL_ON_MESH = 1e-4          # every point this close to its face
+SHELL_SPACING = 0.999         # no two points of one face closer than this r
+SPLAT_SIZE = 512
+SPLAT_RADIUS = 3
+# float32 operations of the splat a point: the projection's four rows (a
+# product, two fused multiply-adds, an add: 6 each), the three divides, the
+# screen position (3 a coordinate), the depth key 1 and the colours 3
+SPLAT_OPS = 4 * 6 + 3 + 2 * 3 + 1 + 3
+# float32 operations of one (candidate, accepted point) test of the
+# sampler: the difference 3, d^2 5, the floor and the square root 2, the
+# compare; the cross-face correction (the direction, two cosines, clips,
+# the arcsin quotient) is not counted, so the bound is a lower one
+PAIR_OPS = 11
+
+
+@contextlib.contextmanager
+def timed_calls(name):
+    """Time every call of ``engine.<name>`` (the wrapper: its kernel, or
+    its twin inside ``plain_twins``) between CUDA events; yields the list
+    that holds each call's ms once the block has ended."""
+    import torch
+
+    from wcsph_tpu_torch import engine
+
+    real = getattr(engine, name)
+    events, ms = [], []
+
+    def timed(*args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(*args)
+        b.record()
+        events.append((a, b))
+        return out
+
+    setattr(engine, name, timed)
+    try:
+        yield ms
+    finally:
+        setattr(engine, name, real)
+        torch.cuda.synchronize()
+        ms.extend(a.elapsed_time(b) for a, b in events)
+
+
+def phase_work(verts, faces, radius):
+    """Sample with the plain twin on the card, timing each of its phase
+    steps (CUDA events around the twin alone) and counting per step the
+    candidates tried, the (candidate, accepted point) pairs tested, the
+    accepted points those pairs read (each once a step) and the
+    candidates accepted: the work the bound counts.  Returns (positions,
+    faces, totals, the twin's step times in ms)."""
+    import torch
+
+    from wcsph_tpu_torch import dense_ops, engine
+    from wcsph_tpu_torch.sampling import sample_surface
+
+    real = dense_ops.poisson_phase
+    parts, events = [], []
+
+    def counting(ch, phase, trial):
+        cells, _, pair, _, flat = dense_ops.phase_window(ch, phase, trial)
+        before = ch.acc_cnt.sum()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        real(ch, phase, trial)
+        b.record()
+        events.append((a, b))
+        parts.append(torch.stack([
+            torch.tensor(cells.shape[0], device=pair.device),
+            pair.sum(), torch.tensor(torch.unique(flat[pair]).numel(),
+                                     device=pair.device),
+            ch.acc_cnt.sum() - before]))
+
+    dense_ops.poisson_phase = counting
+    try:
+        with engine.plain_twins():
+            pos, fid = sample_surface(verts, faces, radius)
+    finally:
+        dense_ops.poisson_phase = real
+    torch.cuda.synchronize()
+    tot = torch.stack(parts).sum(0).tolist()
+    work = dict(zip(("tried", "pairs", "read", "accepted"), tot),
+                launches=len(parts))
+    return pos, fid, work, [a.elapsed_time(b) for a, b in events]
+
+
+def shell_gates(shell, fid, verts, faces, radius):
+    """The shell's gates: every point within SHELL_ON_MESH of its own face
+    (so of the mesh), and no two points of one face closer than
+    SHELL_SPACING r.  Returns (largest distance to the face, least
+    spacing of a face's pair / r)."""
+    import torch
+
+    dev = torch.device("cuda")
+    p = torch.as_tensor(shell, dtype=torch.float64, device=dev)
+    f = torch.as_tensor(faces.astype(np.int64), device=dev)[
+        torch.as_tensor(fid.astype(np.int64), device=dev)]
+    v = torch.as_tensor(verts, dtype=torch.float64, device=dev)
+    a, b, c = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+    n = torch.linalg.cross(b - a, c - a)
+    n = n / torch.linalg.norm(n, dim=1, keepdim=True)
+    off = (torch.sum((p - a) * n, 1)).abs()
+    # inside the triangle (up to the tolerance) by its three edges
+    inside = torch.ones_like(off, dtype=torch.bool)
+    for e0, e1 in ((a, b), (b, c), (c, a)):
+        side = torch.sum(torch.linalg.cross(e1 - e0, p - e0) * n, 1)
+        inside &= side / torch.linalg.norm(e1 - e0, dim=1) > -SHELL_ON_MESH
+    far = float(torch.where(inside, off, float("inf")).max())
+    if not far <= SHELL_ON_MESH:
+        raise AssertionError(f"shell: a point lies {far:.3e} from its face")
+    order = np.argsort(fid, kind="stable")
+    bounds = np.searchsorted(fid[order], np.arange(faces.shape[0] + 1))
+    ps = p[torch.as_tensor(order, device=dev)]
+    least = float("inf")
+    for k in range(faces.shape[0]):
+        q = ps[bounds[k]:bounds[k + 1]]
+        for r0 in range(0, q.shape[0], 4096):
+            d = torch.cdist(q[r0:r0 + 4096], q,
+                            compute_mode="donot_use_mm_for_euclid_dist")
+            d[torch.arange(d.shape[0], device=dev),
+              torch.arange(r0, r0 + d.shape[0], device=dev)] = float("inf")
+            if d.numel():
+                least = min(least, float(d.min()))
+    if not least >= SHELL_SPACING * radius:
+        raise AssertionError(f"shell: two points of one face are "
+                             f"{least:.6f} apart (r = {radius})")
+    return far, least / radius
+
+
+def splat_args(state):
+    """The rasterizer's operands on the 1M state: Canvas's colours (liquid
+    white, boundary grey) and radii (3 and 1 px), the showcase's camera
+    angles around the box."""
+    import torch
+
+    from wcsph_tpu_torch.render import Camera
+
+    n, nl = state.pos.shape[1], state.n_liquid
+    cols = torch.full((3, n), 0.3, dtype=torch.float32, device=state.pos.device)
+    cols[:, :nl] = 1.0
+    radii = torch.ones((n,), dtype=torch.int32, device=state.pos.device)
+    radii[:nl] = SPLAT_RADIUS
+    cam = Camera(SPLAT_SIZE, SPLAT_SIZE)
+    cam.yaw_cam(0.0, 0.0, 0.0)
+    cam.scale, cam.yaw, cam.pitch = 12.0, 0.45, 0.35
+    view, proj = cam.matrices()
+    return (state.pos, cols, radii, np.asarray(proj @ view, np.float32),
+            SPLAT_SIZE, SPLAT_SIZE, SPLAT_RADIUS, 0.0)
+
+
+def splat_library(args):
+    """(make_args, fn) of one ``scatter_reduce_`` call that computes the
+    splat's z-buffer, all three channels in one call, from the twin's
+    pixel indices and keys (``dense_ops.splat_keys``, made outside the
+    timing)."""
+    import torch
+
+    from wcsph_tpu_torch import dense_ops
+
+    pos, cols, radii, pv, w, h, rad, _ = args
+    flat, keys = dense_ops.splat_keys(pos, cols, radii, pv, w, h, rad)
+    idx = torch.cat([flat + c * (w * h + 1) for c in range(3)])
+    keys = keys.reshape(-1)
+
+    def make():
+        img = torch.full((3 * (w * h + 1),), dense_ops.BACKGROUND_KEY,
+                         dtype=torch.int64, device=pos.device)
+        return img, idx, keys
+
+    def fn(img, i, k):
+        return img.scatter_reduce_(0, i, k, "amin")
+
+    return make, fn
+
+
+def tooling_full_width(mstate, chk, card):
+    """Phase 6.  The sampler's phase kernel against its twin (kernel- and
+    twin-driven samplers on the weir tank at r = 0.025, bit for bit, order
+    included), the splat against its twin on the 1M state; then the path:
+    the showcase (``examples.run_showcase.run``: its shell sampled at r =
+    0.0125, 120 frames x 8 DFSPH + tension steps, a frame every 10 frames
+    through ``Canvas`` written as PNG under out/showcase, one anisotropic
+    reconstruct) with the launch counts set to 0 just before and read
+    just after; the shell's and the run's gates; the times.  Returns the
+    launches, per-kernel (ms, plain ms, library ms), bounds and record."""
+    import argparse
+
+    import torch
+
+    from wcsph_tpu_torch import dense_ops, engine
+    from wcsph_tpu_torch.bench import time_call
+    from wcsph_tpu_torch.examples import run_showcase as showcase
+    from wcsph_tpu_torch.sampling import sample_surface
+
+    verts, faces = showcase.vessel()
+    saved = dict(engine.LAUNCHES)
+    # -- the phase kernel against its twin: two whole samplers -------------
+    t0 = time.perf_counter()
+    pk, fk = sample_surface(verts, faces, 0.025)
+    k_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with engine.plain_twins(), timed_calls("poisson_phase") as twin_steps:
+        pt, ft = sample_surface(verts, faces, 0.025)
+    p_s = time.perf_counter() - t0
+    if pk.shape != pt.shape or not np.array_equal(fk, ft):
+        raise AssertionError(f"poisson_phase: kernel {pk.shape} and twin "
+                             f"{pt.shape} samplers differ (r = 0.025)")
+    chk.close("poisson_phase", torch.from_numpy(pk), torch.from_numpy(pt),
+              0.0, f" [weir tank r=0.025, {pk.shape[0]} points, order "
+                   "included]")
+    log(f"[phase 6] poisson_phase: the kernel-driven sampler equals the "
+        f"twin-driven one bit for bit at r = 0.025 ({pk.shape[0]} points, "
+        f"{len(twin_steps)} phase steps; {k_s:.3f} s and {p_s:.3f} s "
+        f"whole, first calls) on {card}")
+    # -- the splat against its twin on the 1M state ------------------------
+    args = splat_args(mstate)
+    a = engine.splat_points(*args)
+    with engine.plain_twins():
+        b = engine.splat_points(*args)
+    chk.close("splat_points", a, b, 0.0,
+              f" [1M, {SPLAT_SIZE}x{SPLAT_SIZE}, radius {SPLAT_RADIUS}]")
+    covered = float((a.sum(-1) > 0).float().mean())
+    make, lib = splat_library(args)
+    splat = {"ms": time_call(engine.splat_points, lambda: args, 20),
+             "plain_ms": time_call(dense_ops.splat_points, lambda: args, 3),
+             "library_ms": time_call(lib, make, 10)}
+    del make, lib
+    torch.cuda.empty_cache()
+    log(f"[phase 6] splat_points at {args[0].shape[1]} points, "
+        f"{SPLAT_SIZE}x{SPLAT_SIZE}, radius {SPLAT_RADIUS} on {card}: equal "
+        f"to its twin bit for bit ({covered:.1%} of the pixels covered); "
+        f"kernel {splat['ms']:.4f} ms, plain {splat['plain_ms']:.4f} ms, "
+        f"scatter_reduce_ of the same keys (library) "
+        f"{splat['library_ms']:.4f} ms")
+    engine.LAUNCHES.update(saved)     # comparison launches are not the path's
+
+    # -- the path: the showcase ---------------------------------------------
+    out = os.path.join(HERE, "out", "showcase")
+    opts = argparse.Namespace(radius=0.0125, frames=120, steps_per_frame=8,
+                              small=False, export_surface=True,
+                              render_every=10, out=out, shell=None,
+                              device="cuda")
+    engine.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = showcase.run(opts)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(engine.LAUNCHES)
+    ran = {k: v for k, v in launches.items() if v}
+    log(f"[phase 6] showcase launches: {ran}")
+    must = ("poisson_phase", "splat_points", "bin_cells", "pack_rows",
+            "unpack_rows", "nbr_list_offsets", "nbr_list_fill",
+            "k1_density_alpha_drho", "k3_fused_iter_full",
+            "k6_fused_tension", "k5_density_alpha", *SURFACE_KERNELS)
+    missing = [k for k in must if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the showcase did not launch {missing}")
+    n_frames = len(rec["frames"])
+    if launches["splat_points"] != n_frames:
+        raise AssertionError(f"{n_frames} frames, "
+                             f"{launches['splat_points']} splat launches")
+
+    shell, fid = rec["shell"], rec["shell_fid"]
+    committed = np.load(SHOWCASE_SHELL)
+    row = np.dtype((np.void, 12))
+    matched = np.intersect1d(np.ascontiguousarray(shell).view(row),
+                             np.ascontiguousarray(committed).view(row)).size
+    far, least = shell_gates(shell, fid, verts, faces, 0.0125)
+    count_ok = abs(shell.shape[0] - committed.shape[0]) <= (
+        SHELL_COUNT_TOL * committed.shape[0])
+    log(f"[phase 6] showcase shell r = 0.0125: {shell.shape[0]} points "
+        f"against the committed {committed.shape[0]} (the JAX package's TPU "
+        f"shell), {matched / committed.shape[0]:.4%} of them matched "
+        f"exactly; {launches['poisson_phase']} phase launches, "
+        f"{rec['shell_s']:.3f} s (sampler with its host setup and the .npy "
+        f"save); farthest point {far:.2e} from its face, closest pair of "
+        f"one face {least:.5f} r")
+    if not count_ok:
+        raise AssertionError("shell count not within 0.5% of the committed "
+                             "shell's")
+    with open(SHOWCASE_RECORD) as f:
+        jax_rec = json.load(f)
+    if rec["max_overflow"] != 0:
+        raise AssertionError("showcase: overflow != 0")
+    surf = rec["surface"]
+    if not (surf["triangles"] > 0 and surf["finite"]):
+        raise AssertionError("showcase: no finite anisotropic surface")
+    steps_per_s = rec["steps"] / rec["steps_s"]
+    log(f"[phase 6] showcase on {card}: {rec['n_liquid']} liquid + "
+        f"{rec['n_solid']} boundary, {rec['steps']} DFSPH + tension steps in "
+        f"{rec['steps_s']:.2f} s ({steps_per_s:.2f} steps/s, "
+        f"{rec['n_liquid'] * steps_per_s:.4e} particle-steps/s, frames and "
+        f"host reads included); simulated {rec['sim_time']:.3f} s (JAX "
+        f"record {jax_rec['sim_time_s']}); no NaN, overflow 0, 0 wall leaks "
+        f"(record {jax_rec['wall_leaks']}); max pressure iterations "
+        f"{rec['max_pressure_iters']} (record "
+        f"{jax_rec['max_pressure_iters']}), max density error "
+        f"{rec['max_density_error']:.4e} (record "
+        f"{jax_rec['max_density_error']}), max weir-crossed share "
+        f"{rec['max_crossed']:.4f} (record "
+        f"{jax_rec['max_crossed_weir_frac']}), max airborne ejecta "
+        f"{rec['max_ejecta']} (record {jax_rec['max_airborne_ejecta']}), "
+        f"most outside the walls' box at a frame {rec['outside_box']} (the "
+        f"JAX script's leak count), most gone over a side wall's top "
+        f"{rec['over_wall_top']} (crossings {rec['over_witness']}), max "
+        f"|v| {rec['max_vel']:.3f} (record {jax_rec['max_vel']}); "
+        f"{n_frames} frames {rec['frames'][0]} ... written; anisotropic "
+        f"surface {surf['triangles']} triangles in {surf['s']:.3f} s; the "
+        f"whole run {run_s:.2f} s")
+
+    # -- the splat against its twin on the path's frame ----------------------
+    saved = dict(engine.LAUNCHES)
+    canvas = showcase.showcase_canvas()
+    pos = rec["state"].pos
+    img = canvas.render(pos, rec["n_liquid"],
+                        liquid_color=showcase.LIQUID_COLOR)
+    with engine.plain_twins():
+        twin_img = canvas.render(pos, rec["n_liquid"],
+                                 liquid_color=showcase.LIQUID_COLOR)
+    w, h = canvas.camera.width, canvas.camera.height
+    chk.close("splat_points", torch.from_numpy(img),
+              torch.from_numpy(twin_img), 0.0,
+              f" [the showcase's last state, {pos.shape[1]} points, "
+              f"{w}x{h}, Canvas.render]")
+
+    # -- the sampler at full width: timed, then its work counted -------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timed_calls("poisson_phase") as kernel_ms:
+        again, _ = sample_surface(verts, faces, 0.0125)
+    whole_s = time.perf_counter() - t0
+    if not np.array_equal(again, shell):
+        raise AssertionError("the sampler gave another shell the second time")
+    twin, twin_fid, work, plain_ms = phase_work(verts, faces, 0.0125)
+    if not (np.array_equal(twin, shell) and np.array_equal(twin_fid, fid)):
+        raise AssertionError("poisson_phase: the kernel and twin samplers "
+                             "differ at r = 0.0125")
+    engine.LAUNCHES.update(saved)
+    # what a phase step must move: each tried candidate (its cell and
+    # index 8 B, position 12, normal 12, face 4), each accepted point its
+    # pairs read (28 B, once a step), each accepted candidate written (28
+    # B and its cell's count 4); the cells of the colour with nothing to
+    # try are not the function's work
+    n_l = work["launches"]
+    t_bytes = (36 * work["tried"] + 28 * work["read"]
+               + 32 * work["accepted"]) / PEAK_BYTES_PER_S
+    t_ops = PAIR_OPS * work["pairs"] / PEAK_FP32_FLOPS
+    n_pts = args[0].shape[1]
+    s_bytes = (4 * 7 * n_pts + 4 * 3 * SPLAT_SIZE ** 2) / PEAK_BYTES_PER_S
+    s_ops = SPLAT_OPS * n_pts / PEAK_FP32_FLOPS
+    bound = {"poisson_phase": (max(t_bytes, t_ops) * 1e3 / n_l,
+                               "bytes" if t_bytes >= t_ops else "operations"),
+             "splat_points": (max(s_bytes, s_ops) * 1e3,
+                              "bytes" if s_bytes >= s_ops else "operations")}
+    times = {"poisson_phase": (statistics.mean(kernel_ms),
+                               statistics.mean(plain_ms), None),
+             "splat_points": (splat["ms"], splat["plain_ms"],
+                              splat["library_ms"])}
+    log(f"[phase 6] the sampler at r = 0.0125 on {card}: whole "
+        f"{whole_s:.3f} s; its {len(kernel_ms)} phase launches alone "
+        f"{sum(kernel_ms):.3f} ms (CUDA events around each wrapper call: "
+        f"mean {statistics.mean(kernel_ms):.4f} ms, max "
+        f"{max(kernel_ms):.4f}); the twin-driven sampler gives the same "
+        f"shell (its {len(plain_ms)} phase steps: mean "
+        f"{statistics.mean(plain_ms):.4f} ms, sum {sum(plain_ms):.3f} ms); "
+        f"work {work}")
+    for name in TOOLING_KERNELS:
+        log(f"  {name}: bound {bound[name][0]:.6f} ms by {bound[name][1]}; "
+            f"kernel {times[name][0] / bound[name][0]:.1f}x its bound")
+    record = {"shell": {"points": int(shell.shape[0]),
+                        "committed": int(committed.shape[0]),
+                        "matched": int(matched), "shell_s": rec["shell_s"],
+                        "sampler_s": whole_s, "launches_ms": sum(kernel_ms),
+                        "far": far, "least_spacing_r": least, "work": work},
+              "showcase": {k: v for k, v in rec.items()
+                           if k not in ("shell", "shell_fid", "state")},
+              "splat": splat, "run_s": run_s}
+    return launches, times, bound, record
+
+
+# ---------------------------------------------------------------------------
 # The grid stage: bin, pack, unpack and the list's offsets, exactly
 # ---------------------------------------------------------------------------
 
@@ -1368,9 +1779,17 @@ def bounds(grid, counts, k_fields):
 
 # ---------------------------------------------------------------------------
 
+def phase_seconds(n, since):
+    """Log phase n's seconds since ``since``; return now."""
+    now = time.perf_counter()
+    log(f"[phase {n}] took {now - since:.1f} s")
+    return now
+
+
 def main():
     import torch
 
+    started = time.perf_counter()
     # ---- phase 0: device ------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1400,6 +1819,7 @@ def main():
             if "entry function" in line or "registers" in line:
                 log(f"  ptxas: {line.strip()}")
 
+    mark = phase_seconds(1, started)
     # ---- phase 2: kernels vs plain twins ----------------------------------
     r = 0.025
     side = 24
@@ -1432,6 +1852,7 @@ def main():
     check_dense(sim.cfg, side, chk)
     log("[phase 2] every kernel agrees with its plain twin")
 
+    mark = phase_seconds(2, mark)
     # ---- phase 3: whole steps -------------------------------------------
     from wcsph_tpu_torch import dam_break
 
@@ -1496,6 +1917,7 @@ def main():
                          ("dfsph", tension)):
         check_replay(solver, dev, over)
 
+    mark = phase_seconds(3, mark)
     # ---- phase 4: the paths at full width -----------------------------------
     # the kernels each path must launch
     visc = ("k1_visc_init", "k4_fused_visc_iter")
@@ -1570,7 +1992,7 @@ def main():
         del msim
         torch.cuda.empty_cache()
     missing = [k for k, v in launches.items()
-               if v <= 0 and k not in SURFACE_KERNELS]
+               if v <= 0 and k not in (*SURFACE_KERNELS, *TOOLING_KERNELS)]
     if missing:
         raise AssertionError(f"no full-width path launched {missing}")
 
@@ -1609,6 +2031,7 @@ def main():
         log(f"  {name}: bound {ms:.4f} ms by {by}; kernel "
             f"{times[name][0] / ms:.1f}x its bound")
 
+    mark = phase_seconds(4, mark)
     # ---- phase 5: surface reconstruction at full width --------------------
     del mgrid, minp, cases, mcount
     torch.cuda.empty_cache()
@@ -1625,10 +2048,25 @@ def main():
     # torch.linalg.eigh in one call; None where the card refuses the batch
     library["aniso_g"] = surf_times["aniso_g"][2]
 
+    mark = phase_seconds(5, mark)
+    # ---- phase 6: the mesh-scene tooling and the showcase ----------------
+    torch.cuda.empty_cache()
+    tool_launches, tool_times, tool_bound, tooling = tooling_full_width(
+        mstate, chk, card)
+    del mstate
+    for name in TOOLING_KERNELS:
+        launches[name] = tool_launches[name]
+        times[name] = tool_times[name][:2]
+        library[name] = tool_times[name][2]
+    bound.update(tool_bound)
+    phase_seconds(6, mark)
+    log(f"[phases] the whole script: {time.perf_counter() - started:.1f} s")
+
     # no single PyTorch call computes a neighbour sweep over a cell list (or
     # the list itself, or the surface's field or moments over the cells'
-    # windows): library yardsticks for the grid stage and for aniso_g
-    # (torch.linalg.eigh of the same matrices)
+    # windows, or a sampler's phase step): library yardsticks for the grid
+    # stage, for aniso_g (torch.linalg.eigh of the same matrices) and for
+    # splat_points (scatter_reduce_ of the same keys)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": chk.max_abs[name],
@@ -1643,7 +2081,7 @@ def main():
         "grid_stage_device_ms": {k: v[3] for k, v in grid_times.items()},
         "grid_stage_kernels_per_call": {k: v[4]
                                         for k, v in grid_times.items()},
-        "paths": path_records, "surface": surface}
+        "paths": path_records, "surface": surface, "tooling": tooling}
     log(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -194,17 +194,21 @@ def _cuda_entries():
     return entries, src
 
 
-# the port's own kernels (no TPU counterpart): the grid stage, the list and
-# the surface reconstruction's field and anisotropy moments and matrices
+# the port's own kernels (no TPU counterpart): the grid stage, the list,
+# the surface reconstruction's field and anisotropy moments and matrices,
+# the Poisson-disk sampler's phase step and the point rasterizer
 OWN_KERNEL_NAMES = ["bin_cells", "pack_rows", "unpack_rows",
                     "nbr_list_offsets", "nbr_list_fill", "mc_field",
-                    "aniso_moments", "aniso_g"]
+                    "aniso_moments", "aniso_g", "poisson_phase",
+                    "splat_points"]
 
 
 def test_kernel_tables_list_the_same_entries():
     """KERNELS has the 15 counterparts of TPU kernels and OWN_KERNELS the
     port's own (the bin, pack, unpack, the neighbour list's offsets and
-    fill, and the surface's field, anisotropy moments and G); LAUNCHES and _SIGNATURES have the names of both, and they are
+    fill, the surface's field, anisotropy moments and G, the sampler's
+    phase step and the rasterizer's splat); LAUNCHES and _SIGNATURES have
+    the names of both, and they are
     exactly the ``extern "C"`` entries of csrc/.  Each of the port's own
     has a wrapper of its name, a source that defines its entry, a plain
     twin and a ctypes signature with as many parameters as the entry."""
@@ -250,7 +254,8 @@ RETIRED_STRUCTS = {"Fields"}
 
 @pytest.mark.parametrize("struct,where", [
     ("Geom", "common.cuh"), ("TensionParams", "solver_sweeps.cu"),
-    ("Fields", "bin.cu")])
+    ("Fields", "bin.cu"), ("PhaseChunk", "sampling.cu"),
+    ("Splat", "render.cu")])
 def test_ctypes_mirror_follows_the_cuda_struct(struct, where):
     """The ctypes mirror lists the fields of the CUDA struct in order (an
     array field with the length of its ``constexpr int`` bound).  A struct
@@ -273,7 +278,8 @@ def test_ctypes_mirror_follows_the_cuda_struct(struct, where):
             ctype = (ctypes.c_void_p if "*" in decl else
                      ctypes.c_int if decl.startswith("int") else
                      ctypes.c_float)
-            rest = re.sub(r"^(const )?(float4|float|int)\*?", "", decl)
+            rest = re.sub(r"^(const )?(float4|float|int|unsigned)\*?", "",
+                          decl)
             for n in rest.split(","):
                 n = n.strip(" *")
                 dim = re.fullmatch(r"(\w+)\[(\w+)\]", n)

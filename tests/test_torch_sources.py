@@ -1,7 +1,9 @@
 """The port's source files, read as text (wcsph_tpu_torch, chip_smoke.py).
 
 No file of the port imports ``jax``, ``flax`` or the JAX package
-``wcsph_tpu``: the machine with the card has none of them.  One case per
+``wcsph_tpu``: the machine with the card has none of them; nor ``PIL``,
+which it does not have either (the port writes its PNG frames with the
+standard library).  One case per
 source file; nothing is imported here, so a worker that runs only these
 cases loads no torch.  (The same rule in a live interpreter:
 tests/test_torch_package.py::test_port_imports_no_jax.)
@@ -37,10 +39,18 @@ SOURCES = [
     "wcsph_tpu_torch/config.py",
     "wcsph_tpu_torch/dense_ops.py",
     "wcsph_tpu_torch/engine.py",
+    "wcsph_tpu_torch/examples/__init__.py",
+    "wcsph_tpu_torch/examples/run_dam_break.py",
+    "wcsph_tpu_torch/examples/run_live.py",
+    "wcsph_tpu_torch/examples/run_mesh_scene.py",
+    "wcsph_tpu_torch/examples/run_showcase.py",
+    "wcsph_tpu_torch/examples/sample_boundary.py",
     "wcsph_tpu_torch/grid.py",
     "wcsph_tpu_torch/kernels.py",
     "wcsph_tpu_torch/ops.py",
     "wcsph_tpu_torch/profile_paths.py",
+    "wcsph_tpu_torch/render.py",
+    "wcsph_tpu_torch/sampling.py",
     "wcsph_tpu_torch/scene.py",
     "wcsph_tpu_torch/simulation.py",
     "wcsph_tpu_torch/solvers/__init__.py",
@@ -57,9 +67,14 @@ SOURCES = [
     "wcsph_tpu_torch/surface/reconstruction.py",
     "wcsph_tpu_torch/surface/tables.py",
     "wcsph_tpu_torch/utils/__init__.py",
+    "wcsph_tpu_torch/utils/checkpoint.py",
     "wcsph_tpu_torch/utils/debug_export.py",
     "wcsph_tpu_torch/utils/mat3.py",
+    "wcsph_tpu_torch/utils/meshgen.py",
+    "wcsph_tpu_torch/utils/native.py",
     "wcsph_tpu_torch/utils/objio.py",
+    "wcsph_tpu_torch/utils/profiling.py",
+    "wcsph_tpu_torch/viewer.py",
     "wcsph_tpu_torch/viscosity.py",
 ]
 
@@ -85,14 +100,15 @@ def test_source_imports_no_jax(source):
             seen += 1
             assert n.split(".")[0] not in ("jax", "jaxlib", "flax",
                                            "wcsph_tpu"), n
+            assert n.split(".")[0] != "PIL", n
     # an __init__ may hold relative imports only
     assert seen or source.endswith("__init__.py")
 
 
 CSRC = ROOT / "wcsph_tpu_torch" / "csrc"
 # the kernel sources, as SOURCES lists the Python ones
-CUDA_SOURCES = ["bin.cu", "common.cuh", "solver_sweeps.cu", "surface.cu",
-                "sweeps.cu"]
+CUDA_SOURCES = ["bin.cu", "common.cuh", "render.cu", "sampling.cu",
+                "solver_sweeps.cu", "surface.cu", "sweeps.cu"]
 # the C entries of csrc/bin.cu that launch once, and their Python wrappers
 ONE_LAUNCH = ["nbr_list_offsets", "pack_rows", "unpack_rows"]
 # the most launches of the bin's C entry, those of its static helpers

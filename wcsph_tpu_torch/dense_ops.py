@@ -858,3 +858,259 @@ def color_field(grid: Grid, rho: torch.Tensor):
     c = p.liq_j * rinv[p.j] * color[p.j] * p.gs
     grad = _sum(p, grid.n, c * p.r) / torch.clamp(color, min=1e-12)[None]
     return color, grad
+
+
+# ---------------------------------------------------------------------------
+# Poisson-disk sampling (twin of poisson_phase in csrc/sampling.cu)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PhaseChunk:
+    """One z-chunk of the Poisson-disk sampler (``sampling.py``): every
+    candidate of the mesh, the chunk's own candidates sorted by cell, and
+    the points accepted so far per cell, updated in place by each phase.
+
+    Cell c = (cx gy + cy) gz + cz of the chunk's (gx, gy, gz) cells holds
+    candidates ``order[start[c]] .. order[start[c + 1] - 1]`` in candidate
+    order (a stable sort: rank in a cell is by candidate index), and the
+    points accepted into it in slots 0 .. acc_cnt[c] - 1 of the (3, A, NC)
+    and (A, NC) arrays."""
+
+    pts: torch.Tensor       # (3, N) float32 candidate positions
+    nrm: torch.Tensor       # (3, N) float32 their face normals
+    fid: torch.Tensor       # (N,) int32 their face ids
+    order: torch.Tensor     # (N,) int32 candidates by cell, own ones first
+    start: torch.Tensor     # (NC + 1,) int32 first sorted candidate a cell
+    res: tuple              # (gx, gy, gz) cells of the chunk
+    z0: int                 # the chunk's first cell plane in global z
+    radius: float           # minimum spacing r (compared in float32)
+    acc_p: torch.Tensor     # (3, A, NC) float32 accepted positions
+    acc_n: torch.Tensor     # (3, A, NC) float32 their normals
+    acc_f: torch.Tensor     # (A, NC) int32 their face ids, -1 in a free slot
+    acc_cnt: torch.Tensor   # (NC,) int32 points accepted a cell
+
+    @property
+    def accept_cap(self) -> int:
+        return self.acc_f.shape[0]
+
+
+# fdlibm's float atanf (atanhi / atanlo of atan(0.5) and atan(1), and the
+# odd and even coefficients aT), as float32 values
+_ATAN_HI = tuple(float(np.float32(v)) for v in (4.6364760399e-01,
+                                                7.8539812565e-01))
+_ATAN_LO = tuple(float(np.float32(v)) for v in (5.0121582440e-09,
+                                                3.7748947079e-08))
+_ATAN_T = tuple(float(np.float32(v)) for v in (
+    3.3333334327e-01, -2.0000000298e-01, 1.4285714924e-01,
+    -1.1111110449e-01, 9.0908870101e-02, -7.6918758452e-02,
+    6.6610731184e-02, -5.8335702866e-02, 4.9768779427e-02,
+    -3.6531571299e-02, 1.6285819933e-02))
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root rounded correctly (through float64): the CPU's
+    float32 torch.sqrt is off by an ulp for some inputs, where the card's
+    sqrtf and XLA's are not."""
+    return torch.sqrt(x.double()).float()
+
+
+def asin_f32(x: torch.Tensor) -> torch.Tensor:
+    """arcsin of float32 x in [-1, 1] with the bits of the JAX package's
+    on the CPU: XLA computes asin(x) = 2 atan2(x, 1 + sqrt((1 - x)(1 + x)))
+    and its atan2f is fdlibm's (glibc), whose steps for a quotient
+    q = |x| / den in [0, 1] are repeated here, one float32 operation at a
+    time (``asin_f32`` in csrc/sampling.cu is the same sequence)."""
+    t_ = _ATAN_T
+    den = sqrt_f32((1.0 - x) * (1.0 + x)) + 1.0
+    a = x.abs() / den
+    low = a < 0.4375                  # |q| < 7/16: no reduction
+    mid = a < 0.6875                  # 7/16 <= q < 11/16: about atan(0.5)
+    t = torch.where(low, a, torch.where(mid, (2.0 * a - 1.0) / (2.0 + a),
+                                        (a - 1.0) / (a + 1.0)))
+    z = t * t
+    w = z * z
+    s1 = z * (t_[0] + w * (t_[2] + w * (t_[4] + w * (t_[6] + w * (
+        t_[8] + w * t_[10])))))
+    s2 = w * (t_[1] + w * (t_[3] + w * (t_[5] + w * (t_[7] + w * t_[9]))))
+    hi = torch.where(mid, _ATAN_HI[0], _ATAN_HI[1])
+    lo = torch.where(mid, _ATAN_LO[0], _ATAN_LO[1])
+    r = torch.where(low, t - t * (s1 + s2), hi - ((t * (s1 + s2) - lo) - t))
+    r = torch.where(x < 0.0, -r, r)
+    r = torch.where(x == 0.0, x, r)
+    return r + r
+
+
+# the 5^3 window of a cell, dx outer and dz inner (the JAX package's _OFF5)
+OFF5 = np.stack(np.meshgrid(*([np.arange(-2, 3)] * 3), indexing="ij"),
+                -1).reshape(-1, 3)
+
+
+def phase_window(ch: PhaseChunk, phase: int, trial: int):
+    """The cells of colour ``phase`` whose ``trial``-th candidate is tried
+    (it exists and the cell has a free slot), that candidate, and the
+    geodesic test against every point accepted in the cell's in-box 5^3
+    window: (cells (K,), candidate index (K,), in-window pairs (A, 125, K),
+    hits (A, 125, K), the accepted slot of each pair, slot * NC + cell,
+    (A, 125, K))."""
+    gx, gy, gz = ch.res
+    nc = gx * gy * gz
+    cap = ch.accept_cap
+    dev = ch.acc_cnt.device
+    cx = torch.arange(phase % 3, gx, 3, device=dev)
+    cy = torch.arange((phase // 3) % 3, gy, 3, device=dev)
+    cz = torch.arange((phase // 9 - ch.z0) % 3, gz, 3, device=dev)
+    cells = ((cx[:, None, None] * gy + cy[None, :, None]) * gz
+             + cz[None, None, :]).reshape(-1)
+    start = ch.start.to(torch.int64)
+    s = start[cells] + trial
+    tried = (s < start[cells + 1]) & (ch.acc_cnt[cells] < cap)
+    cells, s = cells[tried], s[tried]
+    q = ch.order[s].to(torch.int64)
+    cp, cn, cf = ch.pts[:, q], ch.nrm[:, q], ch.fid[q]
+    off = torch.as_tensor(OFF5, device=dev)
+    nx = (cells // (gy * gz))[None] + off[:, 0:1]            # (125, K)
+    ny = ((cells // gz) % gy)[None] + off[:, 1:2]
+    nz = (cells % gz)[None] + off[:, 2:3]
+    inbox = ((nx >= 0) & (nx < gx) & (ny >= 0) & (ny < gy) & (nz >= 0)
+             & (nz < gz))
+    nb = torch.where(inbox, (nx * gy + ny) * gz + nz, 0)
+    slot = torch.arange(cap, device=dev)[:, None, None]
+    pair = inbox[None] & (slot < ch.acc_cnt[nb][None])     # (A, 125, K)
+    flat = slot * nc + nb[None]
+    ap = ch.acc_p.reshape(3, -1)[:, flat]                   # (3, A, 125, K)
+    an = ch.acc_n.reshape(3, -1)[:, flat]
+    af = ch.acc_f.reshape(-1)[flat]
+    d = cp[:, None, None, :] - ap
+    dist = sqrt_f32(torch.clamp(d[0] * d[0] + d[1] * d[1] + d[2] * d[2],
+                                min=1e-18))
+    v = d / dist
+    c1 = cn[0, None, None] * v[0] + cn[1, None, None] * v[1] \
+        + cn[2, None, None] * v[2]
+    c2 = an[0] * v[0] + an[1] * v[1] + an[2] * v[2]
+    c1 = torch.clamp(c1, -1.0, 1.0)
+    c2 = torch.clamp(c2, -1.0, 1.0)
+    diff = (c1 - c2).abs() > 1e-5
+    corr = torch.where(
+        diff, (asin_f32(c1) - asin_f32(c2)) / torch.where(diff, c1 - c2, 1.0),
+        1.0 / sqrt_f32(torch.clamp(1.0 - c1 * c1, min=1e-6)))
+    gdist = torch.where(af == cf[None, None], dist, dist * corr)
+    hit = pair & (gdist < float(np.float32(ch.radius)))
+    return cells, q, pair, hit, flat
+
+
+def poisson_phase(ch: PhaseChunk, phase: int, trial: int) -> None:
+    """One phase step of the sampler, in place (``_phase_step`` of
+    ``wcsph_tpu/sampling.py``): every cell of colour ``phase`` ((cx % 3) +
+    3 (cy % 3) + 9 ((cz + z0) % 3)) with a ``trial``-th candidate and a
+    free slot accepts it into slot acc_cnt unless it lies within r of a
+    point accepted in the in-box 5^3 window under the geodesic-corrected
+    distance (boundry.py:342-374): d = |x_c - x_a| (d^2 floored at 1e-18),
+    c1, c2 the two normals against the unit direction, clipped to [-1, 1];
+    across faces d (asin c1 - asin c2) / (c1 - c2) where |c1 - c2| > 1e-5,
+    else d / sqrt(max(1 - c1^2, 1e-6)); hit where that is < r.  Cells of
+    one colour are at least 3 cells apart, so none reads another's
+    write."""
+    cells, q, _, hit, _ = phase_window(ch, phase, trial)
+    ok = ~hit.any(dim=(0, 1))
+    cells, q = cells[ok], q[ok]
+    slot = ch.acc_cnt[cells].to(torch.int64)
+    ch.acc_p[:, slot, cells] = ch.pts[:, q]
+    ch.acc_n[:, slot, cells] = ch.nrm[:, q]
+    ch.acc_f[slot, cells] = ch.fid[q]
+    ch.acc_cnt[cells] += 1
+
+
+# ---------------------------------------------------------------------------
+# Point rasterizer (twin of splat_points in csrc/render.cu)
+# ---------------------------------------------------------------------------
+
+BACKGROUND_KEY = 0xFFFFFFFF   # a pixel channel no splat reached
+INV_255 = float(np.float32(1.0 / 255.0))   # XLA divides by 255 as a
+                                           # product with this
+PIXEL_CLAMP = float(1 << 20)  # rounded pixel centres are clamped to +-this
+                              # before the int conversion (far off-frame)
+
+
+def disk_stencil(radius_px: int) -> np.ndarray:
+    """(S, 2) int32 pixel offsets (i, j) with i^2 + j^2 <= radius_px^2, i
+    outer (``_disk_stencil`` of ``wcsph_tpu/render.py``)."""
+    r = radius_px
+    ij = [(i, j) for i in range(-r, r + 1) for j in range(-r, r + 1)
+          if i * i + j * j <= r * r]
+    return np.asarray(ij, np.int32)
+
+
+def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """float32 a b + c rounded once (a fused multiply-add, CUDA's fmaf):
+    the product is exact in float64, the sum's error is recovered exactly
+    (TwoSum), an inexact sum is rounded to odd, and that float64 rounds to
+    the float32 nearest to the exact a b + c."""
+    p = a.double() * b
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    e = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, float("inf"), float("-inf")).to(s.dtype)
+    return torch.where((e != 0) & even, torch.nextafter(s, toward), s).float()
+
+
+def splat_keys(points: torch.Tensor, colors: torch.Tensor,
+               radii: torch.Tensor, pv: np.ndarray, width: int, height: int,
+               radius_px: int):
+    """The splat's writes: (pixel (S N,) int64, keys (3, S N) int64) for
+    the S stencil offsets of every point, pixel = width * height where the
+    write falls outside the frame, the disk or NDC z in [0, 1]; see
+    ``splat_points``."""
+    dev = points.device
+    x, y, z = points[0], points[1], points[2]
+    p = [float(v) for v in np.asarray(pv, np.float32).reshape(-1)]
+    clip = [fma_f32(z, p[4 * r + 2], fma_f32(y, p[4 * r + 1], p[4 * r] * x))
+            + p[4 * r + 3] for r in range(4)]
+    zn = clip[2] / clip[3]
+    sx = (clip[0] / clip[3] + 1.0) * 0.5 * width
+    sy = (clip[1] / clip[3] + 1.0) * 0.5 * height
+    st = torch.as_tensor(disk_stencil(radius_px), device=dev)
+    r2 = (st[:, 0] * st[:, 0] + st[:, 1] * st[:, 1])[:, None]
+
+    def centre(s):
+        return torch.clamp(torch.round(s), -PIXEL_CLAMP,
+                           PIXEL_CLAMP).to(torch.int64)[None]
+
+    px = centre(sx) + st[:, 0:1]
+    py = centre(sy) + st[:, 1:2]
+    inside = ((px >= 0) & (px < width) & (py >= 0) & (py < height)
+              & ((zn >= 0.0) & (zn <= 1.0))[None]
+              & (r2 <= (radii.to(torch.int64) ** 2)[None]))
+    flat = torch.where(inside, py * width + px, width * height).reshape(-1)
+    zbits = (torch.clamp(zn, 0.0, 1.0) * 4.19e6).to(torch.int64) << 8
+    cb = torch.clamp(colors * 255.0, 0.0, 255.0).to(torch.int64)
+    keys = (zbits[None] | (255 - cb))[:, None].expand(3, st.shape[0], -1)
+    return flat, keys.reshape(3, -1)
+
+
+def splat_points(points: torch.Tensor, colors: torch.Tensor,
+                 radii: torch.Tensor, pv: np.ndarray, width: int,
+                 height: int, radius_px: int,
+                 background: float) -> torch.Tensor:
+    """(H, W, 3) float32 image of the (3, N) points (``_rasterize`` of
+    ``wcsph_tpu/render.py``): clip = pv (x, y, z, 1), each row as XLA's
+    dot forms it on the CPU, fma(p2, z, fma(p1, y, p0 x)) + p3; a point
+    with NDC z in [0, 1] splats the pixels of its disk stencil (radius_px,
+    and i^2 + j^2 <= radii^2) around its rounded screen position (half to
+    even); each channel keeps the least key (uint32(z 4.19e6) << 8) |
+    (255 - c), so the nearest point wins and, at equal depth, the
+    brightest; the image is (255 - key's low byte) times float32(1 / 255)
+    (XLA's form of the division), or ``background`` where nothing landed.
+    The keys are held in int64 and reduced with scatter_reduce_('amin')."""
+    flat, keys = splat_keys(points, colors, radii, pv, width, height,
+                            radius_px)
+    n_pix = width * height
+    img = torch.full((3, n_pix + 1), BACKGROUND_KEY, dtype=torch.int64,
+                     device=points.device)
+    for c in range(3):
+        img[c].scatter_reduce_(0, flat, keys[c], "amin")
+    img = img[:, :n_pix].T
+    color = (255 - (img & 0xFF)).to(torch.float32) * INV_255
+    out = torch.where(img != BACKGROUND_KEY, color, float(background))
+    return out.reshape(height, width, 3)

@@ -56,6 +56,14 @@ anisotropy estimator's weighted mean and covariance sums, two launches of
 one cell scan; and ``aniso_g``, its matrices G, a 3x3 eigendecomposition
 per row.
 
+The mesh-scene tooling has two kernels of its own (``OWN_KERNELS``; XLA in
+the JAX package): ``poisson_phase`` (``csrc/sampling.cu``), one phase step
+of the Poisson-disk boundary sampler, one thread per cell of the phase's
+colour over the points accepted in its 5^3 window, launched 27 times a
+trial per chunk; and ``splat_points`` (``csrc/render.cu``), the point
+rasterizer's z-buffered splat, one thread per point with an atomicMin per
+pixel channel.
+
 K8's pairs are those at PCISPH's moved positions, new in every iteration:
 its first sweep cuts the cells' candidates there and writes its hits into
 a buffer of a uniform width (``grid.StarHits``, in the step's kept
@@ -108,6 +116,8 @@ _SRC = "wcsph_tpu_torch/csrc/sweeps.cu"
 _SRC2 = "wcsph_tpu_torch/csrc/solver_sweeps.cu"
 _BIN = "wcsph_tpu_torch/csrc/bin.cu"
 _SURF = "wcsph_tpu_torch/csrc/surface.cu"
+_SAMPLE = "wcsph_tpu_torch/csrc/sampling.cu"
+_RENDER = "wcsph_tpu_torch/csrc/render.cu"
 _ENG = "wcsph_tpu/pallas/engine.py:"
 _SYM = _ENG + "441 (_build_sweep_sym, emit "
 _ONE = _ENG + "279 (_build_sweep, emit "
@@ -169,6 +179,12 @@ OWN_KERNELS = {
     "aniso_g": (_SURF, "the anisotropy estimator's matrices G from its "
                 "moments (XLA's batched eigh, wcsph_tpu/surface/aniso.py:"
                 "105)", dense_ops.aniso_g),
+    "poisson_phase": (_SAMPLE, "one phase step of the Poisson-disk boundary "
+                      "sampler (XLA's _phase_step, wcsph_tpu/sampling.py:"
+                      "117)", dense_ops.poisson_phase),
+    "splat_points": (_RENDER, "the point rasterizer's z-buffered splat "
+                     "(XLA's _rasterize, wcsph_tpu/render.py:111)",
+                     dense_ops.splat_points),
 }
 LAUNCHES = {name: 0 for name in (*KERNELS, *OWN_KERNELS)}
 # steps run again because their neighbour list outgrew its slot buffer
@@ -207,6 +223,31 @@ class _Geom(ctypes.Structure):
                 ("w_sigma", ctypes.c_float), ("gs_ml", ctypes.c_float),
                 ("nl_idx", ctypes.c_void_p), ("nl_off", ctypes.c_void_p),
                 ("nl_rec", ctypes.c_void_p)]
+
+
+class _PhaseChunk(ctypes.Structure):
+    """Mirror of ``struct PhaseChunk`` in csrc/sampling.cu."""
+
+    _fields_ = [("pts", ctypes.c_void_p), ("nrm", ctypes.c_void_p),
+                ("fid", ctypes.c_void_p), ("n", ctypes.c_int),
+                ("order", ctypes.c_void_p),
+                ("start", ctypes.c_void_p), ("gx", ctypes.c_int),
+                ("gy", ctypes.c_int), ("gz", ctypes.c_int),
+                ("z0", ctypes.c_int), ("r", ctypes.c_float),
+                ("cap", ctypes.c_int), ("acc_p", ctypes.c_void_p),
+                ("acc_n", ctypes.c_void_p), ("acc_f", ctypes.c_void_p),
+                ("acc_cnt", ctypes.c_void_p)]
+
+
+class _Splat(ctypes.Structure):
+    """Mirror of ``struct Splat`` in csrc/render.cu."""
+
+    _fields_ = [("pts", ctypes.c_void_p), ("col", ctypes.c_void_p),
+                ("radii", ctypes.c_void_p), ("n", ctypes.c_int),
+                ("pv", ctypes.c_float * 16), ("width", ctypes.c_int),
+                ("height", ctypes.c_int), ("radius", ctypes.c_int),
+                ("background", ctypes.c_float), ("keys", ctypes.c_void_p),
+                ("out", ctypes.c_void_p)]
 
 
 class _TensionParams(ctypes.Structure):
@@ -249,6 +290,8 @@ _SIGNATURES = {
     "mc_field": [_G, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "aniso_moments": [_G, _P, _P],
     "aniso_g": [_I, _P, _P, _F, _F, _F, _I, _P, _P],
+    "poisson_phase": [ctypes.POINTER(_PhaseChunk), _I, _I, _P],
+    "splat_points": [ctypes.POINTER(_Splat), _P],
 }
 
 _lib = None
@@ -931,6 +974,74 @@ def aniso_g(grid: Grid, mom: torch.Tensor, kr: float, ks: float, kn: float,
     out = torch.empty((9, m), dtype=torch.float32, device=mom.device)
     _launch("aniso_g", m, mom.data_ptr(), grid.liq.data_ptr(), kr, ks, kn,
             int(min_neighbors), out.data_ptr(), _stream())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Tooling: the Poisson-disk sampler's phase step (csrc/sampling.cu) and the
+# point rasterizer (csrc/render.cu)
+# ---------------------------------------------------------------------------
+
+def poisson_phase(ch: dense_ops.PhaseChunk, phase: int, trial: int) -> None:
+    """One phase step of the Poisson-disk sampler, in place on the chunk's
+    accepted points (``dense_ops.poisson_phase``): one thread per cell of
+    colour ``phase``."""
+    if not _route(ch.acc_p):
+        return dense_ops.poisson_phase(ch, phase, trial)
+    gx, gy, gz = ch.res
+    nc = gx * gy * gz
+    cap = ch.accept_cap
+    n = ch.fid.shape[0]
+    _check(ch.pts, ch.nrm, ch.acc_p, ch.acc_n,
+           shapes=[(3, n), (3, n), (3, cap, nc), (3, cap, nc)])
+    for t, shp in ((ch.fid, (n,)), (ch.order, (n,)), (ch.start, (nc + 1,)),
+                   (ch.acc_f, (cap, nc)), (ch.acc_cnt, (nc,))):
+        if (t.dtype != torch.int32 or not t.is_contiguous()
+                or tuple(t.shape) != shp or t.device.type != "cuda"):
+            raise ValueError(f"int32 operand {tuple(t.shape)} {t.dtype} "
+                             f"!= contiguous int32 {shp} on the card")
+    if 3 * cap * nc >= 2 ** 31 or 3 * n >= 2 ** 31:
+        raise ValueError("the phase kernel's indices are 32-bit")
+    args = _PhaseChunk(ch.pts.data_ptr(), ch.nrm.data_ptr(),
+                       ch.fid.data_ptr(), n, ch.order.data_ptr(),
+                       ch.start.data_ptr(), gx, gy, gz, ch.z0,
+                       float(np.float32(ch.radius)), cap,
+                       ch.acc_p.data_ptr(), ch.acc_n.data_ptr(),
+                       ch.acc_f.data_ptr(), ch.acc_cnt.data_ptr())
+    _launch("poisson_phase", ctypes.byref(args), int(phase), int(trial),
+            _stream())
+
+
+def splat_points(points: torch.Tensor, colors: torch.Tensor,
+                 radii: torch.Tensor, pv: np.ndarray, width: int,
+                 height: int, radius_px: int,
+                 background: float) -> torch.Tensor:
+    """(H, W, 3) float32 image of the (3, N) points, their (3, N) colours
+    and (N,) int32 disk radii under the 4x4 float32 ``pv``
+    (``dense_ops.splat_points``): one thread per point over its disk, an
+    atomicMin per pixel channel on a uint32 key image, then the keys to
+    colours."""
+    if not _route(points):
+        return dense_ops.splat_points(points, colors, radii, pv, width,
+                                      height, radius_px, background)
+    n = points.shape[1]
+    _check(points, colors, shapes=[(3, n), (3, n)])
+    if (radii.dtype != torch.int32 or not radii.is_contiguous()
+            or tuple(radii.shape) != (n,) or radii.device != points.device):
+        raise ValueError("radii must be a contiguous (N,) int32 tensor on "
+                         "the points' card")
+    if 3 * width * height >= 2 ** 31 or 3 * n >= 2 ** 31:
+        raise ValueError("the rasterizer's indices are 32-bit")
+    keys = torch.empty((height * width * 3,), dtype=torch.int32,
+                       device=points.device)
+    out = torch.empty((height, width, 3), dtype=torch.float32,
+                      device=points.device)
+    pvf = (ctypes.c_float * 16)(*np.asarray(pv, np.float32).reshape(-1))
+    args = _Splat(points.data_ptr(), colors.data_ptr(), radii.data_ptr(), n,
+                  pvf, int(width), int(height), int(radius_px),
+                  float(np.float32(background)), keys.data_ptr(),
+                  out.data_ptr())
+    _launch("splat_points", ctypes.byref(args), _stream())
     return out
 
 
