@@ -11,20 +11,21 @@ its own lines and raising on failure:
    (nvidia-smi), torch and CUDA versions;
 1. build: compile the kernels of ``wcsph_tpu_torch/csrc`` with nvcc (one
    nvcc per source, in parallel);
-2. each kernel (K1-K8, every entry point) against its plain PyTorch twin on
+2. each kernel (K1-K8, every entry point, K1's seven entries of the
+   unfused solver loops too) against its plain PyTorch twin on
    the card, at the shapes of a squeezed side-24 dam break with a
    converging velocity, numpy-seeded k / S / pressure fields, tension and
    adhesion on; first the grid stage, with three particles moved outside
    the domain: the bin's permutation, offsets and rows equal the plain
    stable sort's, and pack and unpack equal their twins; then the
    neighbour list that K2, K3, K4, K6, K7, IISPH's three K5 entries,
-   ``k1_div_acc``, ``k1_visc_init`` and ``k1_vorticity`` walk: its slice
-   offsets (whole and clamped to a short buffer), the fill kernel's list
-   and its per-row records equal the plain build bit for bit, a fill into
-   a short buffer is clamped and flagged as the twin's, those eleven raise
-   on a grid without a list, and a short count raises at the grid's first
-   read; K8 into a hit buffer of the widest row's hits and into one of half
-   that width: its hits equal the twin's slot for slot, and both flag the
+   ``k1_div_acc``, ``k1_visc_init``, ``k1_vorticity`` and the unfused
+   loops' six list walkers walk: its slice offsets (whole and clamped to
+   a short buffer), the fill kernel's list and its per-row records equal
+   the plain build bit for bit, a fill into a short buffer is clamped and
+   flagged as the twin's, those seventeen raise on a grid without a list,
+   and a short count raises at the grid's first read; K8 into a hit
+   buffer of the widest row's hits and into one of half that width: its hits equal the twin's slot for slot, and both flag the
    same row count; last the cut sweeps (the DFSPH density sweep, K5's
    density and SESPH-force entries) on a block squeezed to 0.6 of its
    spacing, where receivers have more hits than the density sweep's
@@ -35,21 +36,31 @@ its own lines and raising on failure:
    kernel field the device extractor under budgets sized from the field
    against the host extractor: the same triangles, vertices within 1e-5;
 3. whole steps: the 20-step golden scene of each of the four solvers on
-   CUDA against ``tests/golden/<solver>_golden.npz``, and 3 steps of the
-   pressurized side-8 scene, per solver and for DFSPH with tension, with
+   CUDA against ``tests/golden/<solver>_golden.npz``, and of DFSPH,
+   PCISPH and IISPH again with the unfused loops
+   (``fused_solver_iters=False``), and 3 steps of the
+   pressurized side-8 scene, per solver and for DFSPH with tension, fused
+   and (but SESPH) unfused, with
    the kernels against the plain twins on the card (per-step iteration
-   counts equal); then one DFSPH, one PCISPH, one IISPH and one DFSPH
+   counts equal, and the unfused ones equal to the fused ones); then one
+   DFSPH, one PCISPH, one IISPH and one DFSPH
    with tension step with the buffer of the list (PCISPH: of K8's hits)
    forced to 64 slots, which replay once to the unforced bits;
 4. the paths at full width, a dam break at side 100 (1M liquid particles):
    DFSPH (the first slice's main path), then SESPH, PCISPH, IISPH and DFSPH
-   with surface tension; for each, warm-up steps, launch counters reset,
+   with surface tension, then DFSPH, PCISPH, IISPH and DFSPH with tension
+   with the unfused loops; for each, warm-up steps, launch counters reset,
    timed steps, health check, overflow 0, no list replay, every kernel of
    the path launched (the bin, pack and unpack once per step, the list's
-   offsets and fill once per DFSPH and IISPH step); then the step's stage
+   offsets and fill once per DFSPH and IISPH step); an unfused path
+   launches none of K2, K3, K4, K6, K7, K8 and each of K1's unfused entries
+   as often as its iterations ask, a fused path none of those entries;
+   then the step's stage
    from the bin through the filled list (SESPH, PCISPH: through the pack)
    under ``torch.cuda.set_sync_debug_mode("error")``, and the host
-   synchronizations of one step counted under ``"warn"``; then the grid
+   synchronizations of one step counted under ``"warn"`` (an unfused
+   step's beyond one an iteration no more than its fused path's; its
+   median step beside the fused path's); then the grid
    stage, the list and each kernel against its plain twin again and timed
    beside it at those shapes, with the least time the card could take for
    the same work (``bound_ms``) and, for the grid stage, one PyTorch call
@@ -221,10 +232,20 @@ def kernel_inputs(grid, liq_pos, rng):
     den_i2 = (rho / cfg.rest_density) ** 2
     dii = (ia[0:3] * ((cfg.rest_density / rho) ** 2)[None]).contiguous()
     deninv = (cfg.liquid_volume / den_i2).contiguous()
+    fac = (-liq * deninv * press).contiguous()
+    ril = (liq * rinv).contiguous()
     return dict(
+        # the operands of K1's unfused entries, in the JAX methods' form
+        fac=fac, dij=dense_ops.iisph_dij(grid, fac).contiguous(),
+        p_liq=(liq * press).contiguous(),
+        g=(deninv * press).contiguous(),
+        normals=(cfg.support_radius
+                 * dense_ops.surface_normals(grid, ril)).contiguous(),
+        xstar=(grid.pos + torch.where(grid.liquid[None], vel * float(dt),
+                                      0.0)).contiguous(),
         p=press, rr=(rho / cfg.rest_density).contiguous(),
         pi=(press * rinv * rinv).contiguous(),
-        ril=(liq * rinv).contiguous(),
+        ril=ril,
         dii=dii, deninv=deninv,
         aii=(dense_ops.iisph_aii(grid, dii) - deninv * ia[4]).contiguous(),
         b=(-(0.01 + 0.01 * seeded(m).abs()) * liq).contiguous(),
@@ -332,6 +353,23 @@ def kernel_cases(grid, inp):
          lambda: (grid, inp["vel"], inp["p"].clone(), dt, inp["factor"],
                   hits),
          lambda a, r: [r[0], r[1], a[2], r[2].reshape(1)], TOL_FUSED),
+        # K1's emits that the unfused solver loops run alone: one sweep each
+        ("k1_kappa_acc", "", lambda: (grid, inp["kf"]), lambda a, r: [r],
+         TOL_SWEEP),
+        ("k1_visc_acc", "", lambda: (grid, inp["d"], inp["rinv"]),
+         lambda a, r: [r], TOL_SWEEP),
+        ("k1_pcisph_predict", "", lambda: (grid, inp["xstar"], inp["p"]),
+         fields(1, 3), TOL_SWEEP),
+        ("k1_iisph_dij", "", lambda: (grid, inp["fac"]), lambda a, r: [r],
+         TOL_SWEEP),
+        ("k1_iisph_s", "",
+         lambda: (grid, inp["dii"], inp["dij"], inp["p_liq"], inp["g"]),
+         lambda a, r: [r], TOL_SWEEP),
+        ("k1_surface_normals", "", lambda: (grid, inp["ril"]),
+         lambda a, r: [r], TOL_SWEEP),
+        ("k1_tension_accel", "",
+         lambda: (grid, inp["rho"], inp["normals"]), lambda a, r: [r],
+         TOL_SWEEP),
     ]
 
 
@@ -402,7 +440,10 @@ def check_list(grid, vel, chk):
 
 def check_list_required(grid, inp, count):
     """K2, K3, K4, K6, K7, IISPH's three K5 entries, k1_div_acc,
-    k1_visc_init and k1_vorticity raise on a grid whose step built no list,
+    k1_visc_init, k1_vorticity and the six list walkers of the unfused
+    loops (k1_kappa_acc, k1_visc_acc, k1_iisph_dij, k1_iisph_s,
+    k1_surface_normals, k1_tension_accel) raise on a grid whose step built
+    no list,
     and a fill from a count below the pairs within h (it would drop a
     neighbour) flags it, so that the grid's first host read raises rather
     than the step walk a short list."""
@@ -445,7 +486,14 @@ def check_list_required(grid, inp, count):
              ("k5_iisph_adv", (bare, inp["vel"])),
              ("k5_iisph_aii", (bare, inp["dii"])),
              ("k5_iisph_force", (bare, inp["dpi"])),
-             ("k6_fused_tension", (bare, inp["ril"], inp["rho"]))]
+             ("k6_fused_tension", (bare, inp["ril"], inp["rho"])),
+             ("k1_kappa_acc", (bare, inp["kf"])),
+             ("k1_visc_acc", (bare, inp["d"], inp["rinv"])),
+             ("k1_iisph_dij", (bare, inp["fac"])),
+             ("k1_iisph_s", (bare, inp["dii"], inp["dij"], inp["p_liq"],
+                             inp["g"])),
+             ("k1_surface_normals", (bare, inp["ril"])),
+             ("k1_tension_accel", (bare, inp["rho"], inp["normals"]))]
     for name, args in calls:
         try:
             getattr(engine, name)(*args)
@@ -1698,9 +1746,9 @@ def time_kernels(grid, cases, count, reps_kernel=20, reps_plain=5):
 # function of P and M]).  Words: the kernel's operand list, each input read
 # once and each output written once; scratch that a kernel keeps between
 # its own launches is not counted (K8's hits and records at x*), nor is the
-# neighbour list that K2, K3, K4, K6, K7, IISPH's K5 entries, k1_div_acc,
-# k1_visc_init and k1_vorticity read (the functions they compute do not
-# need it; the fill that writes it, slots and records, has its own row),
+# neighbour list that the seventeen list walkers read (the functions they
+# compute do not need it; the fill that writes it, slots and records, has
+# its own row),
 # nor the shared-memory hit buffer of the density sweep and of K8.
 # Every sweep also reads the geometry once (positions 3, liquid flag 1,
 # cell id 1 per row, and the cell offsets).  Operations: float32 adds,
@@ -1735,6 +1783,16 @@ WORK = {
                              lambda P, M: (24 + 35) * P["star"] + 5 * M),
     "nbr_list_fill": (0, 4, lambda P, M: 8 * P["liq"],
                       lambda P, M: P["slots"] + 2 * (-(-M // 32) + 1)),
+    # K1's emits of the unfused loops: K2's kappa sum, K4's matvec sum,
+    # K7's two sweeps and K6's two alone; the PCISPH prediction is K8's
+    # predicted density and acceleration in one sweep (W and gradW 13)
+    "k1_kappa_acc": (1, 3, lambda P, M: 24 * P["liq"]),
+    "k1_visc_acc": (4, 3, lambda P, M: 39 * P["liq"]),
+    "k1_pcisph_predict": (4, 4, lambda P, M: 37 * P["star"]),
+    "k1_iisph_dij": (1, 3, lambda P, M: 24 * P["liq"]),
+    "k1_iisph_s": (8, 1, lambda P, M: 48 * P["liq"]),
+    "k1_surface_normals": (1, 3, lambda P, M: 23 * P["liq"]),
+    "k1_tension_accel": (4, 3, lambda P, M: 62 * P["liq"]),
 }
 
 
@@ -1778,6 +1836,42 @@ def bounds(grid, counts, k_fields):
 
 
 # ---------------------------------------------------------------------------
+
+# K1's entries that only the unfused solver loops run, and the fused
+# kernels they stand in for
+UNFUSED_ENTRIES = ("k1_kappa_acc", "k1_visc_acc", "k1_pcisph_predict",
+                   "k1_iisph_dij", "k1_iisph_s", "k1_surface_normals",
+                   "k1_tension_accel")
+FUSED_LOOPS = ("k2_fused_kappa_drho", "k3_fused_iter_full",
+               "k4_fused_visc_iter", "k6_fused_tension",
+               "k7_fused_jacobi_iter", "k8_fused_pcisph_iter")
+
+
+def unfused_launches(cfg, solver, iters):
+    """The launches of the unfused loops' sweeps that steps of these
+    (divergence, pressure, viscosity) iterations make (the unfused forms
+    of solvers/*.py and viscosity.py): DFSPH's divergence solve one kappa
+    sweep for its warm start, a divergence sweep before its loop and one
+    of each an iteration, its pressure solve likewise (a kappa sweep and a
+    divergence sweep more for its warm start, when on), the tension one
+    normals and one tension sweep a step; PCISPH two prediction sweeps an
+    iteration; IISPH a dij and an s sweep an iteration; one viscosity
+    matvec an iteration."""
+    steps = len(iters)
+    d, p, v = (sum(i[k] for i in iters) for k in range(3))
+    if solver == "pcisph":
+        return {"k1_pcisph_predict": 2 * p}
+    if solver == "iisph":
+        return {"k1_iisph_dij": p, "k1_iisph_s": p, "k1_visc_acc": v}
+    ws_d = int(cfg.divergence_warm_start)
+    ws_p = int(cfg.pressure_warm_start)
+    tension = int(cfg.tension_coff != 0.0 or cfg.tension_coff_b != 0.0)
+    return {"k1_kappa_acc": steps * (ws_d + ws_p) + d + p,
+            "k1_div_acc": steps * (2 + ws_p) + d + p,
+            "k1_visc_acc": v,
+            "k1_surface_normals": steps * tension,
+            "k1_tension_accel": steps * tension}
+
 
 def phase_seconds(n, since):
     """Log phase n's seconds since ``since``; return now."""
@@ -1858,11 +1952,14 @@ def main():
 
     gsc = dam_break(particle_radius=r, fluid_dims=(5, 5, 5), box_extent=0.55)
     glo, ghi = gsc.domain(pad=4 * r)
-    for solver in SOLVERS:
+    # every solver fused, and the three with a solver loop unfused
+    goldens = [(s, True) for s in SOLVERS] + [
+        (s, False) for s in SOLVERS if s != "sesph"]
+    for solver, fused in goldens:
         ref = np.load(os.path.join(GOLDEN_DIR, f"{solver}_golden.npz"))
         gsim = Simulation(gsc, default_config(
-            solver, particle_radius=r, domain_min=glo, domain_max=ghi),
-            solver=solver, device=dev)
+            solver, particle_radius=r, domain_min=glo, domain_max=ghi,
+            fused_solver_iters=fused), solver=solver, device=dev)
         gsim.run(20)
         np.testing.assert_allclose(gsim.state.pos.cpu().numpy(), ref["pos"],
                                    rtol=2e-4, atol=2e-5)
@@ -1874,8 +1971,8 @@ def main():
                     == int(ref["pressure_iters"]))
         gsim.check_health()
         dpos = np.abs(gsim.state.pos.cpu().numpy() - ref["pos"]).max()
-        log(f"[phase 3] {solver} golden 20 steps on CUDA within golden "
-            f"tolerances (max|dpos|={dpos:.2e})")
+        log(f"[phase 3] {solver}{'' if fused else ' unfused'} golden 20 "
+            f"steps on CUDA within golden tolerances (max|dpos|={dpos:.2e})")
 
     tension = dict(tension_coff=0.25, tension_coff_b=0.4,
                    adhesion_center=(0.0, -0.45, 0.0), adhesion_radius=0.3)
@@ -1884,35 +1981,47 @@ def main():
         psc = squeezed_dam_break(8, 0.90 if solver == "pcisph" else 0.92,
                                  box_extent=0.9)
         plo, phi = psc.domain(pad=4 * r)
-        pcfg = default_config(solver, particle_radius=r, domain_min=plo,
-                              domain_max=phi, **over)
-        traces = []
-        for use_plain in (False, True):
-            psim = Simulation(psc, pcfg, solver=solver, device=dev)
-            if solver == "dfsph":
-                psim.state = psim.state.replace(vel=torch.as_tensor(
-                    converging_velocity(psc.positions[: psc.n_liquid]),
-                    device=dev))
-            iters, pmax = [], 0.0
-            with (engine.plain_twins() if use_plain
-                  else contextlib.nullcontext()):
-                for _ in range(3):
-                    psim.step()
-                    dg = psim.state.diag
-                    iters.append((dg.divergence_iters, dg.pressure_iters,
-                                  dg.viscosity_iters))
-                    pmax = max(pmax, float(psim.state.pressure.abs().max()))
-            psim.check_health()
-            traces.append((iters, psim.state.pos.cpu().numpy(), pmax))
-        tag = solver + (" + tension" if over else "")
-        log(f"[phase 3] pressurized side 8, {tag}: (div, pressure, visc) "
-            f"iters per step: kernels {traces[0][0]}, plain {traces[1][0]}; "
-            f"max|p| over the steps {traces[0][2]:.4g}")
-        if traces[0][0] != traces[1][0]:
-            raise AssertionError(f"pressurized {tag}: iteration counts "
-                                 f"differ")
-        np.testing.assert_allclose(traces[0][1], traces[1][1], rtol=2e-4,
-                                   atol=2e-5)
+        fused_iters = None
+        # the fused loops, then (where the solver has a loop) the unfused
+        for fused in ((True,) if solver == "sesph" else (True, False)):
+            pcfg = default_config(solver, particle_radius=r, domain_min=plo,
+                                  domain_max=phi, fused_solver_iters=fused,
+                                  **over)
+            traces = []
+            for use_plain in (False, True):
+                psim = Simulation(psc, pcfg, solver=solver, device=dev)
+                if solver == "dfsph":
+                    psim.state = psim.state.replace(vel=torch.as_tensor(
+                        converging_velocity(psc.positions[: psc.n_liquid]),
+                        device=dev))
+                iters, pmax = [], 0.0
+                with (engine.plain_twins() if use_plain
+                      else contextlib.nullcontext()):
+                    for _ in range(3):
+                        psim.step()
+                        dg = psim.state.diag
+                        iters.append((dg.divergence_iters, dg.pressure_iters,
+                                      dg.viscosity_iters))
+                        pmax = max(pmax,
+                                   float(psim.state.pressure.abs().max()))
+                psim.check_health()
+                traces.append((iters, psim.state.pos.cpu().numpy(), pmax))
+            tag = (solver + (" + tension" if over else "")
+                   + ("" if fused else " unfused"))
+            log(f"[phase 3] pressurized side 8, {tag}: (div, pressure, "
+                f"visc) iters per step: kernels {traces[0][0]}, plain "
+                f"{traces[1][0]}; max|p| over the steps {traces[0][2]:.4g}")
+            if traces[0][0] != traces[1][0]:
+                raise AssertionError(f"pressurized {tag}: iteration counts "
+                                     f"differ")
+            np.testing.assert_allclose(traces[0][1], traces[1][1], rtol=2e-4,
+                                       atol=2e-5)
+            if fused:
+                fused_iters = traces[0][0]
+            elif traces[0][0] != fused_iters:
+                raise AssertionError(
+                    f"pressurized {tag}: iteration counts {traces[0][0]} "
+                    f"differ from the fused port's {fused_iters}")
     for solver, over in (("dfsph", {}), ("pcisph", {}), ("iisph", {}),
                          ("dfsph", tension)):
         check_replay(solver, dev, over)
@@ -1927,6 +2036,10 @@ def main():
     dfsph_kernels = ("k1_density_alpha_drho", "k1_div_acc",
                      "k1_vorticity", "k2_fused_kappa_drho",
                      "k3_fused_iter_full") + visc + stage + listed
+    # the unfused loops: K1's emits in place of K2-K4 and K6-K8
+    dfsph_unfused = ("k1_density_alpha_drho", "k1_div_acc", "k1_vorticity",
+                     "k1_visc_init", "k1_kappa_acc", "k1_visc_acc") + stage \
+        + listed
     must_launch = {
         "dfsph": dfsph_kernels,
         "sesph": ("k5_density_alpha", "k5_sesph_force") + stage,
@@ -1936,6 +2049,15 @@ def main():
                   "k5_iisph_force", "k7_fused_jacobi_iter") + visc + stage
         + listed,
         "dfsph+tension": dfsph_kernels + ("k6_fused_tension",),
+        "dfsph-unfused": dfsph_unfused,
+        "pcisph-unfused": ("k5_density_alpha", "k5_sesph_force",
+                           "k1_pcisph_predict") + stage,
+        "iisph-unfused": ("k5_density_alpha", "k5_iisph_adv",
+                          "k5_iisph_aii", "k5_iisph_force", "k1_visc_init",
+                          "k1_visc_acc", "k1_iisph_dij", "k1_iisph_s")
+        + stage + listed,
+        "dfsph+tension-unfused": dfsph_unfused + ("k1_surface_normals",
+                                                  "k1_tension_accel"),
     }
     paths = bench.flagship_paths(MAIN_SIDE)
     launches = {name: 0 for name in engine.LAUNCHES}
@@ -1971,6 +2093,22 @@ def main():
         once = stage + (listed if solver in ("dfsph", "iisph") else ())
         if any(res["launches"][k] != res["steps"] for k in once):
             raise AssertionError(f"{path}: {once} did not run once per step")
+        fused = msim.cfg.fused_solver_iters
+        if fused:
+            ran_unfused = [k for k in UNFUSED_ENTRIES if res["launches"][k]]
+            if ran_unfused:
+                raise AssertionError(f"{path} launched the unfused loops' "
+                                     f"{ran_unfused}")
+        else:
+            ran_fused = [k for k in FUSED_LOOPS if res["launches"][k]]
+            want = unfused_launches(msim.cfg, solver, res["iters"])
+            got = {k: res["launches"][k] for k in want}
+            log(f"[phase 4] {path}: the unfused entries launched {got} "
+                f"times, as its iterations ask ({want}); launched of "
+                f"{', '.join(FUSED_LOOPS)}: {ran_fused or 'none'}")
+            if ran_fused or got != want:
+                raise AssertionError(f"{path}: the unfused step launched "
+                                     f"{got} (want {want}) and {ran_fused}")
         if res["replays"]:
             raise AssertionError(f"{path}: {res['replays']} list replays in "
                                  "the timed window")
@@ -1978,15 +2116,37 @@ def main():
             launches[k] += v
         ran_clean = stage_without_sync(msim, solver)
         syncs = host_syncs(msim)
+        dg = msim.state.diag
+        sync_iters = (dg.divergence_iters, dg.pressure_iters,
+                      dg.viscosity_iters)
         log(f"[phase 4] {path}: {ran_clean} ran under "
             f"set_sync_debug_mode('error') with no host read; one step made "
-            f"{syncs} host synchronizations (counted under 'warn'); "
+            f"{syncs} host synchronizations (counted under 'warn'), its "
+            f"(div, pressure, visc) iterations {sync_iters}; "
             f"{res['replays']} list replays in the timed window")
         path_records[path] = {
             "particle_steps_per_s": res["particle_steps_per_s"],
             "n_liquid": res["n_liquid"], "iters": res["iters"],
             "step_ms": res["step_ms"], "launches": ran,
-            "host_syncs_per_step": syncs, "replays": res["replays"]}
+            "host_syncs_per_step": syncs, "host_sync_step_iters": sync_iters,
+            "replays": res["replays"]}
+        if not fused:
+            # one host read an iteration in either form: beyond those, the
+            # unfused step may read no more than the fused one
+            base = path_records[path.removesuffix("-unfused")]
+            extra = syncs - sum(sync_iters)
+            base_extra = (base["host_syncs_per_step"]
+                          - sum(base["host_sync_step_iters"]))
+            log(f"[phase 4] {path} beside {path.removesuffix('-unfused')} "
+                f"on {card}: median step "
+                f"{statistics.median(res['step_ms']):.3f} ms against "
+                f"{statistics.median(base['step_ms']):.3f} ms; host "
+                f"synchronizations of a step {syncs} ({extra} beyond one an "
+                f"iteration) against {base['host_syncs_per_step']} "
+                f"({base_extra})")
+            if extra > base_extra:
+                raise AssertionError(f"{path}: more host synchronizations a "
+                                     "step than the fused path")
         if path == "dfsph":
             mstate, mcfg = msim.state, msim.cfg
         del msim

@@ -14,7 +14,12 @@ by 0.92 so that the Tait pressure is not zero.  The IISPH and PCISPH sweeps
 have closures of the JAX solvers as their XLA twins and are compared through
 whole steps in tests/test_torch_solver_steps.py; here the PCISPH pair list
 (candidates of the original cells, cut at the moved positions) is held
-against a brute-force count.
+against a brute-force count, and the unfused PCISPH prediction sweep
+against the JAX solver's ``_predicted_density_and_accel`` at the moved
+positions.  The other emits that only the unfused solver loops run alone
+(``kappa_velocity_update``, ``visc_matvec``, ``surface_normals``,
+``tension_accel``) are held against their XLA twins beside the fused
+kernels built on them.
 """
 
 import jax.numpy as jnp
@@ -163,6 +168,10 @@ def test_fused_kappa_iterations(case):
     engine.k2_fused_kappa_drho(case.tg, vel, kf, case.tg.liq.clone(), acc)
     _close(case.jparticles(v1), case.tparticles(vel), case.liquid)
     _close(case.jparticles(acc1), case.tparticles(acc), case.liquid)
+    # the unfused loops' kappa update (_KappaAcc alone, k not pre-scaled)
+    v2 = engine.kappa_velocity_update(case.tg, case.tpack(case.vel),
+                                      case.tpack(case.k), DT)
+    _close(case.jparticles(v1), case.tparticles(v2), case.liquid)
 
     stats = dense_ops.density_stats(case.grid, case.cfg, with_alpha=True)
     alpha = jnp.where(case.grid.liquid, stats.alpha, 0.0)
@@ -228,6 +237,9 @@ def test_viscosity_sweeps(case):
     delta = jnp.sum(jnp.where(liq3, r * minv_matvec(minv, r), 0.0))
     ad = jnp.where(liq3, dense_ops.visc_matvec(case.grid, cfg, d, stats.rho,
                                                rho_pad, DT), 0.0)
+    # the unfused PCG's matvec (_ViscAcc alone)
+    _close(case.jparticles(ad), case.tparticles(engine.visc_matvec(
+        case.tg, case.tpack(d0), rho, DT)), case.liquid)
     d_ad = cfg.eps + jnp.sum(jnp.where(liq3, d * ad, 0.0))
     alpha = delta / d_ad
     x1 = x + alpha * d
@@ -345,6 +357,12 @@ def test_fused_tension(squeezed):
     n2, t2 = engine.fused_tension(case.tg, rho)
     _close(case.jparticles(n1), case.tparticles(n2), case.liquid)
     _close(case.jparticles(t1), case.tparticles(t2), case.liquid, rtol=2e-4)
+    # the unfused tension: the normals sweep, then the tension sweep
+    n3 = engine.surface_normals(case.tg, rho)
+    _close(case.jparticles(n1), case.tparticles(n3), case.liquid)
+    _close(case.jparticles(t1),
+           case.tparticles(engine.k1_tension_accel(case.tg, rho, n3)),
+           case.liquid, rtol=2e-4)
     assert float(np.abs(case.tparticles(t2)).max()) > 0.0
     import dataclasses
     tg_na = dataclasses.replace(
@@ -392,3 +410,21 @@ def test_starred_pair_list(case):
     assert int((near & ~adjacent).sum()) > 0
     np.testing.assert_array_equal(p.r.numpy(),
                                   x[:, p.i.numpy()] - x[:, p.j.numpy()])
+
+    # the unfused PCISPH prediction sweep at moved positions (liquid rows
+    # moved, a seeded pressure) against the JAX solver's XLA twin
+    from wcsph_tpu.kernels import cubic_w0
+    from wcsph_tpu.solvers.pcisph import _predicted_density_and_accel
+
+    move = (0.3 * h * rng.randn(3, case.nl)).astype(np.float32)
+    press = (1e3 * rng.rand(case.nl)).astype(np.float32)
+    adv1, acc1 = _predicted_density_and_accel(
+        case.grid, case.cfg, case.grid.xp + case.jpack(move),
+        case.jpack(press))
+    adv2, acc2 = engine.pcisph_predict(tg, tg.pos + case.tpack(move),
+                                       case.tpack(press))
+    w0 = case.cfg.liquid_volume * cubic_w0(h)
+    assert float(np.abs(case.jparticles(acc1)).max()) > 0.0
+    _close(case.jparticles(adv1),
+           case.tparticles(torch.clamp(w0 + adv2, min=1.0)), case.liquid)
+    _close(case.jparticles(acc1), case.tparticles(acc2), case.liquid)

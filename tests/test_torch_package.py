@@ -158,17 +158,19 @@ def test_cpu_path_counts_no_launch_and_never_falls_back():
     ("dfsph", {"tension_coff": 0.25, "tension_coff_b": 0.25})],
     ids=["sesph", "pcisph", "iisph", "dfsph-tension"])
 def test_cpu_path_of_each_solver_counts_no_launch(solver, over):
+    """In both solver-loop forms, fused and unfused."""
     engine.reset_launch_counts()
     r = 0.025
     sc = wt.dam_break(particle_radius=r, fluid_dims=(4, 4, 4),
                       box_extent=0.45)
     lo, hi = sc.domain(pad=4 * r)
-    sim = wt.Simulation(sc, wt.default_config(
-        solver, particle_radius=r, domain_min=lo, domain_max=hi, **over),
-        solver=solver, device="cpu")
-    assert sim.solver_name == solver
-    sim.run(2)
-    sim.check_health()
+    for fused in (True, False):
+        sim = wt.Simulation(sc, wt.default_config(
+            solver, particle_radius=r, domain_min=lo, domain_max=hi,
+            fused_solver_iters=fused, **over), solver=solver, device="cpu")
+        assert sim.solver_name == solver
+        sim.run(2)
+        sim.check_health()
     assert all(v == 0 for v in engine.LAUNCHES.values()), engine.LAUNCHES
 
 
@@ -180,7 +182,9 @@ KERNEL_NAMES = [
     "k2_fused_kappa_drho", "k3_fused_iter_full", "k4_fused_visc_iter",
     "k5_density_alpha", "k5_sesph_force", "k5_iisph_adv", "k5_iisph_aii",
     "k5_iisph_force", "k6_fused_tension", "k7_fused_jacobi_iter",
-    "k8_fused_pcisph_iter"]
+    "k8_fused_pcisph_iter", "k1_kappa_acc", "k1_visc_acc",
+    "k1_pcisph_predict", "k1_iisph_dij", "k1_iisph_s", "k1_surface_normals",
+    "k1_tension_accel"]
 
 
 def _cuda_entries():
@@ -204,7 +208,7 @@ OWN_KERNEL_NAMES = ["bin_cells", "pack_rows", "unpack_rows",
 
 
 def test_kernel_tables_list_the_same_entries():
-    """KERNELS has the 15 counterparts of TPU kernels and OWN_KERNELS the
+    """KERNELS has the 22 counterparts of TPU kernels and OWN_KERNELS the
     port's own (the bin, pack, unpack, the neighbour list's offsets and
     fill, the surface's field, anisotropy moments and G, the sampler's
     phase step and the rasterizer's splat); LAUNCHES and _SIGNATURES have
@@ -213,7 +217,7 @@ def test_kernel_tables_list_the_same_entries():
     has a wrapper of its name, a source that defines its entry, a plain
     twin and a ctypes signature with as many parameters as the entry."""
     assert set(engine.KERNELS) == set(KERNEL_NAMES)
-    assert len(KERNEL_NAMES) == 15
+    assert len(KERNEL_NAMES) == 22
     assert set(engine.OWN_KERNELS) == set(OWN_KERNEL_NAMES)
     names = set(KERNEL_NAMES) | set(engine.OWN_KERNELS)
     assert names == set(engine.LAUNCHES) == set(engine._SIGNATURES)

@@ -12,6 +12,9 @@ with surface tension (wcsph_tpu_torch, CPU plain twins).
   K7, K8): their XLA twins are closures of the JAX solvers.
   Non-vacuity is asserted with the JAX side's own numbers.
 * DFSPH with tension and adhesion on, the same way.
+* the port's PCISPH, IISPH and DFSPH-with-tension steps in both
+  solver-loop forms, fused and unfused (``fused_solver_iters``), against
+  the one JAX run.
 * the 20-step golden scenes against tests/golden/<solver>_golden.npz at
   the tolerances of tests/test_golden.py (needs no JAX).
 * ``Simulation(scene, cfg)`` with no device asks for the card, and raises
@@ -52,9 +55,11 @@ def _squeezed_dam_break(squeeze, side=8, box_extent=0.9):
     return sc
 
 
-def _both(solver, squeeze, **cfg_over):
+def _both(solver, squeeze, forms=(True,), **cfg_over):
     """The JAX simulation (XLA path) and the port's, on the CPU, from the
-    same scene, config and initial state."""
+    same scene, config and initial state: (scene, the JAX simulation, a list
+    of the port's, one for each solver-loop form in ``forms``, True for the
+    fused loops and False for the unfused)."""
     from wcsph_tpu.simulation import Simulation, default_config
     from wcsph_tpu.state import state_to_numpy
 
@@ -63,37 +68,44 @@ def _both(solver, squeeze, **cfg_over):
     js = Simulation(sc, default_config(solver, particle_radius=R,
                                        domain_min=lo, domain_max=hi,
                                        **cfg_over), solver=solver)
-    ts = wt.Simulation(sc, wt.config_from_dict(dataclasses.asdict(js.cfg)),
-                       solver=solver, device="cpu")
-    ts.state = wt.state_from_numpy(state_to_numpy(js.state), "cpu")
-    return sc, js, ts
+    tcfg = wt.config_from_dict(dataclasses.asdict(js.cfg))
+    tss = [wt.Simulation(sc, tcfg.replace(fused_solver_iters=fused),
+                         solver=solver, device="cpu") for fused in forms]
+    for ts in tss:
+        ts.state = wt.state_from_numpy(state_to_numpy(js.state), "cpu")
+    return sc, js, tss
 
 
-def _step_both(js, ts, fields):
-    """One step on both sides; iteration counts equal, fields close.
-    Returns the JAX side's (pressure iters, viscosity iters)."""
+def _step_both(js, tss, fields):
+    """One step on the JAX side and on each port simulation of ``tss``;
+    iteration counts equal, fields close.  Returns the JAX side's
+    (divergence, pressure, viscosity iters)."""
     js.step()
-    ts.step()
-    jd, td = js.state.diag, ts.state.diag
+    jd = js.state.diag
     assert int(jd.neighbor_overflow) == 0
     want = (int(jd.divergence_iters), int(jd.pressure_iters),
             int(jd.viscosity_iters))
-    assert (td.divergence_iters, td.pressure_iters,
-            td.viscosity_iters) == want
-    assert float(ts.state.dt) == float(js.state.dt)
-    np.testing.assert_allclose(ts.state.pos.numpy(), np.asarray(js.state.pos),
-                               rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(ts.state.vel.numpy(), np.asarray(js.state.vel),
-                               rtol=2e-3, atol=2e-4)
-    for f in fields:
-        ref = np.asarray(getattr(js.state, f))
-        got = getattr(ts.state, f).numpy()
-        assert float(np.abs(got - ref).max()) <= 1e-3 * float(
-            np.abs(ref).max()), f
-    for f in ("density_error", "density_error_pre", "vel_max"):
-        np.testing.assert_allclose(float(getattr(td, f)),
-                                   float(getattr(jd, f)), rtol=1e-3,
-                                   atol=1e-6, err_msg=f)
+    for ts in tss:
+        ts.step()
+        td = ts.state.diag
+        assert (td.divergence_iters, td.pressure_iters,
+                td.viscosity_iters) == want
+        assert float(ts.state.dt) == float(js.state.dt)
+        np.testing.assert_allclose(ts.state.pos.numpy(),
+                                   np.asarray(js.state.pos),
+                                   rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(ts.state.vel.numpy(),
+                                   np.asarray(js.state.vel),
+                                   rtol=2e-3, atol=2e-4)
+        for f in fields:
+            ref = np.asarray(getattr(js.state, f))
+            got = getattr(ts.state, f).numpy()
+            assert float(np.abs(got - ref).max()) <= 1e-3 * float(
+                np.abs(ref).max()), f
+        for f in ("density_error", "density_error_pre", "vel_max"):
+            np.testing.assert_allclose(float(getattr(td, f)),
+                                       float(getattr(jd, f)), rtol=1e-3,
+                                       atol=1e-6, err_msg=f)
     return want
 
 
@@ -109,10 +121,12 @@ EXPECT = {
 
 @pytest.mark.parametrize("solver", ["sesph", "pcisph", "iisph"])
 def test_pressurized_steps_match_jax(solver):
-    _, js, ts = _both(solver, 0.90 if solver == "pcisph" else 0.92)
+    # SESPH has no solver loop: no unfused form
+    _, js, tss = _both(solver, 0.90 if solver == "pcisph" else 0.92,
+                       forms=(True,) if solver == "sesph" else (True, False))
     iters, pmax0 = [], None
     for _ in range(3):
-        iters.append(_step_both(js, ts, ["pressure"]))
+        iters.append(_step_both(js, tss, ["pressure"]))
         if pmax0 is None:
             pmax0 = float(np.abs(np.asarray(js.state.pressure)).max())
     want_pr, want_visc, p_floor = EXPECT[solver]
@@ -120,7 +134,8 @@ def test_pressurized_steps_match_jax(solver):
     assert tuple(i[1] for i in iters) == want_pr, iters
     assert all(i[2] == want_visc for i in iters), iters
     assert pmax0 > p_floor, pmax0
-    ts.check_health()
+    for ts in tss:
+        ts.check_health()
 
 
 def test_dfsph_tension_steps_match_jax():
@@ -128,20 +143,21 @@ def test_dfsph_tension_steps_match_jax():
     against the JAX XLA path; the adhesion region covers part of the floor
     under the block."""
     adh = dict(adhesion_center=(0.0, -0.45, 0.0), adhesion_radius=0.3)
-    sc, js, ts = _both("dfsph", 0.92, tension_coff=0.25, tension_coff_b=0.4,
-                       **adh)
+    sc, js, tss = _both("dfsph", 0.92, forms=(True, False), tension_coff=0.25,
+                        tension_coff_b=0.4, **adh)
+    ts = tss[0]
     centre = np.asarray(js.cfg.adhesion_center, np.float32)
     d2 = ((sc.positions - centre) ** 2).sum(axis=1)
     near = d2 < js.cfg.adhesion_radius ** 2
     assert near[sc.n_liquid:].any() and near[: sc.n_liquid].any()
-    iters = [_step_both(js, ts, ["kappa_v"]) for _ in range(3)]
+    iters = [_step_both(js, tss, ["kappa_v"]) for _ in range(3)]
     assert all(i[1] >= 2 for i in iters), iters
 
     # non-vacuous: the same 3 steps without tension, and with cohesion but
     # no adhesion, end elsewhere
     for over, floor in ((dict(), 1e-3),
                         (dict(tension_coff=0.25, **adh), 1e-5)):
-        _, _, other = _both("dfsph", 0.92, **over)
+        other = _both("dfsph", 0.92, **over)[2][0]
         other.run(3)
         assert float((ts.state.vel - other.state.vel).abs().max()) > floor
 

@@ -5,7 +5,10 @@ converging velocity v = -10 (x - centroid) and numpy-seeded warm starts.
 
 Both sides get the same inputs (the JAX packed fields mapped to the port's
 sorted rows).  Iteration counts must be equal; fields agree within
-1e-3 max|ref| over liquid particles, with max|ref| > 0 asserted.
+1e-3 max|ref| over liquid particles, with max|ref| > 0 asserted.  Each
+port loop runs in both of its forms, fused and unfused
+(``fused_solver_iters``), against the one JAX run (the XLA path is the
+JAX package's unfused form).
 """
 
 import dataclasses
@@ -91,6 +94,11 @@ class _Scene:
         p = torch.as_tensor(self.particles(a))
         return p[..., self.tg.order].contiguous()
 
+    def grids(self):
+        """The port's grid with its config in each solver-loop form."""
+        return [dataclasses.replace(self.tg, cfg=self.tcfg.replace(
+            fused_solver_iters=fused)) for fused in (True, False)]
+
     def tparticles(self, a):
         out = np.zeros(a.shape[:-1] + (self.n,), np.float32)
         out[..., self.tg.order.numpy()] = a.numpy()
@@ -116,13 +124,16 @@ def test_divergence_solve(scene):
     j = dfsph.divergence_solve(scene.comm, scene.jpack(scene.vel),
                                scene.jpack(kv), scene.alpha,
                                scene.stats.count, jnp.float32(DT))
-    t = tdfsph.divergence_solve(
-        scene.tg, scene.rows(scene.jpack(scene.vel)),
-        scene.rows(scene.jpack(kv)), scene.rows(scene.alpha),
-        scene.rows(scene.stats.count).to(torch.int32), DT)
-    assert t.iters == int(j.iters) and t.iters > 1
-    scene.close(j.vel, t.vel)
-    scene.close(j.kappa, t.kappa)
+    assert float(j.err_pre) > 0.0
+    for tg in scene.grids():
+        t = tdfsph.divergence_solve(
+            tg, scene.rows(scene.jpack(scene.vel)),
+            scene.rows(scene.jpack(kv)), scene.rows(scene.alpha),
+            scene.rows(scene.stats.count).to(torch.int32), DT)
+        assert t.iters == int(j.iters) and t.iters > 1
+        np.testing.assert_allclose(t.err_pre, float(j.err_pre), rtol=1e-3)
+        scene.close(j.vel, t.vel)
+        scene.close(j.kappa, t.kappa)
 
 
 @pytest.mark.parametrize("warm", [False, True])
@@ -132,14 +143,15 @@ def test_pressure_solve(warm):
     kp = (1e-4 * rng.randn(sc.nl)).astype(np.float32)
     j = dfsph.pressure_solve(sc.comm, sc.jpack(sc.vel), sc.jpack(kp),
                              sc.alpha, sc.stats.rho, jnp.float32(DT))
-    t = tdfsph.pressure_solve(
-        sc.tg, sc.rows(sc.jpack(sc.vel)), sc.rows(sc.jpack(kp)),
-        sc.rows(sc.alpha), sc.rows(sc.stats.rho), DT)
-    assert t.iters == int(j.iters)
     assert float(j.err_pre) > 0.0
-    np.testing.assert_allclose(t.err_pre, float(j.err_pre), rtol=1e-3)
-    sc.close(j.vel, t.vel)
-    sc.close(j.kappa, t.kappa)
+    for tg in sc.grids():
+        t = tdfsph.pressure_solve(
+            tg, sc.rows(sc.jpack(sc.vel)), sc.rows(sc.jpack(kp)),
+            sc.rows(sc.alpha), sc.rows(sc.stats.rho), DT)
+        assert t.iters == int(j.iters)
+        np.testing.assert_allclose(t.err_pre, float(j.err_pre), rtol=1e-3)
+        sc.close(j.vel, t.vel)
+        sc.close(j.kappa, t.kappa)
 
 
 @pytest.mark.parametrize("precond", [True, False])
@@ -153,9 +165,10 @@ def test_viscosity_solve(precond):
     j = viscosity.solve_dense(scene.comm, scene.jpack(scene.vel),
                               scene.jpack(vg), scene.stats.rho,
                               jnp.float32(DT))
-    t = tvisc.solve_dense(scene.tg, scene.rows(scene.jpack(scene.vel)),
-                          scene.rows(scene.jpack(vg)),
-                          scene.rows(scene.stats.rho), DT)
-    assert t.iters == int(j.iters) and t.iters > 1
-    scene.close(j.vel_new, t.vel_new)
-    scene.close(j.delta_v, t.delta_v)
+    for tg in scene.grids():
+        t = tvisc.solve_dense(tg, scene.rows(scene.jpack(scene.vel)),
+                              scene.rows(scene.jpack(vg)),
+                              scene.rows(scene.stats.rho), DT)
+        assert t.iters == int(j.iters) and t.iters > 1
+        scene.close(j.vel_new, t.vel_new)
+        scene.close(j.delta_v, t.delta_v)

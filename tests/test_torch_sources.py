@@ -11,8 +11,9 @@ tests/test_torch_package.py::test_port_imports_no_jax.)
 The sweeps that run after a step's neighbour list is built walk that list
 and have no cell-loop form: one case per list-walking ``__global__`` of
 csrc/sweeps.cu, read with the device functions it calls, and one case for
-csrc/solver_sweeps.cu (K7's two sweeps, IISPH's three K5 entries and K6
-walk the list, K8's acceleration sweep the hits of its first sweep).
+csrc/solver_sweeps.cu (K7's two sweeps, IISPH's three K5 entries, K6 and
+the unfused loops' entries of those sweeps walk the list, K8's
+acceleration sweep the hits of its first sweep).
 
 No kernel source copies to or from the host, allocates, or waits for the
 card (every file of csrc/); the grid stage's list offsets, pack and unpack
@@ -169,6 +170,7 @@ def test_cuda_sources_never_wait_for_the_card():
 LIST_WALKERS = [
     "k1_div_kernel", "k2_kappa_kernel", "k3_kappa_kernel", "k3_div_kernel",
     "k1_visc_init_kernel", "k1_vorticity_kernel", "k4_matvec_kernel",
+    "k1_kappa_kernel", "k1_visc_acc_kernel",
 ]
 
 
@@ -214,19 +216,25 @@ LISTLESS_K5 = {"k5_density_alpha": "DensityAlpha",
                "k5_sesph_force": "SesphForce"}
 # the wrappers of engine.py whose solver_sweeps.cu kernels walk the list
 LISTED_SOLVER_WRAPPERS = ["k5_iisph_adv", "k5_iisph_aii", "k5_iisph_force",
-                          "k6_fused_tension"]
+                          "k6_fused_tension", "k1_iisph_dij", "k1_iisph_s",
+                          "k1_surface_normals", "k1_tension_accel"]
+# the wrappers of engine.py whose sweeps.cu kernels walk the list
+LISTED_WRAPPERS = ["k1_kappa_acc", "k1_visc_acc"]
 
 
 def test_solver_walkers_never_scan_the_cells():
-    """K7's two sweeps, IISPH's three K5 entries and both launches of K6
-    run the listed sweep kernel, which walks the step's list, and K8's
-    acceleration sweep walks the hits of its first sweep: none scans a
-    candidate cell.  K5's entries of the steps without a list launch the
+    """K7's two sweeps, IISPH's three K5 entries, both launches of K6 and
+    the unfused loops' entries of those four sweeps run the listed sweep
+    kernel, which walks the step's list, and K8's acceleration sweep walks
+    the hits of its first sweep: none scans a candidate cell.  The unfused
+    PCISPH prediction cuts the cells' candidates at x* into register
+    masks.  K5's entries of the steps without a list launch the
     cut sweep kernel, which cuts the cells' candidates into register masks
     before it sums (for_each_neighbor_masked) and never runs the single
     cell loop; no single-loop sweep kernel is left.
-    Each listed wrapper asks ``_geom`` for the list (``listed=True``), so
-    that on the card it raises where the grid has none."""
+    Each listed wrapper (those of sweeps.cu's unfused entries too) asks
+    ``_geom`` for the list (``listed=True``), so that on the card it raises
+    where the grid has none."""
     text = (CSRC / "solver_sweeps.cu").read_text()
     bodies = _bodies(text)
 
@@ -244,6 +252,19 @@ def test_solver_walkers_never_scan_the_cells():
     assert launched("k5_iisph_force") == [("list_", "IisphForce")]
     assert launched("k6_fused_tension") == [
         ("list_", "SurfaceNormals"), ("list_", "TensionAccel")]
+    # K1's emits of the unfused loops: the same list sweeps alone
+    assert launched("k1_iisph_dij") == [("list_", "IisphDijFac")]
+    assert launched("k1_iisph_s") == [("list_", "IisphSFields")]
+    assert launched("k1_surface_normals") == [("list_", "SurfaceNormals")]
+    assert launched("k1_tension_accel") == [("list_", "TensionAccel")]
+    # the unfused PCISPH prediction cuts the cells' candidates at x* into
+    # register masks (no list holds the pairs at x*)
+    assert re.search(r"\bk1_pcisph_predict_kernel<<<",
+                     entry("k1_pcisph_predict"))
+    assert re.search(r"\bfor_each_neighbor_masked\s*\(",
+                     bodies["k1_pcisph_predict_kernel"])
+    assert not re.search(r"\bfor_each_neighbor\s*\(",
+                         bodies["k1_pcisph_predict_kernel"])
     for name, emit in LISTLESS_K5.items():
         assert launched(name) == [("cut_", emit)], name
     launch = re.search(r"static int launch_cut_sweep\(.*?\n}", text,
@@ -278,7 +299,7 @@ def test_solver_walkers_never_scan_the_cells():
                    for c in ast.walk(wrappers[name])
                    if isinstance(c, ast.Call) for k in c.keywords)
 
-    for name in LISTED_SOLVER_WRAPPERS:
+    for name in LISTED_SOLVER_WRAPPERS + LISTED_WRAPPERS:
         assert asks_for_the_list(name), name
-    for name in LISTLESS_K5:
+    for name in [*LISTLESS_K5, "k1_pcisph_predict"]:
         assert not asks_for_the_list(name), name

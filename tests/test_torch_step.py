@@ -6,7 +6,8 @@
   state_from_numpy: per step, the divergence / pressure / viscosity
   iteration counts and dt equal the JAX package's (XLA path); pos and vel
   within the golden tolerances; kappa and kappa_v within 1e-3 max|ref|,
-  with non-vacuity asserted.
+  with non-vacuity asserted; the port's step in both solver-loop forms,
+  fused and unfused (``fused_solver_iters``).
 * the 20-step golden scene against tests/golden/dfsph_golden.npz at the
   tolerances of tests/test_golden.py (needs no JAX).
 """
@@ -63,37 +64,42 @@ def test_pressurized_steps_match_jax():
     pos = np.asarray(js.state.pos).copy()
     pos[:, 0] = np.asarray(hi, np.float32) + 0.5
     js.state = js.state.replace(vel=jnp.asarray(vel), pos=jnp.asarray(pos))
-    ts = TSim(sc, wt.config_from_dict(dataclasses.asdict(js.cfg)),
-              device="cpu")
-    ts.state = wt.state_from_numpy(state_to_numpy(js.state), "cpu")
+    tcfg = wt.config_from_dict(dataclasses.asdict(js.cfg))
+    tss = [TSim(sc, tcfg.replace(fused_solver_iters=fused), device="cpu")
+           for fused in (True, False)]
+    for ts in tss:
+        ts.state = wt.state_from_numpy(state_to_numpy(js.state), "cpu")
 
     iters, kmax, kvmax = [], 0.0, 0.0
     for _ in range(3):
         js.step()
-        ts.step()
-        jd, td = js.state.diag, ts.state.diag
+        jd = js.state.diag
         want = (int(jd.divergence_iters), int(jd.pressure_iters),
                 int(jd.viscosity_iters))
         assert int(jd.neighbor_overflow) == 0
-        assert (td.divergence_iters, td.pressure_iters,
-                td.viscosity_iters) == want
-        assert float(ts.state.dt) == float(js.state.dt)
         iters.append(want)
-        np.testing.assert_allclose(ts.state.pos.numpy(),
-                                   np.asarray(js.state.pos),
-                                   rtol=2e-4, atol=2e-5)
-        np.testing.assert_allclose(ts.state.vel.numpy(),
-                                   np.asarray(js.state.vel),
-                                   rtol=2e-3, atol=2e-4)
-        for f in ("kappa", "kappa_v"):
-            ref = np.asarray(getattr(js.state, f))
-            got = getattr(ts.state, f).numpy()
-            scale = float(np.abs(ref).max())
-            assert float(np.abs(got - ref).max()) <= 1e-3 * scale
+        for ts in tss:
+            ts.step()
+            td = ts.state.diag
+            assert (td.divergence_iters, td.pressure_iters,
+                    td.viscosity_iters) == want
+            assert float(ts.state.dt) == float(js.state.dt)
+            np.testing.assert_allclose(ts.state.pos.numpy(),
+                                       np.asarray(js.state.pos),
+                                       rtol=2e-4, atol=2e-5)
+            np.testing.assert_allclose(ts.state.vel.numpy(),
+                                       np.asarray(js.state.vel),
+                                       rtol=2e-3, atol=2e-4)
+            for f in ("kappa", "kappa_v"):
+                ref = np.asarray(getattr(js.state, f))
+                got = getattr(ts.state, f).numpy()
+                scale = float(np.abs(ref).max())
+                assert float(np.abs(got - ref).max()) <= 1e-3 * scale
         kmax = max(kmax, float(np.abs(np.asarray(js.state.kappa)).max()))
         kvmax = max(kvmax, float(np.abs(np.asarray(js.state.kappa_v)).max()))
-    np.testing.assert_array_equal(ts.state.vel.numpy()[:, 0], vel[:, 0])
-    assert float(ts.state.pos[0, 0]) > hi[0] + 0.5
+    for ts in tss:
+        np.testing.assert_array_equal(ts.state.vel.numpy()[:, 0], vel[:, 0])
+        assert float(ts.state.pos[0, 0]) > hi[0] + 0.5
     # non-vacuous: the solvers iterate past their minimum at step 0 and do
     # real pressure and divergence work
     assert iters == [(2, 2, 1), (1, 2, 1), (1, 2, 1)], iters

@@ -24,7 +24,7 @@ repository root.  In one process on one card:
    and where its host time goes (``host_profile``); ``step_calls`` sums
    each side's times over the calls that the recorded step made.  Where the
    step built a list, its fill is timed alone and as its whole wrapper;
-2. steps: the five paths of ``bench.flagship_paths``, 3 warm-up and 10
+2. steps: the paths of ``bench.flagship_paths``, 3 warm-up and 10
    timed steps each, in child processes of the old tree and of this one, in
    turns (old, new, new, old), with each step's (divergence, pressure,
    viscosity) iterations, the list replays in the timed window (this tree),
@@ -124,9 +124,12 @@ for name, (solver, over) in bench.flagship_paths(side).items():
 
 def compare_states(old_dir: Path, new_dir: Path) -> dict:
     """path -> {field: (bit-equal, largest absolute difference)} of the
-    two trees' states after the timed steps."""
+    two trees' states after the timed steps, for the paths both trees
+    ran."""
     out = {}
     for f in sorted(new_dir.glob("*.npz")):
+        if not (old_dir / f.name).exists():
+            continue
         a, b = np.load(old_dir / f.name), np.load(f)
         out[f.stem] = {k: (bool(np.array_equal(a[k], b[k])),
                            float(np.abs(a[k].astype(np.float64)

@@ -1,6 +1,7 @@
 """Throughput benchmark of the port: dam break, particle-steps/s.
 
     python -m wcsph_tpu_torch.bench --side 100 --steps 10 --solver dfsph
+    python -m wcsph_tpu_torch.bench --no-fused    # the unfused solver loops
 
 Prints ONE JSON line shaped like the JAX package's ``bench.py``:
 ``{"metric", "value", "unit", "vs_baseline", "config"}``, where ``config``
@@ -61,6 +62,28 @@ STAGES = {
         "pressure_force": "cuda:k5_iisph_force",
         **_TORCH},
 }
+_UNFUSED_VISC = {"viscosity_iterations": "cuda:k1_visc_acc"}
+# What the unfused solver loops (fused_solver_iters=False) run in place of
+# the fused kernels.
+UNFUSED_STAGES = {
+    "dfsph": {
+        "divergence_warm_start": "cuda:k1_kappa_acc,k1_div_acc",
+        "divergence_iterations": "cuda:k1_kappa_acc,k1_div_acc",
+        "surface_tension_when_on": "cuda:k1_surface_normals,"
+                                   "k1_tension_accel",
+        **_UNFUSED_VISC,
+        "pressure_iterations": "cuda:k1_kappa_acc,k1_div_acc"},
+    "sesph": {},
+    "pcisph": {"prediction_iterations": "cuda:k1_pcisph_predict"},
+    "iisph": {**_UNFUSED_VISC,
+              "jacobi_iterations": "cuda:k1_iisph_dij,k1_iisph_s"},
+}
+
+
+def stages(solver: str, fused: bool = True) -> dict:
+    """The stages of one step of ``solver`` and what runs them on a CUDA
+    device, in the fused or the unfused solver-loop form."""
+    return {**STAGES[solver], **({} if fused else UNFUSED_STAGES[solver])}
 
 
 def card_info() -> str:
@@ -92,14 +115,20 @@ def flagship_paths(n_side: int) -> dict:
     flagship scene: name -> (solver, config overrides).  The tension path
     takes the coefficients of examples/run_showcase.py:102, with an adhesion
     region that meets the wall: centred on the middle of the box floor,
-    under the liquid block."""
+    under the liquid block.  The paths with a solver loop come again with
+    the unfused loops (``fused_solver_iters=False``), named with
+    ``-unfused``."""
     extent = n_side * 2 * 0.025 * 1.35
     tension = dict(tension_coff=0.5, tension_coff_b=0.25,
                    adhesion_center=(0.0, -0.5 * extent, 0.0),
                    adhesion_radius=0.25 * extent)
-    return {"dfsph": ("dfsph", {}), "sesph": ("sesph", {}),
-            "pcisph": ("pcisph", {}), "iisph": ("iisph", {}),
-            "dfsph+tension": ("dfsph", tension)}
+    paths = {"dfsph": ("dfsph", {}), "sesph": ("sesph", {}),
+             "pcisph": ("pcisph", {}), "iisph": ("iisph", {}),
+             "dfsph+tension": ("dfsph", tension)}
+    unfused = {f"{name}-unfused": (solver, {**over,
+                                            "fused_solver_iters": False})
+               for name, (solver, over) in paths.items() if solver != "sesph"}
+    return {**paths, **unfused}
 
 
 def measure(sim: Simulation, warmup: int, steps: int) -> dict:
@@ -225,6 +254,10 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--solver", default="dfsph", choices=sorted(STAGES))
+    ap.add_argument("--no-fused", action="store_true",
+                    help="the unfused solver loops (fused_solver_iters="
+                         "False): K1's emits one sweep a call in place of "
+                         "the fused per-iteration kernels")
     ap.add_argument("--profile", type=int, default=0,
                     help="after the timed steps, trace this many more under "
                          "torch.profiler and print the device breakdown to "
@@ -234,7 +267,9 @@ def main(argv=None):
         raise SystemExit("wcsph_tpu_torch.bench measures the CUDA device; "
                          "torch.cuda.is_available() is False")
     t0 = time.perf_counter()
-    sim = build_sim(args.side, "cuda", args.solver)
+    fused = not args.no_fused
+    sim = build_sim(args.side, "cuda", args.solver,
+                    fused_solver_iters=fused)
     build_s = time.perf_counter() - t0
     res = measure(sim, args.warmup, args.steps)
     nl = res["n_liquid"]
@@ -256,7 +291,8 @@ def main(argv=None):
             "card": card_info(),
             "torch": torch.__version__,
             "cuda": torch.version.cuda,
-            "stages": STAGES[args.solver],
+            "fused_solver_iters": fused,
+            "stages": stages(args.solver, fused),
             "iters": res["iters"],
             "overflow": res["telemetry"]["neighbor_overflow"],
             "list_replays": res["replays"],

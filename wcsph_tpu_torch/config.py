@@ -3,8 +3,9 @@
 Every field keeps the JAX package's name and default, so one dict builds
 both configs (``config_from_dict(dataclasses.asdict(jax_cfg))``).  Fields
 that only steer the TPU engine stay as inert fields here: ``cell_capacity*``
-(the port never caps a cell), ``resident*``, ``fused_solver_iters``,
-``aot_dir``, ``pair_dtype`` and ``use_pallas``.
+(the port never caps a cell), ``resident*``, ``aot_dir``, ``pair_dtype``
+and ``use_pallas``.  ``fused_solver_iters`` picks the solver loops' form,
+as in the JAX package (``engine.use_fused_iters``).
 """
 
 from __future__ import annotations
@@ -112,13 +113,16 @@ class SimConfig:
     eps: float = 1e-5
     # TPU-engine switches, inert in the port (kept for config parity): the
     # port's CUDA tensors always run its hand kernels, CPU tensors their
-    # plain twins, and the solver loops always take the fused forms.
+    # plain twins.
     use_pallas: bool = False
     resident: bool = False
     resident_rebuild_every: int = 64
     resident_mover_frac: float = 0.08
     resident_side_frac: float = 0.02
     resident_host_rebuild: bool = False
+    # The solver loops' form: one fused kernel an iteration (K2-K4, K6-K8),
+    # or False for the JAX package's unfused forms, K1's emits one sweep a
+    # call (engine.use_fused_iters).
     fused_solver_iters: bool = True
     aot_dir: str = ""
     pair_dtype: str = "float32"

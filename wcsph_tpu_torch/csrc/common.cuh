@@ -13,8 +13,9 @@
 //     shared memory, and then sums the pair terms over its own hits only,
 //     in the same order; PCISPH's cut takes the positions of its 16-byte
 //     records at the moved positions x*, the candidates staying those of
-//     the cells; K5's sweeps of the steps without a list cut in registers
-//     instead (for_each_neighbor_masked: a bit mask per 32 candidates);
+//     the cells; K5's sweeps of the steps without a list, and the unfused
+//     PCISPH prediction sweep at x*, cut in registers instead
+//     (for_each_neighbor_masked: a bit mask per 32 candidates);
 //   * or, where the step has built its neighbour list (Geom.nl_idx, see
 //     for_each_listed), walks that list: the same pairs in the same order,
 //     with no candidate to cut, each neighbour's position and liquid flag
@@ -137,12 +138,16 @@ __device__ __forceinline__ void for_each_neighbor(const Geom& g, int i,
 // recomputing the geometry from the same loads (same bits).  The warp runs
 // the body as often as its busiest lane has hits in the chunk, not at every
 // candidate where any lane has one, and the L1 cache keeps its full size
-// for the candidates' positions.
+// for the candidates' positions.  The candidates are those of the cells
+// (Geom.cell, Geom.start); the positions of the cut and of the pair
+// geometry are the planar (3, M) `pos`: Geom.pos itself, or moved
+// positions (PCISPH's x*).
 template <class F>
 __device__ __forceinline__ void for_each_neighbor_masked(const Geom& g, int i,
+                                                         const float* pos,
                                                          F& f) {
   const int M = g.M;
-  const float xi = g.pos[i], yi = g.pos[M + i], zi = g.pos[2 * M + i];
+  const float xi = pos[i], yi = pos[M + i], zi = pos[2 * M + i];
   const int c = g.cell[i];
   const int cz = c % g.gz;
   const int cy = (c / g.gz) % g.gy;
@@ -162,17 +167,17 @@ __device__ __forceinline__ void for_each_neighbor_masked(const Geom& g, int i,
         unsigned hit = 0u;
         for (int k = 0; k < n; ++k) {
           const int j = j0 + k;
-          const float rx = xi - g.pos[j];
-          const float ry = yi - g.pos[M + j];
-          const float rz = zi - g.pos[2 * M + j];
+          const float rx = xi - pos[j];
+          const float ry = yi - pos[M + j];
+          const float rz = zi - pos[2 * M + j];
           if (j != i && rx * rx + ry * ry + rz * rz <= g.h2) hit |= 1u << k;
         }
         while (hit != 0u) {
           const int j = j0 + __ffs(hit) - 1;
           hit &= hit - 1u;
-          const float rx = xi - g.pos[j];
-          const float ry = yi - g.pos[M + j];
-          const float rz = zi - g.pos[2 * M + j];
+          const float rx = xi - pos[j];
+          const float ry = yi - pos[M + j];
+          const float rz = zi - pos[2 * M + j];
           f(j, rx, ry, rz, rx * rx + ry * ry + rz * rz);
         }
       }

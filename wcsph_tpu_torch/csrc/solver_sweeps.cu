@@ -4,7 +4,9 @@
 // They replace the remaining four Pallas kernels of
 // wcsph_tpu/pallas/engine.py: the one-sided sweep _build_sweep (279)
 // and the fused programs _build_fused_tension (904),
-// _build_fused_iisph_iter (1238) and _build_fused_pcisph_iter (1466).  As
+// _build_fused_iisph_iter (1238) and _build_fused_pcisph_iter (1466), and
+// five emits of _build_sweep_sym (441) that only the unfused solver loops
+// run alone (their formulas are K6's, K7's and K8's).  As
 // in sweeps.cu they compute what those kernels compute, not their TPU
 // layout: one thread per receiving particle gathers its own sum over the
 // cell-sorted rows (common.cuh), so there is no cell capacity, no plane, no
@@ -22,7 +24,8 @@
 //     receiver, bound by the gathers of the neighbours' fields.  These are
 //     IISPH's three K5 emits and K7's two sweeps (the IISPH step builds the
 //     list after its density sweep), and both launches of K6 (the DFSPH
-//     step builds it before its tension);
+//     step builds it before its tension), and the unfused entries of those
+//     four sweeps;
 //   * K8's pairs are those within h at the moved positions x*, which change
 //     from iteration to iteration, so it cannot walk the step's list; but
 //     its two sweeps of one iteration share the same x*, so the first cuts
@@ -79,7 +82,7 @@ __global__ void k5_cut_kernel(Geom g, E e) {
     auto f = [&](int j, float rx, float ry, float rz, float d2) {
       e.pair(g, row, j, rx, ry, rz, d2, g.liq[j], acc);
     };
-    for_each_neighbor_masked(g, i, f);
+    for_each_neighbor_masked(g, i, g.pos, f);
   }
   e.finish(g, i, acc);
 }
@@ -288,12 +291,15 @@ struct IisphForce {
 // the normals; the record, rho and the three normals for the tension.
 // ---------------------------------------------------------------------------
 
+// The normals' sums times `scale`: h in K6, 1 in the unfused entry
+// k1_surface_normals, whose caller scales by h (engine.surface_normals).
 struct SurfaceNormals {
   static constexpr int kOut = 3;
   static constexpr bool kAllRows = false;
   using Row = NoRow;
   const float* ril;
   float mass;
+  float scale;
   float* out;
   __device__ Row row(const Geom&, int) const { return Row{}; }
   __device__ void pair(const Geom& g, const Row&, int j, float rx, float ry,
@@ -305,9 +311,9 @@ struct SurfaceNormals {
     acc[2] += c * rz;
   }
   __device__ void finish(const Geom& g, int i, const float* acc) const {
-    out[i] = g.h * acc[0];
-    out[g.M + i] = g.h * acc[1];
-    out[2 * g.M + i] = g.h * acc[2];
+    out[i] = scale * acc[0];
+    out[g.M + i] = scale * acc[1];
+    out[2 * g.M + i] = scale * acc[2];
   }
 };
 
@@ -395,20 +401,34 @@ struct TensionAccel {
 // (7 words); for dij, its deninv and p.
 // ---------------------------------------------------------------------------
 
-struct IisphDij {
+// dij's source factor of row j: fac_j = -liq_j deninv_j p_j formed on the
+// fly (K7) ...
+struct FacFromP {
+  const float* deninv;
+  const float* p;
+  __device__ float operator()(int j, float lj) const {
+    return -lj * deninv[j] * p[j];
+  }
+};
+
+// ... or the caller's fac, the JAX method's operand (k1_iisph_dij).
+struct FacField {
+  const float* fac;
+  __device__ float operator()(int j, float) const { return fac[j]; }
+};
+
+template <class Fac>
+struct IisphDijOf {
   static constexpr int kOut = 3;
   static constexpr bool kAllRows = false;
   using Row = NoRow;
-  const float* deninv;
-  const float* p;
+  Fac fac;
   float* out;
   __device__ Row row(const Geom&, int) const { return Row{}; }
   __device__ void pair(const Geom& g, const Row&, int j, float rx, float ry,
                        float rz, float d2, const float4& rj,
                        float* acc) const {
-    const float lj = rj.w;
-    const float fac = -lj * deninv[j] * p[j];
-    const float fg = fac * kernel_gs(g, d2);
+    const float fg = fac(j, rj.w) * kernel_gs(g, d2);
     acc[0] += fg * rx;
     acc[1] += fg * ry;
     acc[2] += fg * rz;
@@ -417,8 +437,28 @@ struct IisphDij {
     store_channels<kOut>(out, g.M, i, acc);
   }
 };
+using IisphDij = IisphDijOf<FacFromP>;
+using IisphDijFac = IisphDijOf<FacField>;
 
-struct IisphS {
+// s's pressure terms: p_liq_j = liq_j p_j and the receiver's g_i =
+// deninv_i p_i formed on the fly (K7) ...
+struct PressFromP {
+  const float* deninv;
+  const float* p;
+  __device__ float p_liq(int j, float lj) const { return lj * p[j]; }
+  __device__ float g_of(int i) const { return deninv[i] * p[i]; }
+};
+
+// ... or the caller's p_liq and g, the JAX method's operands (k1_iisph_s).
+struct PressFields {
+  const float* p_liq_f;
+  const float* g_f;
+  __device__ float p_liq(int j, float) const { return p_liq_f[j]; }
+  __device__ float g_of(int i) const { return g_f[i]; }
+};
+
+template <class P>
+struct IisphSOf {
   static constexpr int kOut = 1;
   static constexpr bool kAllRows = false;
   struct Row {
@@ -426,11 +466,10 @@ struct IisphS {
   };
   const float* dii;
   const float* dij;
-  const float* deninv;
-  const float* p;
+  P press;
   float* out;
   __device__ Row row(const Geom& g, int i) const {
-    return Row{dij[i], dij[g.M + i], dij[2 * g.M + i], deninv[i] * p[i]};
+    return Row{dij[i], dij[g.M + i], dij[2 * g.M + i], press.g_of(i)};
   }
   __device__ void pair(const Geom& g, const Row& r, int j, float rx, float ry,
                        float rz, float d2, const float4& rj,
@@ -440,7 +479,7 @@ struct IisphS {
     const float gs = kernel_gs(g, d2);
     const float dij_dot_i = gs * (r.dx * rx + r.dy * ry + r.dz * rz);
     const float dii_j_dot =
-        gs * (lj * p[j]) *
+        gs * press.p_liq(j, lj) *
         (dii[j] * rx + dii[M + j] * ry + dii[2 * M + j] * rz);
     const float dij_j_dot =
         gs * (dij[j] * rx + dij[M + j] * ry + dij[2 * M + j] * rz);
@@ -454,6 +493,8 @@ struct IisphS {
     store_channels<kOut>(out, g.M, i, acc);
   }
 };
+using IisphS = IisphSOf<PressFromP>;
+using IisphSFields = IisphSOf<PressFields>;
 
 __global__ void k7_update_kernel(int M, const float* __restrict__ liq,
                                  const float* __restrict__ aii,
@@ -599,6 +640,53 @@ __global__ void k8_acc_kernel(Geom g, const float4* __restrict__ xs,
 }
 
 // ---------------------------------------------------------------------------
+// K1's emits that only the unfused solver loops (fused_solver_iters=False)
+// run alone, each an entry of its own.  Replaces _build_sweep_sym
+// (engine.py:441) with these emits:
+//   * _IisphDij (2397), _IisphS (2417): K7's two list sweeps on the JAX
+//     method's operands (fac; p_liq and g) instead of forming them from p;
+//     the s sweep reads its neighbours' finished dij, so they are two calls
+//     in order, as in K7;
+//   * _SurfaceNormals (2498), _TensionAccel (2519): K6's two list sweeps,
+//     the normals unscaled (the caller scales by h);
+//   * _PcisphPredict (2270): predicted density and pressure acceleration
+//     at the moved positions x* (3, M) in one sweep.  No list holds the
+//     pairs at x*, and the unfused loop calls it twice an iteration with
+//     other pressures, so it scans the cells of the grid binned at x and
+//     cuts at x* (for_each_neighbor_masked on the planar x*): K8's pair
+//     set, in the cell loop's order, at liquid receivers.  The
+//     out-of-domain rows lie in no cell's range and no cell lies in their
+//     window, so they take no pair.  Bound: the candidate loop, as K5's cut
+//     sweeps; no hit buffer, nothing kept between calls.
+// ---------------------------------------------------------------------------
+
+__global__ void k1_pcisph_predict_kernel(Geom g, const float* __restrict__ xs,
+                                         const float* __restrict__ p,
+                                         float* __restrict__ out) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= g.M) return;
+  const int M = g.M;
+  float adv = 0.0f, ax = 0.0f, ay = 0.0f, az = 0.0f;
+  if (g.liq[i] != 0.0f) {
+    const float pi = p[i];
+    auto f = [&](int j, float rx, float ry, float rz, float d2) {
+      const float lj = g.liq[j];
+      adv += volume_of(g, lj) * kernel_w(g, d2);
+      const float c = lj * g.vl * (pi + p[j]) + (1.0f - lj) * g.vs * pi;
+      const float fg = c * kernel_gs(g, d2);
+      ax -= fg * rx;
+      ay -= fg * ry;
+      az -= fg * rz;
+    };
+    for_each_neighbor_masked(g, i, xs, f);
+  }
+  out[i] = adv;
+  out[M + i] = ax;
+  out[2 * M + i] = ay;
+  out[3 * M + i] = az;
+}
+
+// ---------------------------------------------------------------------------
 // Plain C entry points (bound with ctypes by engine.py).  Each returns the
 // first cudaError_t of its launches (0 = all launched).
 // ---------------------------------------------------------------------------
@@ -636,7 +724,8 @@ extern "C" int k6_fused_tension(const Geom* g, const float* ril,
                                 const float* rho, const TensionParams* t,
                                 float mass, float* normals, float* acc,
                                 void* stream) {
-  int e = launch_list_sweep(g, SurfaceNormals{ril, mass, normals}, stream);
+  int e = launch_list_sweep(g, SurfaceNormals{ril, mass, g->h, normals},
+                            stream);
   if (e != 0) return e;
   return launch_list_sweep(g, TensionAccel{rho, normals, *t, acc}, stream);
 }
@@ -649,9 +738,9 @@ extern "C" int k7_fused_jacobi_iter(const Geom* g, const float* dii,
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int nb = blocks_of(g->M);
-  int e = launch_list_sweep(g, IisphDij{deninv, p, dij}, stream);
+  int e = launch_list_sweep(g, IisphDij{{deninv, p}, dij}, stream);
   if (e != 0) return e;
-  e = launch_list_sweep(g, IisphS{dii, dij, deninv, p, s}, stream);
+  e = launch_list_sweep(g, IisphS{dii, dij, {deninv, p}, s}, stream);
   if (e != 0) return e;
   k7_update_kernel<<<nb, kBlock, 0, st>>>(g->M, g->liq, aii, b, s, p, dt,
                                           omega, eps, partials);
@@ -686,5 +775,35 @@ extern "C" int k8_fused_pcisph_iter(const Geom* g, const float* vel_star,
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   k8_acc_kernel<<<nb, kBlock, 0, st>>>(*g, rec, hits, nhit, p, acc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int k1_iisph_dij(const Geom* g, const float* fac, float* out,
+                            void* stream) {
+  return launch_list_sweep(g, IisphDijFac{{fac}, out}, stream);
+}
+
+extern "C" int k1_iisph_s(const Geom* g, const float* dii, const float* dij,
+                          const float* p_liq, const float* gi, float* out,
+                          void* stream) {
+  return launch_list_sweep(g, IisphSFields{dii, dij, {p_liq, gi}, out},
+                           stream);
+}
+
+extern "C" int k1_surface_normals(const Geom* g, const float* ril,
+                                  float mass, float* out, void* stream) {
+  return launch_list_sweep(g, SurfaceNormals{ril, mass, 1.0f, out}, stream);
+}
+
+extern "C" int k1_tension_accel(const Geom* g, const float* rho,
+                                const float* n, const TensionParams* t,
+                                float* out, void* stream) {
+  return launch_list_sweep(g, TensionAccel{rho, n, *t, out}, stream);
+}
+
+extern "C" int k1_pcisph_predict(const Geom* g, const float* xs,
+                                 const float* p, float* out, void* stream) {
+  k1_pcisph_predict_kernel<<<blocks_of(g->M), kBlock, 0,
+                             (cudaStream_t)stream>>>(*g, xs, p, out);
   return static_cast<int>(cudaGetLastError());
 }

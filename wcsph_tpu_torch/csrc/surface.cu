@@ -192,7 +192,7 @@ __global__ void aniso_moments_kernel(Geom g, float* __restrict__ mom) {
       sy += w * g.pos[M + j];
       sz += w * g.pos[2 * M + j];
     };
-    if (liquid) for_each_neighbor_masked(g, i, f);
+    if (liquid) for_each_neighbor_masked(g, i, g.pos, f);
     mom[i] = sw;
     mom[M + i] = sx;
     mom[2 * M + i] = sy;
@@ -220,7 +220,7 @@ __global__ void aniso_moments_kernel(Geom g, float* __restrict__ mom) {
         c[4] += w * d[1] * d[2];
         c[5] += w * d[2] * d[2];
       };
-      for_each_neighbor_masked(g, i, f);
+      for_each_neighbor_masked(g, i, g.pos, f);
     }
 #pragma unroll
     for (int k = 0; k < 6; ++k) mom[(4 + k) * M + i] = c[k];

@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels of the DFSPH main path.
 //
 // They replace the four Pallas kernels of wcsph_tpu/pallas/engine.py that
-// the flagship step runs (K1-K4 below).  They compute what those kernels
+// the flagship step runs (K1-K4 below), and K1's two emits that only the
+// unfused solver loops run.  They compute what those kernels
 // compute, not their TPU layout: the capacity-padded cells, 8-row rank
 // blocks, 128-lane margins, plane DMA, occupancy bitmasks and the
 // overlap-add fold of the TPU engine exist because that chip has 128-wide
@@ -29,13 +30,14 @@
 // loop finds, in its order, and each row's 16-byte record of position and
 // liquid flag), and every sweep that runs after it walks the list
 // (for_each_listed): K2, K3, the _DivAcc entry (which shares K2's
-// divergence launch), the _ViscInit and _Vorticity entries and K4's
-// matvec.  ~30 listed pairs per receiver, no cut, each slot a coalesced
-// read and each neighbour's geometry one 16-byte load.  What bounds a walk
-// then is its gathers: per listed neighbour the record and the sweep's own
-// fields of that row (vorticity: vel, om and rinv, 7 words; visc-init: x
-// and rinv, 4; K4: d and rinv, 4), each a scattered load served from L1/L2
-// since a warp's neighbours lie in 9 row ranges.  These sweeps need the
+// divergence launch), the _ViscInit, _Vorticity, _KappaAcc and _ViscAcc
+// entries and K4's matvec.  ~30 listed pairs per receiver, no cut, each
+// slot a coalesced read and each neighbour's geometry one 16-byte load.
+// What bounds a walk then is its gathers: per listed neighbour the record
+// and the sweep's own fields of that row (vorticity: vel, om and rinv, 7
+// words; visc-init, K4 and the _ViscAcc entry: x or d and rinv, 4; the
+// _KappaAcc entry: k, 1), each a scattered load served from L1/L2 since a
+// warp's neighbours lie in 9 row ranges.  These sweeps need the
 // list: there is no cell-loop form of them.
 //
 // A launch returns cudaGetLastError().
@@ -96,10 +98,33 @@ __device__ __forceinline__ float visc_coeff(float lj, int j, float d2,
   return (lj * a_liq * rinv[j] + (1.0f - lj) * b_sol * ri) / (d2 + d0);
 }
 
+// sum_j c (x_i - x_j).r gs r  (_ViscAcc), over the list
+__device__ __forceinline__ void visc_sum(const Geom& g, int i,
+                                         const float* __restrict__ x,
+                                         const float* __restrict__ rinv,
+                                         float a_liq, float b_sol, float d0,
+                                         float& ax, float& ay, float& az) {
+  const int M = g.M;
+  const float xx = x[i], xy = x[M + i], xz = x[2 * M + i];
+  const float ri = rinv[i];
+  auto f = [&](int j, float rx, float ry, float rz, float d2, float lj) {
+    const float c = visc_coeff(lj, j, d2, rinv, ri, a_liq, b_sol, d0);
+    const float dxr = (xx - x[j]) * rx + (xy - x[M + j]) * ry +
+                      (xz - x[2 * M + j]) * rz;
+    const float cf = c * dxr * kernel_gs(g, d2);
+    ax += cf * rx;
+    ay += cf * ry;
+    az += cf * rz;
+  };
+  for_each_listed(g, i, f);
+}
+
 // ---------------------------------------------------------------------------
 // K1: the pair sweep.  Replaces _build_sweep_sym (engine.py:441) with its
-// overlap-add fold _fold_sym_tot (601), for the four emits of the main path.
-// One launch per call; one thread per receiver.  The Newton half window of
+// overlap-add fold _fold_sym_tot (601), for six emits: the four of the
+// fused DFSPH path and _KappaAcc and _ViscAcc, which only the unfused solver
+// forms (fused_solver_iters=False) run alone.  One launch per call; one
+// thread per receiver.  The Newton half window of
 // the TPU kernel (each pair once, both sides written) would need atomic
 // mirror writes here; the gather form evaluates each pair from both ends
 // instead and needs none.
@@ -238,6 +263,41 @@ __global__ void k1_vorticity_kernel(Geom g, const float* __restrict__ vel,
   }
 #pragma unroll
   for (int k = 0; k < 9; ++k) out[k * M + i] = acc[k];
+}
+
+// _KappaAcc at liquid receivers (0 elsewhere), over the list: out (3, M)
+// sum V_j (k_i + k_j) gs r; the caller applies vel + dt acc at liquid rows
+// (engine.kappa_velocity_update).  The unfused DFSPH loops' velocity
+// update, K2's and K3's kappa sweep alone.
+__global__ void k1_kappa_kernel(Geom g, const float* __restrict__ k,
+                                float* __restrict__ out) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= g.M) return;
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+  if (g.liq[i] != 0.0f) kappa_sum(g, i, KField{k}, ax, ay, az);
+  const int M = g.M;
+  out[i] = ax;
+  out[M + i] = ay;
+  out[2 * M + i] = az;
+}
+
+// _ViscAcc at liquid receivers (0 elsewhere), over the list: out (3, M)
+// sum c (x_i - x_j).r gs r; the caller applies x - acc dt / max(rho, 1)
+// (engine.visc_matvec).  The unfused PCG's matvec, K4's first launch
+// without its epilogue.
+__global__ void k1_visc_acc_kernel(Geom g, const float* __restrict__ x,
+                                   const float* __restrict__ rinv,
+                                   float a_liq, float b_sol, float d0,
+                                   float* __restrict__ out) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= g.M) return;
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+  if (g.liq[i] != 0.0f)
+    visc_sum(g, i, x, rinv, a_liq, b_sol, d0, ax, ay, az);
+  const int M = g.M;
+  out[i] = ax;
+  out[M + i] = ay;
+  out[2 * M + i] = az;
 }
 
 // ---------------------------------------------------------------------------
@@ -385,22 +445,9 @@ __global__ void k4_matvec_kernel(Geom g, const float* __restrict__ d,
     const int M = g.M;
     const float lq = g.liq[i];
     const float dx = d[i], dy = d[M + i], dz = d[2 * M + i];
-    const float ri = rinv[i];
     float ax = 0.0f, ay = 0.0f, az = 0.0f;
-    if (lq != 0.0f) {
-      auto f = [&](int j, float rx, float ry, float rz, float d2,
-                   float lj) {
-        const float c = visc_coeff(lj, j, d2, rinv, ri, a_liq, b_sol, d0);
-        const float dxr = (dx - d[j]) * rx + (dy - d[M + j]) * ry +
-                          (dz - d[2 * M + j]) * rz;
-        const float cf = c * dxr * kernel_gs(g, d2);
-        ax += cf * rx;
-        ay += cf * ry;
-        az += cf * rz;
-      };
-      for_each_listed(g, i, f);
-    }
-    const float sc = dt * ri;
+    if (lq != 0.0f) visc_sum(g, i, d, rinv, a_liq, b_sol, d0, ax, ay, az);
+    const float sc = dt * rinv[i];
     const float adx = dx - ax * sc, ady = dy - ay * sc, adz = dz - az * sc;
     ad[i] = adx;
     ad[M + i] = ady;
@@ -491,6 +538,21 @@ extern "C" int k1_vorticity(const Geom* g, const float* vel, const float* om,
                             float rho0vl, float* out, void* stream) {
   k1_vorticity_kernel<<<blocks_of(g->M), kBlock, 0, (cudaStream_t)stream>>>(
       *g, vel, om, rinv, m, rho0vs, rho0vl, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int k1_kappa_acc(const Geom* g, const float* k, float* out,
+                            void* stream) {
+  k1_kappa_kernel<<<blocks_of(g->M), kBlock, 0, (cudaStream_t)stream>>>(
+      *g, k, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int k1_visc_acc(const Geom* g, const float* x, const float* rinv,
+                           float a_liq, float b_sol, float d0, float* out,
+                           void* stream) {
+  k1_visc_acc_kernel<<<blocks_of(g->M), kBlock, 0, (cudaStream_t)stream>>>(
+      *g, x, rinv, a_liq, b_sol, d0, out);
   return static_cast<int>(cudaGetLastError());
 }
 

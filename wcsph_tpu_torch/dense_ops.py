@@ -381,18 +381,19 @@ def vorticity(grid: Grid, vel: torch.Tensor, om: torch.Tensor,
 # K2-K4: the fused solver iterations (in place, like the kernels)
 # ---------------------------------------------------------------------------
 
-def _kappa_acc(grid: Grid, p: Pairs, kf: torch.Tensor) -> torch.Tensor:
-    """(3, M) sum V_j (k'_i + k'_j) gs r."""
-    c = p.vol_j * (kf[p.i] + kf[p.j]) * p.gs
-    return _sum(p, grid.n, c * p.r)
+def kappa_acc(grid: Grid, k: torch.Tensor) -> torch.Tensor:
+    """(3, M) at liquid receivers: sum V_j (k_i + k_j) gs r (``_KappaAcc``
+    1998)."""
+    p = pairs_of(grid)
+    c = p.vol_j * (k[p.i] + k[p.j]) * p.gs
+    return _sum(p, grid.n, c * p.r) * grid.liq
 
 
 def fused_kappa_drho(grid: Grid, vel: torch.Tensor, kf: torch.Tensor,
                      gate: torch.Tensor, acc: torch.Tensor):
     """vel += gate * sum V_j (k'_i + k'_j) gs r, then acc = the divergence
     sum of the updated vel (``kf`` is kappa pre-scaled by dt)."""
-    p = pairs_of(grid)
-    vel += gate * _kappa_acc(grid, p, kf)
+    vel += gate * kappa_acc(grid, kf)
     acc.copy_(div_acc(grid, vel))
     return vel, acc
 
@@ -405,18 +406,26 @@ def fused_iter_full(grid: Grid, vel: torch.Tensor, kv: torch.Tensor,
     k' = dt k; S' = max(paux acc, 0) (mode 0) or max(paux + dt acc, 1)
     (mode 1) from the divergence sum acc of the new vel.  Updates vel, kv
     and S in place; returns the 0-dim error sum liq (S' - mode)."""
-    p = pairs_of(grid)
     dt = float(dt)
     bias = -float(mode)
     kf = dt * (s + bias) * a
     kv += (s + bias) * a
-    vel += grid.liq * _kappa_acc(grid, p, kf)
+    vel += grid.liq * kappa_acc(grid, kf)
     acc = div_acc(grid, vel)
     if mode == 0:
         s.copy_(torch.clamp(paux * acc, min=0.0))
     else:
         s.copy_(torch.clamp(paux + dt * acc, min=1.0))
     return torch.sum(grid.liq * (s - float(mode)))
+
+
+def visc_acc(grid: Grid, x: torch.Tensor, rinv: torch.Tensor) -> torch.Tensor:
+    """(3, M) at liquid receivers: the viscosity matvec's sum
+    sum c (x_i - x_j).r gs r (``_ViscAcc`` 2044; ``rinv`` = 1 / max(rho,
+    1))."""
+    p = pairs_of(grid)
+    coeff = _visc_coeff(grid, p, rinv)
+    return _sum(p, grid.n, coeff * _dot_r(p, x) * p.gs * p.r) * grid.liq
 
 
 def fused_visc_iter(grid: Grid, x: torch.Tensor, r: torch.Tensor,
@@ -426,11 +435,8 @@ def fused_visc_iter(grid: Grid, x: torch.Tensor, r: torch.Tensor,
     d.ad); x += alpha d; r = liq (r - alpha ad); s = Minv r;
     delta' = r.s; d = liq (s + (delta' / delta) d).  Updates x, r, d in
     place; returns (2,) [eps + d.ad, delta']."""
-    p = pairs_of(grid)
     liq = grid.liq
-    coeff = _visc_coeff(grid, p, rinv)
-    acc = _sum(p, grid.n, coeff * _dot_r(p, d) * p.gs * p.r) * liq
-    ad = d - acc * (float(dt) * rinv)
+    ad = d - visc_acc(grid, d, rinv) * (float(dt) * rinv)
     d_ad = grid.cfg.eps + torch.sum(liq * (d[0] * ad[0] + d[1] * ad[1]
                                   + d[2] * ad[2]))
     alpha = delta / d_ad
@@ -544,11 +550,18 @@ def tension_consts(cfg) -> dict:
                 adh_k=0.007 / h ** 3.25)
 
 
-def fused_tension(grid: Grid, ril: torch.Tensor, rho: torch.Tensor):
-    """(normals, acc), both (3, M) at liquid receivers.
-    normals_i = h sum_j m ril_j gs r with ril = liq / max(rho, 1)
-    (``_SurfaceNormals`` 2498, h-scaled); acc is Akinci cohesion, curvature
-    and boundary adhesion on those normals (``_TensionAccel`` 2519): the
+def surface_normals(grid: Grid, ril: torch.Tensor) -> torch.Tensor:
+    """(3, M) at liquid receivers: sum_j m ril_j gs r with ril = liq /
+    max(rho, 1) (``_SurfaceNormals`` 2498; the caller scales by h)."""
+    p = pairs_of(grid)
+    m = grid.cfg.liquid_mass
+    return _sum(p, grid.n, m * ril[p.j] * p.gs * p.r) * grid.liq
+
+
+def tension_accel(grid: Grid, rho: torch.Tensor,
+                  n: torch.Tensor) -> torch.Tensor:
+    """(3, M) at liquid receivers: Akinci cohesion, curvature and boundary
+    adhesion on the h-scaled normals ``n`` (``_TensionAccel`` 2519): the
     cohesion and curvature gates need a liquid neighbour and d^2 > eps, the
     adhesion gate a boundary neighbour whose own position lies within
     adhesion_radius of adhesion_center."""
@@ -556,9 +569,6 @@ def fused_tension(grid: Grid, ril: torch.Tensor, rho: torch.Tensor):
     cfg = grid.cfg
     h = cfg.support_radius
     t = tension_consts(cfg)
-    liq = grid.liq
-    n = h * _sum(p, grid.n, cfg.liquid_mass * ril[p.j] * p.gs * p.r) * liq
-
     dist = torch.sqrt(torch.clamp(p.d2, min=1e-12))
     inv_dist = 1.0 / torch.clamp(dist, min=cfg.eps)
     pair_ok = p.d2 > cfg.eps
@@ -575,7 +585,40 @@ def fused_tension(grid: Grid, ril: torch.Tensor, rho: torch.Tensor):
     c_rad = (t["coh"] * w_coh * inv_dist * gate
              + t["adh"] * w_adh * inv_dist * adh_gate)
     vals = c_rad * p.r + gate * t["curv"] * (n[:, p.i] - n[:, p.j])
-    return n, _sum(p, grid.n, vals) * liq
+    return _sum(p, grid.n, vals) * grid.liq
+
+
+def fused_tension(grid: Grid, ril: torch.Tensor, rho: torch.Tensor):
+    """(normals, acc), both (3, M) at liquid receivers: the h-scaled
+    ``surface_normals`` and ``tension_accel`` on them."""
+    n = grid.cfg.support_radius * surface_normals(grid, ril)
+    return n, tension_accel(grid, rho, n)
+
+
+def iisph_dij(grid: Grid, fac: torch.Tensor) -> torch.Tensor:
+    """(3, M) at liquid receivers: dij_i = sum_j fac_j gs r with the
+    caller's fac = -liq deninv p (``_IisphDij`` 2397)."""
+    p = pairs_of(grid)
+    return _sum(p, grid.n, fac[p.j] * p.gs * p.r) * grid.liq
+
+
+def iisph_s(grid: Grid, dii: torch.Tensor, dij: torch.Tensor,
+            p_liq: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """(M,) at liquid receivers: the s_i sweep of the relaxed Jacobi
+    iteration (``_IisphS`` 2417) from the finished dij, with the caller's
+    p_liq = liq p and g = deninv p."""
+    p = pairs_of(grid)
+    cfg = grid.cfg
+    lj = p.liq_j
+    gs = p.gs
+    dij_dot_i = gs * _dot_own(p, dij)
+    dii_j_dot = gs * p_liq[p.j] * _dot_nbr(p, dii)
+    dij_j_dot = gs * _dot_nbr(p, dij)
+    dji_pi_dot = g[p.i] * gs * gs * p.d2
+    term_liq = cfg.liquid_volume * (dij_dot_i - dii_j_dot - dij_j_dot
+                                    + dji_pi_dot)
+    term_sol = cfg.solid_volume * dij_dot_i
+    return _sum(p, grid.n, lj * term_liq + (1.0 - lj) * term_sol) * grid.liq
 
 
 def fused_jacobi_iter(grid: Grid, dii: torch.Tensor, deninv: torch.Tensor,
@@ -589,23 +632,11 @@ def fused_jacobi_iter(grid: Grid, dii: torch.Tensor, deninv: torch.Tensor,
     ok = |a_ii dt^2| > eps.  Updates ``pr`` in place; returns (dij (3, M),
     s (M,), the 0-dim residual sum of liq ((a_ii p' + s) dt^2 - b) over the
     rows with p' != 0)."""
-    p = pairs_of(grid)
-    cfg = grid.cfg
     liq = grid.liq
-    lj = p.liq_j
-    fac = -liq * deninv * pr
-    dij = _sum(p, grid.n, fac[p.j] * p.gs * p.r) * liq
+    dij = iisph_dij(grid, -liq * deninv * pr)
+    s = iisph_s(grid, dii, dij, liq * pr, deninv * pr)
 
-    gs = p.gs
-    dij_dot_i = gs * _dot_own(p, dij)
-    dii_j_dot = gs * (lj * pr[p.j]) * _dot_nbr(p, dii)
-    dij_j_dot = gs * _dot_nbr(p, dij)
-    dji_pi_dot = (deninv * pr)[p.i] * gs * gs * p.d2
-    term_liq = cfg.liquid_volume * (dij_dot_i - dii_j_dot - dij_j_dot
-                                    + dji_pi_dot)
-    term_sol = cfg.solid_volume * dij_dot_i
-    s = _sum(p, grid.n, lj * term_liq + (1.0 - lj) * term_sol) * liq
-
+    cfg = grid.cfg
     h2 = float(np.float32(dt) * np.float32(dt))
     omega = cfg.iisph_omega
     denom = aii * h2
@@ -641,11 +672,8 @@ def fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, pr: torch.Tensor,
     m = grid.n
     xs = torch.where(grid.liquid[None], grid.pos + vel_star * float(dt),
                      grid.pos)
-    p = build_pairs(grid, xs)
-    # liquid receivers only, each pair's rank among its receiver's pairs
-    live = grid.liquid[p.i]
-    p = Pairs(**{f.name: getattr(p, f.name)[..., live]
-                 for f in dataclasses.fields(p)})
+    p = _star_pairs(grid, xs)
+    # each pair's rank among its receiver's pairs
     n_i = torch.bincount(p.i, minlength=m)
     by_i = torch.argsort(p.i, stable=True)
     rank = torch.empty_like(by_i)
@@ -672,13 +700,40 @@ def fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, pr: torch.Tensor,
     w0 = cfg.liquid_volume * kernels.cubic_w0(cfg.support_radius)
     excess = torch.clamp(w0 + adv, min=1.0) - 1.0
     pr += float(factor) * excess
-    pi = pr[p.i]
-    c = (p.liq_j * cfg.liquid_volume * (pi + pr[p.j])
-         + (1.0 - p.liq_j) * cfg.solid_volume * pi)
-    vals = (c * p.gs * p.r)[:, keep]
+    vals = _pressure_terms(grid, p, pr)[:, keep]
     acc = -torch.zeros((3, m), dtype=vals.dtype,
                        device=vals.device).index_add_(-1, p.i[keep], vals)
     return adv, acc, torch.sum(liq * excess)
+
+
+def _star_pairs(grid: Grid, xs: torch.Tensor) -> Pairs:
+    """The pairs of the liquid receivers at the moved positions ``xs``: the
+    candidates of the grid's cells, cut at ``xs`` (``build_pairs``)."""
+    p = build_pairs(grid, xs)
+    live = grid.liquid[p.i]
+    return Pairs(**{f.name: getattr(p, f.name)[..., live]
+                    for f in dataclasses.fields(p)})
+
+
+def _pressure_terms(grid: Grid, p: Pairs, pr: torch.Tensor) -> torch.Tensor:
+    """(3, P) c gs r per pair with c = V0 (p_i + p_j) for a liquid
+    neighbour and Vs p_i for a boundary one."""
+    cfg = grid.cfg
+    pi = pr[p.i]
+    c = (p.liq_j * cfg.liquid_volume * (pi + pr[p.j])
+         + (1.0 - p.liq_j) * cfg.solid_volume * pi)
+    return c * p.gs * p.r
+
+
+def pcisph_predict(grid: Grid, xs: torch.Tensor,
+                   pr: torch.Tensor) -> torch.Tensor:
+    """(4, M) at liquid receivers, at the moved positions ``xs`` with the
+    pressure ``pr`` (``_PcisphPredict`` 2270): [sum V_j W, -sum c gs r]
+    (see ``_pressure_terms``), over the pairs of ``_star_pairs``.  A
+    receiver moved out of its cell's window still sees only that window."""
+    p = _star_pairs(grid, xs)
+    return torch.cat([_sum(p, grid.n, p.vol_j * p.w)[None],
+                      -_sum(p, grid.n, _pressure_terms(grid, p, pr))])
 
 
 # ---------------------------------------------------------------------------

@@ -17,10 +17,17 @@ its path went through the kernels.
 The kernels (K1-K8, one per Pallas kernel of ``wcsph_tpu/pallas/engine.py``):
 
 =====  ==========================  =========================================
-K1     ``k1_density_alpha_drho``,  pair sweep, one launch per call
-       ``k1_div_acc``,
-       ``k1_visc_init``,
-       ``k1_vorticity``
+K1     ``k1_density_alpha_drho``,  pair sweep, one launch per call; the
+       ``k1_div_acc``,             last seven only in the unfused solver
+       ``k1_visc_init``,           loops (``fused_solver_iters=False``,
+       ``k1_vorticity``,           ``use_fused_iters``), each one emit of
+       ``k1_kappa_acc``,           K2-K4 or K6-K8 alone on the JAX
+       ``k1_visc_acc``,            method's operands
+       ``k1_pcisph_predict``,
+       ``k1_iisph_dij``,
+       ``k1_iisph_s``,
+       ``k1_surface_normals``,
+       ``k1_tension_accel``
 K2     ``k2_fused_kappa_drho``     gated kappa sweep, then divergence sweep
 K3     ``k3_fused_iter_full``      whole divergence / pressure iteration
 K4     ``k4_fused_visc_iter``      whole viscosity-PCG iteration
@@ -34,17 +41,19 @@ K7     ``k7_fused_jacobi_iter``    whole IISPH relaxed-Jacobi iteration
 K8     ``k8_fused_pcisph_iter``    whole PCISPH prediction iteration
 =====  ==========================  =========================================
 
-Eleven walkers read the step's neighbour list (``grid.NeighborList``)
+Seventeen walkers read the step's neighbour list (``grid.NeighborList``)
 instead of the 27 cells: K2, K3, ``k1_div_acc`` (which shares K2's
 divergence launch), ``k1_visc_init``, ``k1_vorticity``, K4, K7, IISPH's
-three K5 entries (``k5_iisph_adv``, ``k5_iisph_aii``, ``k5_iisph_force``)
-and K6 (``k6_fused_tension``, both of its launches).  A DFSPH
-or IISPH step builds the list once, right after its density sweep, with
+three K5 entries (``k5_iisph_adv``, ``k5_iisph_aii``, ``k5_iisph_force``),
+K6 (``k6_fused_tension``, both of its launches) and the unfused loops'
+``k1_kappa_acc``, ``k1_visc_acc``, ``k1_iisph_dij``, ``k1_iisph_s``,
+``k1_surface_normals`` and ``k1_tension_accel``.  A DFSPH or IISPH
+step builds the list once, right after its density sweep, with
 ``nbr_list_offsets`` and ``nbr_list_fill``, kernels of the port's own
 design that no TPU kernel corresponds to (``OWN_KERNELS``), as are the
 step's bin, pack and unpack (``bin_cells``, ``pack_rows``, ``unpack_rows``:
-XLA ops in the JAX package).  On the card the eleven walkers raise where
-the grid has no list; their plain twins need none.  From the positions to
+XLA ops in the JAX package).  On the card the seventeen walkers raise
+where the grid has no list; their plain twins need none.  From the positions to
 the filled list no wrapper reads anything back to the host (the list's
 first fill sizes its buffer: one read).
 
@@ -67,7 +76,9 @@ pixel channel.
 K8's pairs are those at PCISPH's moved positions, new in every iteration:
 its first sweep cuts the cells' candidates there and writes its hits into
 a buffer of a uniform width (``grid.StarHits``, in the step's kept
-``grid.ListSlots``), which its second sweep walks.
+``grid.ListSlots``), which its second sweep walks.  The unfused loop's
+``k1_pcisph_predict`` scans the cells at those positions in each call,
+with no buffer.
 
 ``k1_density_alpha_drho`` runs before the list exists (its counts size
 it), so it scans the cells, in two phases: each receiver first cuts its
@@ -128,6 +139,16 @@ KERNELS = {
     "k1_div_acc": (_SRC, _SYM + "_DivAcc 2023)", dense_ops.div_acc),
     "k1_visc_init": (_SRC, _SYM + "_ViscInit 2092)", dense_ops.visc_init),
     "k1_vorticity": (_SRC, _SYM + "_Vorticity 2133)", dense_ops.vorticity),
+    "k1_kappa_acc": (_SRC, _SYM + "_KappaAcc 1998)", dense_ops.kappa_acc),
+    "k1_visc_acc": (_SRC, _SYM + "_ViscAcc 2044)", dense_ops.visc_acc),
+    "k1_pcisph_predict": (_SRC2, _SYM + "_PcisphPredict 2270)",
+                          dense_ops.pcisph_predict),
+    "k1_iisph_dij": (_SRC2, _SYM + "_IisphDij 2397)", dense_ops.iisph_dij),
+    "k1_iisph_s": (_SRC2, _SYM + "_IisphS 2417)", dense_ops.iisph_s),
+    "k1_surface_normals": (_SRC2, _SYM + "_SurfaceNormals 2498)",
+                           dense_ops.surface_normals),
+    "k1_tension_accel": (_SRC2, _SYM + "_TensionAccel 2519)",
+                         dense_ops.tension_accel),
     "k2_fused_kappa_drho": (_SRC, _ENG + "736 (_build_fused_iter)",
                             dense_ops.fused_kappa_drho),
     "k3_fused_iter_full": (_SRC, _ENG + "1041 (_build_fused_iter_full)",
@@ -167,8 +188,8 @@ OWN_KERNELS = {
                          dense_ops.list_offsets),
     "nbr_list_fill": (_SRC, "the neighbour list that K2, K3, k1_div_acc, "
                       "k1_visc_init, k1_vorticity, K4, K7, IISPH's K5 "
-                      "entries and K6 walk",
-                      dense_ops.neighbor_list),
+                      "entries, K6 and the unfused loops' six list walkers "
+                      "walk", dense_ops.neighbor_list),
     "mc_field": (_SURF, "the surface's scalar field at the reconstruction "
                  "points, plain and anisotropic (XLA's window sweep, "
                  "wcsph_tpu/surface/field.py:57)", dense_ops.mc_field),
@@ -266,6 +287,13 @@ _SIGNATURES = {
     "k1_div_acc": [_G, _P, _P, _P],
     "k1_visc_init": [_G, _P, _P, _F, _F, _F, _P, _P],
     "k1_vorticity": [_G, _P, _P, _P, _F, _F, _F, _P, _P],
+    "k1_kappa_acc": [_G, _P, _P, _P],
+    "k1_visc_acc": [_G, _P, _P, _F, _F, _F, _P, _P],
+    "k1_pcisph_predict": [_G, _P, _P, _P, _P],
+    "k1_iisph_dij": [_G, _P, _P, _P],
+    "k1_iisph_s": [_G, _P, _P, _P, _P, _P, _P],
+    "k1_surface_normals": [_G, _P, _F, _P, _P],
+    "k1_tension_accel": [_G, _P, _P, _T, _P, _P],
     "k2_fused_kappa_drho": [_G, _P, _P, _P, _P, _P],
     "k3_fused_iter_full": [_G, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P],
     "k4_fused_visc_iter": [_G, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F,
@@ -785,9 +813,10 @@ def unpack_rows(grid: Grid, packed, defaults):
 
 def _sweep(name: str, grid: Grid, operands, shapes, n_out, *consts,
            listed: bool = False):
-    """Launch a K5 entry: checked operands, then constants, then the
-    (n_out, M) output; ``listed``: the entry walks the step's neighbour
-    list (see ``_geom``)."""
+    """Launch a sweep entry with one (n_out, M) output (K5's, and K1's
+    emits of the unfused loops): checked operands, then constants, then the
+    output; ``listed``: the entry walks the step's neighbour list (see
+    ``_geom``)."""
     _check(*operands, shapes=shapes)
     out = torch.empty((n_out, grid.n), dtype=torch.float32,
                       device=grid.device)
@@ -848,15 +877,19 @@ def k6_fused_tension(grid: Grid, ril: torch.Tensor, rho: torch.Tensor):
     _check(ril, rho, shapes=[(m,), (m,)])
     normals = torch.empty((3, m), dtype=torch.float32, device=rho.device)
     acc = torch.empty((3, m), dtype=torch.float32, device=rho.device)
+    _launch("k6_fused_tension", ctypes.byref(_geom(grid, listed=True)),
+            ril.data_ptr(), rho.data_ptr(),
+            ctypes.byref(_tension_params(cfg)), cfg.liquid_mass,
+            normals.data_ptr(), acc.data_ptr(), _stream())
+    return normals, acc
+
+
+def _tension_params(cfg) -> _TensionParams:
     t = dense_ops.tension_consts(cfg)
-    params = _TensionParams(
+    return _TensionParams(
         t["coh"], t["adh"], t["curv"], t["rho0x2"], cfg.eps, t["coh_k"],
         t["coh_c"], t["adh_k"], *cfg.adhesion_center,
         cfg.adhesion_radius ** 2)
-    _launch("k6_fused_tension", ctypes.byref(_geom(grid, listed=True)),
-            ril.data_ptr(), rho.data_ptr(), ctypes.byref(params),
-            cfg.liquid_mass, normals.data_ptr(), acc.data_ptr(), _stream())
-    return normals, acc
 
 
 def k7_fused_jacobi_iter(grid: Grid, dii: torch.Tensor, deninv: torch.Tensor,
@@ -918,6 +951,80 @@ def k8_fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, p: torch.Tensor,
             acc.data_ptr(), partials.data_ptr(), err.data_ptr(), _stream())
     grid.star = hits
     return adv, acc, err
+
+
+# ---------------------------------------------------------------------------
+# K1's emits that only the unfused solver loops run alone
+# (fused_solver_iters=False): one sweep a call, the JAX methods' operands
+# ---------------------------------------------------------------------------
+
+def k1_kappa_acc(grid: Grid, k: torch.Tensor) -> torch.Tensor:
+    """(3, M) sum V_j (k_i + k_j) gs r at liquid rows (walks the list)."""
+    if not _route(k):
+        return dense_ops.kappa_acc(grid, k)
+    return _sweep("k1_kappa_acc", grid, [k], [(grid.n,)], 3, listed=True)
+
+
+def k1_visc_acc(grid: Grid, x: torch.Tensor,
+                rinv: torch.Tensor) -> torch.Tensor:
+    """(3, M) sum c (x_i - x_j).r gs r at liquid rows, rinv = 1 / max(rho,
+    1) (walks the list)."""
+    if not _route(x):
+        return dense_ops.visc_acc(grid, x, rinv)
+    m = grid.n
+    a_liq, b_sol = dense_ops.visc_consts(grid.cfg)
+    h = grid.cfg.support_radius
+    return _sweep("k1_visc_acc", grid, [x, rinv], [(3, m), (m,)], 3, a_liq,
+                  b_sol, 0.01 * h * h, listed=True)
+
+
+def k1_pcisph_predict(grid: Grid, xstar: torch.Tensor,
+                      p: torch.Tensor) -> torch.Tensor:
+    """(4, M) [sum V_j W, pressure acceleration (3)] at liquid rows, at the
+    moved positions ``xstar`` (3, M) with the pressure ``p``: the grid's
+    cells scanned, the pairs cut at ``xstar``."""
+    if not _route(p):
+        return dense_ops.pcisph_predict(grid, xstar, p)
+    m = grid.n
+    return _sweep("k1_pcisph_predict", grid, [xstar, p], [(3, m), (m,)], 4)
+
+
+def k1_iisph_dij(grid: Grid, fac: torch.Tensor) -> torch.Tensor:
+    """(3, M) dij = sum_j fac_j gs r at liquid rows (walks the list)."""
+    if not _route(fac):
+        return dense_ops.iisph_dij(grid, fac)
+    return _sweep("k1_iisph_dij", grid, [fac], [(grid.n,)], 3, listed=True)
+
+
+def k1_iisph_s(grid: Grid, dii: torch.Tensor, dij: torch.Tensor,
+               p_liq: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """(M,) s of the relaxed Jacobi iteration at liquid rows, from the
+    finished dij, p_liq = liq p and g = deninv p (walks the list)."""
+    if not _route(dij):
+        return dense_ops.iisph_s(grid, dii, dij, p_liq, g)
+    m = grid.n
+    return _sweep("k1_iisph_s", grid, [dii, dij, p_liq, g],
+                  [(3, m), (3, m), (m,), (m,)], 1, listed=True)[0]
+
+
+def k1_surface_normals(grid: Grid, ril: torch.Tensor) -> torch.Tensor:
+    """(3, M) sum_j m ril_j gs r at liquid rows, unscaled (walks the
+    list)."""
+    if not _route(ril):
+        return dense_ops.surface_normals(grid, ril)
+    return _sweep("k1_surface_normals", grid, [ril], [(grid.n,)], 3,
+                  grid.cfg.liquid_mass, listed=True)
+
+
+def k1_tension_accel(grid: Grid, rho: torch.Tensor,
+                     n: torch.Tensor) -> torch.Tensor:
+    """(3, M) cohesion, curvature and adhesion acceleration at liquid rows
+    on the h-scaled normals ``n`` (walks the list)."""
+    if not _route(rho):
+        return dense_ops.tension_accel(grid, rho, n)
+    m = grid.n
+    return _sweep("k1_tension_accel", grid, [rho, n], [(m,), (3, m)], 3,
+                  ctypes.byref(_tension_params(grid.cfg)), listed=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1131,11 +1238,52 @@ def iisph_adv(grid: Grid, vel: torch.Tensor):
     return out[0:3], out[3], out[4]
 
 
+def use_fused_iters(cfg) -> bool:
+    """Run the solver loops in their fused forms, one K2-K4 or K6-K8 call
+    an iteration (``cfg.fused_solver_iters``), or in the JAX package's
+    unfused forms, K1's emits one sweep a call (use_fused_iters of the
+    JAX engine, engine.py:2602, without its communicator: one card)."""
+    return cfg.fused_solver_iters
+
+
+def kappa_velocity_update(grid: Grid, vel: torch.Tensor, k: torch.Tensor,
+                          dt) -> torch.Tensor:
+    """vel + dt sum V_j (k_i + k_j) gs r at liquid rows; boundary rows keep
+    their velocity (SweepEngine.kappa_velocity_update)."""
+    acc = k1_kappa_acc(grid, k)
+    return vel + torch.where(grid.liquid[None], float(dt) * acc, 0.0)
+
+
+def visc_matvec(grid: Grid, x: torch.Tensor, rho: torch.Tensor,
+                dt) -> torch.Tensor:
+    """x - dt / max(rho, 1) sum c (x_i - x_j).r gs r
+    (SweepEngine.visc_matvec)."""
+    acc = k1_visc_acc(grid, x, rho_inv(rho))
+    return x - acc * (float(dt) / torch.clamp(rho, min=1.0))[None]
+
+
+def pcisph_predict(grid: Grid, xstar: torch.Tensor, p: torch.Tensor):
+    """(raw predicted density sum (M,), pressure acceleration (3, M)) at
+    the moved positions (SweepEngine.pcisph_predict); the caller adds the
+    self term and clamps."""
+    out = k1_pcisph_predict(grid, xstar, p)
+    return out[0], out[1:4]
+
+
+def _liquid_rho_inv(grid: Grid, rho: torch.Tensor) -> torch.Tensor:
+    return torch.where(grid.liquid, rho_inv(rho), 0.0)
+
+
+def surface_normals(grid: Grid, rho: torch.Tensor) -> torch.Tensor:
+    """h sum_j liq_j (m / rho_j) gs r (SweepEngine.surface_normals)."""
+    return grid.cfg.support_radius * k1_surface_normals(
+        grid, _liquid_rho_inv(grid, rho))
+
+
 def fused_tension(grid: Grid, rho: torch.Tensor):
     """(h-scaled normals, cohesion + curvature + adhesion acceleration)
     (PaddedEngine.fused_tension)."""
-    ril = torch.where(grid.liquid, rho_inv(rho), 0.0)
-    return k6_fused_tension(grid, ril, rho)
+    return k6_fused_tension(grid, _liquid_rho_inv(grid, rho), rho)
 
 
 def fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, p: torch.Tensor,

@@ -251,31 +251,35 @@ class Grid:
             self.n_liquid_read = int(self.n_liquid)
         return self.n_liquid_read
 
-    def read(self, x: torch.Tensor) -> float:
-        """``x.item()`` for a 0-dim tensor: one host read.  The grid's first
-        read also brings L and, where the step built its list, the list's
-        slot need and overflow flag, and the first read after a K8 call
-        that call's overflow flag, stacked into the same transfer; it
-        raises ``ListOverflow`` where the list or the hits were short,
-        ValueError where a count was below the pairs within h."""
+    def read(self, x: torch.Tensor, *more: torch.Tensor):
+        """``x.item()`` for a 0-dim tensor: one host read; with ``more``
+        0-dim tensors, the list of all their values, from the same
+        transfer.  The grid's first read also brings L and, where the step
+        built its list, the list's slot need and overflow flag, and the
+        first read after a K8 call that call's overflow flag, stacked into
+        the same transfer; it raises ``ListOverflow`` where the list or the
+        hits were short, ValueError where a count was below the pairs
+        within h."""
         extra = []
         if self.n_liquid_read is None:
             extra.append(self.n_liquid)
         pending = [c for c in (self.nbr, self.star)
                    if c is not None and not c.checked]
         extra += [t for c in pending for t in c.status]
-        if not extra:
+        if not extra and not more:
             return x.item()
-        value, *vals = torch.stack([t.reshape(()).to(torch.float64)
-                                    for t in (x, *extra)]).tolist()
-        vals = [int(v) for v in vals]
+        asked = (x, *more)
+        vals = torch.stack([t.reshape(()).to(torch.float64)
+                            for t in (*asked, *extra)]).tolist()
+        values = vals[:len(asked)]
+        vals = [int(v) for v in vals[len(asked):]]
         if self.n_liquid_read is None:
             self.n_liquid_read = vals.pop(0)
         for c in pending:
             k = len(c.status)
             c.check(*vals[:k])
             vals = vals[k:]
-        return value
+        return values if more else values[0]
 
 
 def outside_cell(cfg: SimConfig) -> int:

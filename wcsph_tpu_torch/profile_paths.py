@@ -4,7 +4,8 @@ process on one card.
     python -m wcsph_tpu_torch.profile_paths [--side 100] [--steps 3]
 
 For each path of ``bench.flagship_paths`` (DFSPH, SESPH, PCISPH, IISPH,
-DFSPH with surface tension): 3 warm-up and 10 timed steps (the untraced
+DFSPH with surface tension, and those with a solver loop again in the
+unfused form): 3 warm-up and 10 timed steps (the untraced
 median step), then ``--steps`` more under torch.profiler
 (``bench.profile``).  One JSON line per path on stdout, after a first line
 with the card's name and power limit.

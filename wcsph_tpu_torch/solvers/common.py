@@ -18,9 +18,14 @@ def gravity_column(cfg: SimConfig, like: torch.Tensor) -> torch.Tensor:
                         device=like.device)[:, None]
 
 
+def liquid_total(grid: Grid, x: torch.Tensor) -> torch.Tensor:
+    """The 0-dim sum of ``x`` over the liquid rows, on the device."""
+    return torch.sum(torch.where(grid.liquid, x, 0.0))
+
+
 def liquid_sum(grid: Grid, x: torch.Tensor) -> np.float32:
     """Sum of ``x`` over the liquid rows, read to the host (``Grid.read``)."""
-    return f32(grid.read(torch.sum(torch.where(grid.liquid, x, 0.0))))
+    return f32(grid.read(liquid_total(grid, x)))
 
 
 def liquid_vel_max(grid: Grid, velp: torch.Tensor) -> np.float32:

@@ -1,5 +1,5 @@
 """DFSPH: divergence-free SPH, the flagship solver (port of
-``wcsph_tpu/solvers/dfsph.py``, fused forms only).
+``wcsph_tpu/solvers/dfsph.py``).
 
 One step: bin + pack (``bin_and_pack``) -> density + DFSPH factor alpha
 (+ warm-start drho, one K1 sweep) -> the step's neighbour list (its slice
@@ -9,7 +9,12 @@ K1's visc-init, vorticity and advected-density sweeps) -> divergence solve
 surface tension when on: K6, implicit-viscosity PCG: K1 + K4, micropolar
 vorticity: K1) -> adaptive CFL dt -> velocity update -> constant-density
 solve (advected density K1, iterations K3 mode 1) -> unpack + position
-update.
+update.  With ``fused_solver_iters=False`` (``engine.use_fused_iters``)
+the loops and the tension take the JAX package's unfused forms: each
+iteration a kappa sweep (``k1_kappa_acc``) and a divergence sweep
+(``k1_div_acc``), the tension a normals sweep and a tension sweep
+(``k1_surface_normals``, ``k1_tension_accel``), the viscosity PCG a
+matvec sweep (``k1_visc_acc``) and torch ops; every sweep walks the list.
 
 The solver loops end on the host: each iteration's error is read back and
 tested there (``Grid.read``), with the JAX package's loop contracts and
@@ -33,7 +38,7 @@ from .. import engine, viscosity
 from ..config import SimConfig
 from ..grid import Grid, ListSlots, build_grid, pack, unpack
 from ..state import FluidState, StepDiagnostics
-from .common import liquid_sum, replaying
+from .common import liquid_sum, liquid_total, replaying
 
 f32 = np.float32
 
@@ -64,73 +69,121 @@ class _SolveResult(NamedTuple):
 def divergence_solve(grid: Grid, velp, kvp, alphap, cntp, dt,
                      drho0=None) -> _SolveResult:
     """Divergence-free velocity solver (reference dfsph.py:131-146,
-    415-485).  ``drho0``, if given, is the warm-start drho of the incoming
-    velocity (from the density sweep's 7th channel)."""
+    415-485): the warm start, then iterations of the kappa velocity update
+    and the divergence of the new velocity, in the fused form (K2, then one
+    K3 an iteration) or the unfused one (``engine.use_fused_iters``: a
+    kappa sweep and a divergence sweep each).  ``drho0``, if given, is the
+    warm-start drho of the incoming velocity (from the density sweep's 7th
+    channel).  ``err_pre`` is the liquid sum of drho before the first
+    iteration; it rides on the first iteration's read."""
     cfg = grid.cfg
     rho0 = cfg.rest_density
     dt = f32(dt)
-    velp = velp.clone()
+    fused = engine.use_fused_iters(cfg)
+    alpha_dt = (alphap / float(dt)).contiguous()
 
-    def post_div(acc):
-        return torch.where(cntp < cfg.min_div_neighbors, 0.0,
-                           torch.clamp(acc, min=0.0))
+    def drho_of(velp):
+        return engine.drho_divergence(grid, velp, cntp)
 
+    if fused:
+        velp = velp.clone()
+        cnt_gate = (cntp >= cfg.min_div_neighbors).to(torch.float32)
+
+        def iterate(velp, kvp, drho):
+            # the whole iteration in one K3 call, in place
+            return velp, kvp, drho, engine.k3_fused_iter_full(
+                grid, velp, kvp, drho, alpha_dt, cnt_gate, dt, 0)
+    else:
+        def iterate(velp, kvp, drho):
+            k = drho * alpha_dt
+            velp = engine.kappa_velocity_update(grid, velp, k, dt)
+            drho = drho_of(velp)
+            return velp, kvp + k, drho, liquid_total(grid, drho)
+
+    drho = None
     if cfg.divergence_warm_start:
         # warmstart_divergence_vel (dfsph.py:415-439): the per-receiver
-        # acceptance where(drho_ws > 0, vel_ws, vel) is a gate field
+        # acceptance where(drho_ws > 0, vel_ws, vel); fused, a gate field
+        # of K2, whose second sweep gives the new velocity's drho
         k_ws = 0.5 * torch.clamp(kvp / float(dt), min=-0.5 * rho0 * rho0)
-        drho_ws = (engine.drho_divergence(grid, velp, cntp)
-                   if drho0 is None else drho0)
-        acc = torch.empty_like(drho_ws)
-        velp, acc = engine.k2_fused_kappa_drho(
-            grid, velp, (float(dt) * k_ws).contiguous(),
-            (grid.liq * (drho_ws > 0.0)).contiguous(), acc)
-        drho = post_div(acc)
-    else:
-        drho = engine.drho_divergence(grid, velp, cntp)
+        drho_ws = drho_of(velp) if drho0 is None else drho0
+        if fused:
+            acc = torch.empty_like(drho_ws)
+            velp, acc = engine.k2_fused_kappa_drho(
+                grid, velp, (float(dt) * k_ws).contiguous(),
+                (grid.liq * (drho_ws > 0.0)).contiguous(), acc)
+            drho = torch.where(cntp < cfg.min_div_neighbors, 0.0,
+                               torch.clamp(acc, min=0.0))
+        else:
+            vel_ws = engine.kappa_velocity_update(grid, velp, k_ws, dt)
+            velp = torch.where((drho_ws > 0.0)[None], vel_ws, velp)
+    if drho is None:
+        drho = drho_of(velp)          # begin_divergence_iter (dfsph.py:441)
 
-    alpha_dt = (alphap / float(dt)).contiguous()
     kvp = torch.zeros_like(kvp)
-    cnt_gate = (cntp >= cfg.min_div_neighbors).to(torch.float32)
     drho = drho.contiguous()
-    err, it, threshold = f32(0.0), 0, None
+    err_pre_sum = liquid_total(grid, drho)
+    err, err_pre, it, threshold = f32(0.0), f32(0.0), 0, None
     while it == 0 or (err > threshold and it < cfg.dfsph_div_max_iters):
-        e = engine.k3_fused_iter_full(grid, velp, kvp, drho, alpha_dt,
-                                      cnt_gate, dt, 0)
-        err = f32(grid.read(e))
-        if threshold is None:     # the first read brought the liquid count
+        velp, kvp, drho, e = iterate(velp, kvp, drho)
+        if threshold is None:
+            # the first read brings err_pre and the liquid count
+            err, err_pre = map(f32, grid.read(e, err_pre_sum))
             threshold = f32(cfg.dfsph_div_tol) * f32(grid.liquid_count) / dt
+        else:
+            err = f32(grid.read(e))
         it += 1
     # end_divergence_iter (dfsph.py:479-485): kappa_v stored scaled by dt
     return _SolveResult(vel=velp, kappa=kvp * float(dt), iters=it, err=err,
-                        err_pre=f32(0.0))
+                        err_pre=err_pre)
 
 
 def pressure_solve(grid: Grid, velp, kp, alphap, rhop, dt) -> _SolveResult:
-    """Constant-density solver (reference dfsph.py:150-164, 487-552)."""
+    """Constant-density solver (reference dfsph.py:150-164, 487-552),
+    fused (K2, then one K3 an iteration) or unfused (a kappa sweep and a
+    divergence sweep an iteration), as ``divergence_solve``."""
     cfg = grid.cfg
     rho0 = cfg.rest_density
     dt = f32(dt)
     dt2 = dt * dt
-    velp = velp.clone()
-    rr0 = (rhop / rho0).contiguous()
+    fused = engine.use_fused_iters(cfg)
+    alpha_dt2 = (alphap / float(dt2)).contiguous()
 
-    def post_adv(acc):
-        return torch.clamp(rr0 + float(dt) * acc, min=1.0)
+    def adv_of(velp):
+        return engine.advected_density(grid, velp, rhop, float(dt))
 
+    if fused:
+        velp = velp.clone()
+        rr0 = (rhop / rho0).contiguous()
+
+        def iterate(velp, kp, adv):
+            # the whole iteration in one K3 call (mode 1), in place
+            return velp, kp, adv, engine.k3_fused_iter_full(
+                grid, velp, kp, adv, alpha_dt2, rr0, dt, 1)
+    else:
+        def iterate(velp, kp, adv):
+            k = (adv - 1.0) * alpha_dt2
+            velp = engine.kappa_velocity_update(grid, velp, k, dt)
+            adv = adv_of(velp)
+            return velp, kp + k, adv, liquid_total(grid, adv - 1.0)
+
+    adv = None
     if cfg.pressure_warm_start:
         # the intended SPlisHSPlasH warm start (the reference's is inert)
         k_ws = torch.clamp(kp / float(dt2), min=-0.5 * rho0 * rho0)
-        adv_ws = engine.advected_density(grid, velp, rhop, dt)
-        acc = torch.empty_like(adv_ws)
-        velp, acc = engine.k2_fused_kappa_drho(
-            grid, velp, (float(dt) * k_ws).contiguous(),
-            (grid.liq * (adv_ws > 1.0)).contiguous(), acc)
-        adv = post_adv(acc)
-    else:
-        adv = engine.advected_density(grid, velp, rhop, float(dt))
+        adv_ws = adv_of(velp)
+        if fused:
+            acc = torch.empty_like(adv_ws)
+            velp, acc = engine.k2_fused_kappa_drho(
+                grid, velp, (float(dt) * k_ws).contiguous(),
+                (grid.liq * (adv_ws > 1.0)).contiguous(), acc)
+            adv = torch.clamp(rr0 + float(dt) * acc, min=1.0)
+        else:
+            vel_ws = engine.kappa_velocity_update(grid, velp, k_ws, dt)
+            velp = torch.where((adv_ws > 1.0)[None], vel_ws, velp)
+    if adv is None:
+        adv = adv_of(velp)           # begin_pressure_iter (dfsph.py:510)
 
-    alpha_dt2 = (alphap / float(dt2)).contiguous()
     kp = torch.zeros_like(kp)
     adv = adv.contiguous()
     err_sum = liquid_sum(grid, adv - 1.0)
@@ -139,8 +192,7 @@ def pressure_solve(grid: Grid, velp, kp, alphap, rhop, dt) -> _SolveResult:
     err, it = f32(0.0), 0
     while ((err > f32(cfg.dfsph_tol)) or (it < cfg.dfsph_min_iters)) \
             and it < cfg.dfsph_max_iters:
-        e = engine.k3_fused_iter_full(grid, velp, kp, adv, alpha_dt2, rr0,
-                                      dt, 1)
+        velp, kp, adv, e = iterate(velp, kp, adv)
         err = f32(grid.read(e)) / n_liq
         it += 1
     # end_pressure_iter (dfsph.py:549-552): kappa stored scaled by dt^2
@@ -200,8 +252,13 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, omegap, vgp, kp, kvp, dt,
     g = torch.tensor(cfg.gravity, dtype=torch.float32, device=velp.device)
     d_vel = torch.where(liq[None], g[:, None], 0.0)
     if cfg.tension_coff != 0.0 or cfg.tension_coff_b != 0.0:
-        # surface normals + cohesion, curvature and adhesion: one K6 call
-        _, dv_t = engine.fused_tension(grid, rhop)
+        # surface normals + cohesion, curvature and adhesion: one K6 call,
+        # or unfused a normals sweep and a tension sweep
+        if engine.use_fused_iters(cfg):
+            _, dv_t = engine.fused_tension(grid, rhop)
+        else:
+            dv_t = engine.k1_tension_accel(
+                grid, rhop, engine.surface_normals(grid, rhop))
         d_vel = d_vel + torch.where(liq[None], dv_t, 0.0)
     visc = viscosity.solve_dense(grid, velp, vgp, rhop, dt)
     d_vel = d_vel + (visc.vel_new - velp) / float(dt)    # end_viscosity

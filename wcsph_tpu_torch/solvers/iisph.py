@@ -1,5 +1,5 @@
 """IISPH: implicit incompressible SPH with a relaxed-Jacobi pressure solve
-(port of ``wcsph_tpu/solvers/iisph.py``, engine branch in its fused form).
+(port of ``wcsph_tpu/solvers/iisph.py``, engine branch).
 
 One step: bin + pack (``bin_and_pack``) -> density (K5 ``_DensityAlpha``)
 -> the step's neighbour list from its counts (its slice offsets and one fill
@@ -7,7 +7,11 @@ kernel; every sweep below walks it) -> implicit viscosity (block-Jacobi
 PCG: K1 + K4, ``viscosity.py``) -> advection coefficients d_ii, a_ii,
 advected density (K5 ``_IisphAdv``, ``_IisphAii``), pressure warm start
 0.5 p -> relaxed-Jacobi loop, one K7 call per iteration -> pressure force
-(K5 ``_IisphForce``) -> integrate.  As in the JAX package,
+(K5 ``_IisphForce``) -> integrate.  With ``fused_solver_iters=False``
+(``engine.use_fused_iters``) each Jacobi iteration is the JAX package's
+unfused form instead: a dij sweep and an s sweep (``k1_iisph_dij``,
+``k1_iisph_s``) and the update in torch ops, and each viscosity PCG
+iteration a matvec sweep (``viscosity.py``).  As in the JAX package,
 and unlike the Taichi reference, each iteration starts from the pressure of
 the one before (omega = 0.5), and d_ii / a_ii use the per-type neighbour
 volume.
@@ -31,7 +35,8 @@ from .. import engine, viscosity
 from ..config import SimConfig
 from ..grid import Grid, ListSlots, build_grid, pack, unpack
 from ..state import FluidState, StepDiagnostics
-from .common import gravity_column, liquid_sum, liquid_vel_max, replaying
+from .common import (gravity_column, liquid_sum, liquid_total,
+                     liquid_vel_max, replaying)
 
 f32 = np.float32
 
@@ -101,12 +106,41 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, vgp, pp, dt,
     err_pre = err_sum / n_liq
     b_rhs = 1.0 - adv_rho
 
+    fused = engine.use_fused_iters(cfg)
+    h2 = float(dt * dt)
+    liq = grid.liquid
+
+    def jacobi_tail(p_pre, s):
+        """The relaxed-Jacobi update and the residual sum
+        (wcsph_tpu/solvers/iisph.py:92-104 _jacobi_tail)."""
+        denom = a_ii * h2
+        ok = torch.abs(denom) > cfg.eps
+        p_new = torch.clamp(
+            (1.0 - cfg.iisph_omega) * p_pre
+            + cfg.iisph_omega / torch.where(ok, denom, 1.0)
+            * (b_rhs - h2 * s), min=0.0)
+        p_new = torch.where(ok, p_new, 0.0)
+        resid = torch.where(p_new != 0.0, (a_ii * p_new + s) * h2 - b_rhs,
+                            0.0)
+        return p_new, liquid_total(grid, resid)
+
     err, it = f32(0.0), 0
     while ((err > f32(cfg.iisph_tol)) or (it < cfg.iisph_min_iters)) \
             and it < cfg.iisph_max_iters:
-        _, _, scal = engine.k7_fused_jacobi_iter(grid, d_ii, deninv, a_ii,
-                                                 b_rhs, pp, dt)
-        err = f32(grid.read(scal)) / n_liq
+        if fused:
+            # the whole iteration in one K7 call, in place on pp
+            _, _, resid = engine.k7_fused_jacobi_iter(grid, d_ii, deninv,
+                                                      a_ii, b_rhs, pp, dt)
+        else:
+            # wcsph_tpu/solvers/iisph.py:127-145: the dij sweep, then the
+            # s sweep on the finished dij
+            dij = engine.k1_iisph_dij(
+                grid, torch.where(liq, -v0 * pp / den_i2, 0.0))
+            s = engine.k1_iisph_s(grid, d_ii, dij,
+                                  torch.where(liq, pp, 0.0),
+                                  v0 * pp / den_i2)
+            pp, resid = jacobi_tail(pp, s)
+        err = f32(grid.read(resid)) / n_liq
         it += 1
 
     # pressure force + integrate (iisph.py:372-396)

@@ -1,5 +1,5 @@
 """PCISPH: predictive-corrective incompressible SPH (port of
-``wcsph_tpu/solvers/pcisph.py``, fused form).
+``wcsph_tpu/solvers/pcisph.py``).
 
 One step: bin + pack (``bin_and_pack``) -> density (K5 ``_DensityAlpha``)
 -> explicit viscosity (K5 ``_SesphForce`` with zero pressure) -> prediction
@@ -18,6 +18,13 @@ its density sweep's largest count: one host read).  The read after each
 iteration also brings its overflow flag; an iteration with a row of more
 hits than the width makes the step run again with a wider buffer
 (``common.replaying``).
+
+With ``fused_solver_iters=False`` (``engine.use_fused_iters``) each
+iteration is the JAX package's unfused form instead: the moved positions
+x* = x + liq v* dt in torch ops, a prediction sweep at x* with the old
+pressure (``k1_pcisph_predict``), the pressure update, and a second one
+with the new pressure for the acceleration.  Each call scans the cells at
+x*: no hit buffer, so nothing to size or replay.
 """
 
 from __future__ import annotations
@@ -29,11 +36,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import engine
+from .. import engine, kernels
 from ..config import SimConfig
 from ..grid import Grid, ListSlots, build_grid, pack, unpack
 from ..state import FluidState, StepDiagnostics
-from .common import gravity_column, liquid_vel_max, replaying
+from .common import (gravity_column, liquid_total, liquid_vel_max,
+                     replaying)
 
 f32 = np.float32
 
@@ -96,11 +104,14 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, dt,
     # non-pressure forces + density (pcisph.py:199-218); the SESPH force
     # sweep with zero pressure is the pure explicit viscosity
     rhop, cntp = engine.density(grid)
+    fused = engine.use_fused_iters(cfg)
     slots = ListSlots() if slots is None else slots
-    if slots.capacity is None:          # the first step's one host read
+    if fused and slots.capacity is None:   # the first step's one host read
         slots.size_for(grid.n * int(cntp.max()))
     d_vel = gravity_column(cfg, velp) + engine.sesph_force(
         grid, velp, rhop, torch.zeros_like(rhop))
+    w0 = cfg.liquid_volume * kernels.cubic_w0(cfg.support_radius)
+    liq = grid.liquid
 
     d_vel_pre = torch.zeros_like(velp)
     pp = torch.zeros_like(velp[0])
@@ -108,10 +119,22 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, dt,
     while ((err > f32(cfg.pcisph_tol)) or (it < cfg.pcisph_min_iters)) \
             and it < cfg.pcisph_max_iters:
         vel_star = velp + (d_vel + d_vel_pre) * float(dt)  # pcisph.py:228-235
-        _, d_vel_pre, scal = engine.fused_pcisph_iter(grid, vel_star, pp, dt,
-                                                      coff, slots)
-        # each read brings the iteration's overflow flag, the first the
-        # liquid count
+        if fused:
+            # K8: the prediction, the pressure update and the acceleration
+            _, d_vel_pre, scal = engine.fused_pcisph_iter(
+                grid, vel_star, pp, dt, coff, slots)
+        else:
+            # wcsph_tpu/solvers/pcisph.py:183-216: predict at x*, update
+            # p, predict again at x* for the acceleration
+            xstar = grid.pos + torch.where(liq[None],
+                                           vel_star * float(dt), 0.0)
+            adv_raw, _ = engine.pcisph_predict(grid, xstar, pp)
+            adv = torch.clamp(w0 + adv_raw, min=1.0)
+            pp = pp + coff * (adv - 1.0) / float(dt * dt)   # pcisph.py:255
+            _, d_vel_pre = engine.pcisph_predict(grid, xstar, pp)
+            scal = liquid_total(grid, adv - 1.0)
+        # each read brings the liquid count the first time, and K8's
+        # overflow flag
         err = f32(grid.read(scal)) / f32(grid.liquid_count)
         # the first iteration predicts with p == 0: its error IS the
         # pre-solve violation

@@ -1,13 +1,15 @@
 """Implicit viscosity: matrix-free block-Jacobi preconditioned CG.
 
-Port of ``wcsph_tpu/viscosity.py:solve_dense`` in its fused form: Weiler
-2018 implicit viscosity, (I - dt/rho L_visc) v' = v, with a 3x3
-block-Jacobi preconditioner (Sym3 components).  The setup (preconditioner
-sums + A x0) is one K1 sweep; each PCG iteration is one K4 call, whose two
-global dots stay on the device.  Both the setup sweep and K4's matvec walk
-the step's neighbour list (built by the solver before it calls here; on
-the card both raise without one).  The loop ends on the host: it reads
-delta' after each iteration (``Grid.read``).
+Port of ``wcsph_tpu/viscosity.py:solve_dense``: Weiler 2018 implicit
+viscosity, (I - dt/rho L_visc) v' = v, with a 3x3 block-Jacobi
+preconditioner (Sym3 components).  The setup (preconditioner sums + A x0)
+is one K1 sweep; each PCG iteration is one K4 call in the fused form, or
+in the unfused one (``engine.use_fused_iters``) a matvec sweep
+(``engine.visc_matvec``) and torch ops; either way the two global dots
+stay on the device.  The setup sweep and the matvec walk the step's
+neighbour list (built by the solver before it calls here; on the card they
+raise without one).  The loop ends on the host: it reads delta' after each
+iteration (``Grid.read``).
 
 Warm start: the previous frame's delta-v lives in vel_guess and the
 initial guess is vel_guess + vel; on return vel_guess holds the new
@@ -43,15 +45,22 @@ def solve_dense(grid: Grid, velp: torch.Tensor, vel_guessp: torch.Tensor,
                 rhop: torch.Tensor, dt) -> ViscositySolution:
     cfg = grid.cfg
     liq = grid.liquid
+    liq3 = liq[None]
+    fused = engine.use_fused_iters(cfg)
+
+    def ldot(a, b):
+        return torch.sum(torch.where(liq, torch.sum(a * b, dim=0), 0.0))
+
     x = vel_guessp + velp
     minv, ax0 = engine.visc_init(grid, x, rhop, dt)
     if not cfg.viscosity_precond:
         minv = _identity_precond(minv)
-    r = torch.where(liq[None], velp - ax0, 0.0)
+    r = torch.where(liq3, velp - ax0, 0.0)
     d = minv.matvec(r)
-    delta = torch.sum(torch.where(liq, torch.sum(r * d, dim=0), 0.0))
-    rinv = engine.rho_inv(rhop)
-    minv6 = torch.stack(list(minv)).contiguous()
+    delta = ldot(r, d)
+    if fused:
+        rinv = engine.rho_inv(rhop)
+        minv6 = torch.stack(list(minv)).contiguous()
     delta0 = np.float32(grid.read(delta))
     delta_h = delta0
     it = 0
@@ -59,9 +68,21 @@ def solve_dense(grid: Grid, velp: torch.Tensor, vel_guessp: torch.Tensor,
     while it == 0 or (it < cfg.max_cg_iters
                       and delta_h > np.float32(cfg.viscosity_err) * delta0
                       and delta0 >= np.float32(cfg.eps)):
-        scal = engine.k4_fused_visc_iter(grid, x, r, d, delta, rinv, minv6,
-                                         dt)
-        delta = scal[1]
+        if fused:
+            # the whole iteration in one K4 call, in place on x, r, d
+            delta = engine.k4_fused_visc_iter(grid, x, r, d, delta, rinv,
+                                              minv6, dt)[1]
+        else:
+            # wcsph_tpu/viscosity.py:202-217
+            ad = torch.where(liq3, engine.visc_matvec(grid, d, rhop, dt),
+                             0.0)
+            alpha = delta / (cfg.eps + ldot(d, ad))
+            x = x + alpha * d
+            r = r - alpha * ad
+            s = minv.matvec(r)
+            delta_new = ldot(r, s)
+            d = s + (delta_new / delta) * d
+            delta = delta_new
         delta_h = np.float32(grid.read(delta))
         it += 1
     return ViscositySolution(vel_new=x, delta_v=x - velp, iters=it)
