@@ -101,7 +101,21 @@ its own lines and raising on failure:
    wall leak; the run's numbers beside benchmarks/showcase.json's; then
    the sampler at r = 0.0125 again, whole and its phase launches alone,
    and once more through the twin, which counts the work of the phase
-   kernel's bound and must give the same shell.
+   kernel's bound and must give the same shell;
+7. the slab decomposition (``wcsph_tpu_torch.parallel``): the 1M DFSPH
+   dam break (3 warm-up + 10 steps) over 4 ranks spawned from here, which
+   share the card over gloo (the halo staged through host memory), the
+   gathered state against the single-device port's unfused DFSPH over the
+   same steps (the same iterations at every step, pos within 1e-5 m and
+   vel within 1e-4 m/s, no NaN, every particle in one seat, no K2-K4 or
+   K6-K8 launched on any rank), one line a rank (own rows, ghost
+   rows and migrants a step, replays, median step ms, host
+   synchronizations of a step); where the machine has two cards or more,
+   the same over NCCL, one rank a card; then SESPH, PCISPH, IISPH and DFSPH
+   with tension at side 24 over 3 ranks, kicked in x so that seats migrate,
+   each against its single-device unfused run (SESPH and PCISPH bit for
+   bit), and seats must cross.  The
+   times of ranks that share a card are not a scaling figure.
 
 The line before the last is one JSON object with the per-kernel record;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -111,6 +125,7 @@ non-zero before those lines are printed.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -1571,24 +1586,6 @@ def stage_without_sync(sim, solver):
                           if solver in ("dfsph", "iisph") else "")
 
 
-def host_syncs(sim):
-    """The host synchronizations of one step, counted under
-    torch.cuda.set_sync_debug_mode("warn")."""
-    import warnings
-
-    import torch
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            sim.step()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
-
-
 def allocations(fn, args):
     """The allocations from PyTorch's caching allocator that one call
     ``fn(*args)`` makes (``allocation.all.allocated`` of
@@ -1873,6 +1870,188 @@ def unfused_launches(cfg, solver, iters):
             "k1_tension_accel": steps * tension}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the slab decomposition (wcsph_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+SLAB_RANKS = 4            # ranks of the 1M run (gloo: all on the one card)
+SLAB_SMALL_RANKS = 3      # ranks of the side-24 runs: an inner slab
+SLAB_SMALL_SIDE = 24
+SLAB_SMALL_STEPS = 6
+SLAB_KICK = 3.0           # m/s in x at side 24, so that seats migrate
+SLAB_SECONDS = 600        # a spawn's deadline
+# The slab step against one device, from the sound runs' readings on the
+# H100: 1M DFSPH after 13 steps max|dpos| 1.2e-7 to 2.4e-7 m and max|dvel|
+# 1.5e-6 to 2.9e-6 m/s (the ranks sum the PCG's dot products in another
+# order); side 24 IISPH and DFSPH with tension at most 6e-8 m and 7.2e-7
+# m/s.  The limits sit some 40 times above those; SESPH and PCISPH sum
+# nothing that decides a value and must keep every bit.
+SLAB_POS_TOL = dict(rtol=0, atol=1e-5)
+SLAB_VEL_TOL = dict(rtol=0, atol=1e-4)
+SLAB_BIT_EQUAL = ("sesph", "pcisph")
+SLAB_LABEL = "ranks sharing one card, gloo, halo staged through the host"
+
+
+def slab_spawn(world, jobs, where, device, backend):
+    """Run the jobs on ``world`` spawned ranks; the per-rank records and
+    rank 0's gathered states (``dryrun.run_jobs``)."""
+    from wcsph_tpu_torch.parallel import dryrun
+
+    store = os.path.join(where, f"store-{backend}-{world}")
+    t0 = time.perf_counter()
+    dryrun.spawn(dryrun.run_jobs, world,
+                 (store, jobs, where, device, backend, True),
+                 timeout=SLAB_SECONDS)
+    out = {}
+    for job in jobs:
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(where, f"{job.name}.rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        out[job.name] = (dict(np.load(os.path.join(where,
+                                                   f"{job.name}.npz"))),
+                         ranks)
+    return out, time.perf_counter() - t0
+
+
+def slab_gates(tag, got, ranks, ref_state, ref_iters, label, card,
+               exact=False):
+    """The slab run ``got`` (rank 0's gathered state, its iterations)
+    against the single-device port's ``ref_state`` after the same steps:
+    the same iterations at every step, pos and vel within SLAB_POS_TOL and
+    SLAB_VEL_TOL (``exact``: bit for bit), no NaN, every particle in one
+    seat (the ranks' own rows add up to the scene; slab_gather checks the
+    ids), no fused loop kernel launched on any rank.  One line a rank."""
+    want_pos = ref_state.pos.cpu().numpy()
+    want_vel = ref_state.vel.cpu().numpy()
+    iters = [tuple(int(v) for v in i) for i in got["iters"]]
+    dpos = float(np.abs(got["pos"] - want_pos).max())
+    dvel = float(np.abs(got["vel"] - want_vel).max())
+    own = sum(r["counts"][-1][0] for r in ranks)
+    fused = sorted({k for r in ranks for k in r["launches"]
+                    if k in FUSED_LOOPS})
+    for r in ranks:
+        counts = np.asarray(r["counts"])
+        steps = max(len(r["step_ms"]), 1)
+        per_step = {k: round(v / steps, 2) for k, v in r["launches"].items()}
+        log(f"[phase 7] {tag} rank {r['rank']}/{r['world']}: own rows "
+            f"{counts[:, 0].tolist()}, ghost rows {counts[:, 1].tolist()}, "
+            f"migrants in {counts[:, 2].tolist()} a step; seats "
+            f"{r['ncap']}, ghost buffer {r['kghost']}, migration buffer "
+            f"{r['kmig']}; replays {r['replays']}; median step "
+            f"{statistics.median(r['step_ms']):.3f} ms ({label}) on "
+            f"{card}; host syncs of a step {r.get('host_syncs')}; launches "
+            f"a step {per_step}")
+    log(f"[phase 7] {tag}: (div, pressure, visc) iterations {iters} against "
+        f"one device's {ref_iters}; max|dpos| {dpos:.3e}, max|dvel| "
+        f"{dvel:.3e}; own rows {own} of {ref_state.n_total}; fused loop "
+        f"kernels launched: {fused or 'none'}")
+    if iters != [tuple(i) for i in ref_iters]:
+        raise AssertionError(f"{tag}: iteration counts differ from one "
+                             "device's")
+    if not (np.isfinite(got["pos"]).all() and np.isfinite(got["vel"]).all()):
+        raise AssertionError(f"{tag}: NaN in the slab state")
+    if exact and (dpos or dvel):
+        raise AssertionError(f"{tag}: the state differs from one device's, "
+                             "which it must match bit for bit")
+    np.testing.assert_allclose(got["pos"], want_pos, **SLAB_POS_TOL)
+    np.testing.assert_allclose(got["vel"], want_vel, **SLAB_VEL_TOL)
+    if own != ref_state.n_total:
+        raise AssertionError(f"{tag}: {own} own rows, not one a particle")
+    if fused:
+        raise AssertionError(f"{tag}: a rank launched {fused}")
+    return {"iters": iters, "max_abs_dpos": dpos, "max_abs_dvel": dvel,
+            "ranks": [{k: r.get(k) for k in ("rank", "counts", "replays",
+                                             "step_ms", "host_syncs",
+                                             "launches", "ncap", "kghost",
+                                             "kmig")} for r in ranks]}
+
+
+def slab_full_width(dev, card):
+    """Phase 7: the 1M DFSPH dam break over SLAB_RANKS ranks sharing the
+    card over gloo (and over NCCL, one rank a card, where there are two
+    cards or more), then SESPH, PCISPH, IISPH and DFSPH with tension at
+    side 24 over SLAB_SMALL_RANKS ranks with an x-kick, each against the
+    single-device port's unfused step over the same steps."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from wcsph_tpu_torch import bench
+    from wcsph_tpu_torch.parallel import dryrun, halo
+
+    where = tempfile.mkdtemp(prefix="wcsph-slab-")
+    record = {}
+    try:
+        steps = MAIN_WARMUP + MAIN_STEPS
+        msim = bench.build_sim(MAIN_SIDE, dev, "dfsph",
+                               fused_solver_iters=False)
+        cfg = halo.slab_config(msim.cfg, SLAB_RANKS)
+        job = dryrun.save_job("dfsph-1M", "dfsph", msim.state, cfg, steps,
+                              where, warmup=MAIN_WARMUP)
+        ref_state, ref_iters = dryrun.reference(msim.state, cfg, "dfsph",
+                                                steps)
+        del msim
+        torch.cuda.empty_cache()
+        runs, secs = slab_spawn(SLAB_RANKS, [job], where, "cuda", "gloo")
+        log(f"[phase 7] 1M DFSPH over {SLAB_RANKS} {SLAB_LABEL}: spawn, "
+            f"{steps} steps and the gathers in {secs:.1f} s; not a scaling "
+            "figure")
+        record["dfsph-1M-gloo"] = slab_gates(
+            f"1M DFSPH, {SLAB_RANKS} ranks, gloo", *runs["dfsph-1M"],
+            ref_state, ref_iters, f"{SLAB_RANKS} {SLAB_LABEL}", card)
+        if torch.cuda.device_count() >= 2:
+            # 2 or 4 ranks: the planes padded for SLAB_RANKS divide
+            world = SLAB_RANKS if torch.cuda.device_count() >= SLAB_RANKS \
+                else 2
+            njob = dataclasses.replace(job, name="dfsph-1M-nccl")
+            runs, secs = slab_spawn(world, [njob], where, "cuda:rank",
+                                    "nccl")
+            record["dfsph-1M-nccl"] = slab_gates(
+                f"1M DFSPH, {world} ranks, NCCL", *runs["dfsph-1M-nccl"],
+                ref_state, ref_iters, f"{world} ranks, one card each, NCCL",
+                card)
+        else:
+            log("[phase 7] the NCCL transport was not run: the machine has "
+                f"{torch.cuda.device_count()} card (NCCL takes one rank a "
+                "card)")
+        del ref_state
+
+        small, refs = [], {}
+        paths = bench.flagship_paths(SLAB_SMALL_SIDE)
+        for name in ("sesph", "pcisph", "iisph", "dfsph+tension"):
+            solver, over = paths[name]
+            ssim = bench.build_sim(SLAB_SMALL_SIDE, dev, solver,
+                                   fused_solver_iters=False,
+                                   adaptive_dt=False, dt_init=3e-3, **over)
+            scfg = halo.slab_config(ssim.cfg, SLAB_SMALL_RANKS)
+            vel = ssim.state.vel.clone()
+            vel[0] += SLAB_KICK
+            state = ssim.state.replace(vel=vel)
+            small.append(dryrun.save_job(name, solver, state, scfg,
+                                         SLAB_SMALL_STEPS, where))
+            refs[name] = dryrun.reference(state, scfg, solver,
+                                          SLAB_SMALL_STEPS)
+        runs, secs = slab_spawn(SLAB_SMALL_RANKS, small, where, "cuda",
+                                "gloo")
+        log(f"[phase 7] side {SLAB_SMALL_SIDE}, {SLAB_SMALL_RANKS} "
+            f"{SLAB_LABEL}, kicked {SLAB_KICK} m/s in x: spawn and "
+            f"{len(small)} runs in {secs:.1f} s")
+        for name, (got, ranks) in runs.items():
+            rec = slab_gates(f"side {SLAB_SMALL_SIDE} {name}", got, ranks,
+                             *refs[name], f"{SLAB_SMALL_RANKS} {SLAB_LABEL}",
+                             card, exact=name in SLAB_BIT_EQUAL)
+            moved = sum(c[2] for r in ranks for c in r["counts"])
+            if moved <= 0:
+                raise AssertionError(f"side {SLAB_SMALL_SIDE} {name}: no "
+                                     "seat crossed a slab boundary")
+            record[f"{name}-side{SLAB_SMALL_SIDE}"] = rec
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    return record
+
+
 def phase_seconds(n, since):
     """Log phase n's seconds since ``since``; return now."""
     now = time.perf_counter()
@@ -2115,7 +2294,7 @@ def main():
         for k, v in res["launches"].items():
             launches[k] += v
         ran_clean = stage_without_sync(msim, solver)
-        syncs = host_syncs(msim)
+        syncs = bench.host_syncs(msim.step)
         dg = msim.state.diag
         sync_iters = (dg.divergence_iters, dg.pressure_iters,
                       dg.viscosity_iters)
@@ -2219,7 +2398,11 @@ def main():
         times[name] = tool_times[name][:2]
         library[name] = tool_times[name][2]
     bound.update(tool_bound)
-    phase_seconds(6, mark)
+    mark = phase_seconds(6, mark)
+    # ---- phase 7: the slab decomposition -----------------------------------
+    torch.cuda.empty_cache()
+    slab = slab_full_width(dev, card)
+    phase_seconds(7, mark)
     log(f"[phases] the whole script: {time.perf_counter() - started:.1f} s")
 
     # no single PyTorch call computes a neighbour sweep over a cell list (or
@@ -2241,7 +2424,8 @@ def main():
         "grid_stage_device_ms": {k: v[3] for k, v in grid_times.items()},
         "grid_stage_kernels_per_call": {k: v[4]
                                         for k, v in grid_times.items()},
-        "paths": path_records, "surface": surface, "tooling": tooling}
+        "paths": path_records, "surface": surface, "tooling": tooling,
+        "slab": slab}
     log(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

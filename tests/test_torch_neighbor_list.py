@@ -234,6 +234,7 @@ def test_iisph_step_builds_the_list_from_its_density_counts(_port):
     loop's."""
     import dataclasses
 
+    from wcsph_tpu_torch.parallel.comm import NoComm
     from wcsph_tpu_torch.solvers import iisph
 
     sc, sim = _pressurized("iisph")
@@ -241,7 +242,7 @@ def test_iisph_step_builds_the_list_from_its_density_counts(_port):
     g = grid_mod.build_grid(st.pos, st.n_liquid, sim.cfg)
     packed = grid_mod.pack(g, [st.vel, st.vel_guess, st.pressure])
     assert g.nbr is None
-    mid = iisph.step_middle(g, sim.cfg, *packed, st.dt)
+    mid = iisph.step_middle(NoComm(g, sim.cfg), sim.cfg, *packed, st.dt)
     assert mid.visc_iters > 0
     _, count = engine.density(g)
     want = dense_ops.neighbor_list(g, count)

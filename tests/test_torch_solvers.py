@@ -23,7 +23,7 @@ from wcsph_tpu.parallel.comm import NoComm
 from wcsph_tpu.simulation import Simulation, default_config
 from wcsph_tpu.solvers import dfsph
 
-torch = tgrid = tvisc = config_from_dict = tdfsph = None   # bound by _port
+torch = tgrid = tvisc = config_from_dict = tdfsph = TNoComm = None  # by _port
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -32,10 +32,11 @@ def _port():
     at collection: pytest-xdist collects every test module in every
     worker, and a worker that runs only the JAX package's tests then
     never loads torch beside XLA."""
-    global torch, tgrid, tvisc, config_from_dict, tdfsph
+    global torch, tgrid, tvisc, config_from_dict, tdfsph, TNoComm
     import torch
     from wcsph_tpu_torch import grid as tgrid, viscosity as tvisc
     from wcsph_tpu_torch.config import config_from_dict
+    from wcsph_tpu_torch.parallel.comm import NoComm as TNoComm
     from wcsph_tpu_torch.solvers import dfsph as tdfsph
     torch.set_num_threads(1)
 
@@ -127,7 +128,7 @@ def test_divergence_solve(scene):
     assert float(j.err_pre) > 0.0
     for tg in scene.grids():
         t = tdfsph.divergence_solve(
-            tg, scene.rows(scene.jpack(scene.vel)),
+            TNoComm(tg, tg.cfg), scene.rows(scene.jpack(scene.vel)),
             scene.rows(scene.jpack(kv)), scene.rows(scene.alpha),
             scene.rows(scene.stats.count).to(torch.int32), DT)
         assert t.iters == int(j.iters) and t.iters > 1
@@ -146,8 +147,9 @@ def test_pressure_solve(warm):
     assert float(j.err_pre) > 0.0
     for tg in sc.grids():
         t = tdfsph.pressure_solve(
-            tg, sc.rows(sc.jpack(sc.vel)), sc.rows(sc.jpack(kp)),
-            sc.rows(sc.alpha), sc.rows(sc.stats.rho), DT)
+            TNoComm(tg, tg.cfg), sc.rows(sc.jpack(sc.vel)),
+            sc.rows(sc.jpack(kp)), sc.rows(sc.alpha), sc.rows(sc.stats.rho),
+            DT)
         assert t.iters == int(j.iters)
         np.testing.assert_allclose(t.err_pre, float(j.err_pre), rtol=1e-3)
         sc.close(j.vel, t.vel)
@@ -166,7 +168,8 @@ def test_viscosity_solve(precond):
                               scene.jpack(vg), scene.stats.rho,
                               jnp.float32(DT))
     for tg in scene.grids():
-        t = tvisc.solve_dense(tg, scene.rows(scene.jpack(scene.vel)),
+        t = tvisc.solve_dense(TNoComm(tg, tg.cfg),
+                              scene.rows(scene.jpack(scene.vel)),
                               scene.rows(scene.jpack(vg)),
                               scene.rows(scene.stats.rho), DT)
         assert t.iters == int(j.iters) and t.iters > 1

@@ -49,6 +49,11 @@ SOURCES = [
     "wcsph_tpu_torch/grid.py",
     "wcsph_tpu_torch/kernels.py",
     "wcsph_tpu_torch/ops.py",
+    "wcsph_tpu_torch/parallel/__init__.py",
+    "wcsph_tpu_torch/parallel/comm.py",
+    "wcsph_tpu_torch/parallel/dryrun.py",
+    "wcsph_tpu_torch/parallel/halo.py",
+    "wcsph_tpu_torch/parallel/slab.py",
     "wcsph_tpu_torch/profile_paths.py",
     "wcsph_tpu_torch/render.py",
     "wcsph_tpu_torch/sampling.py",

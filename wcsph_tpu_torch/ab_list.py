@@ -45,6 +45,7 @@ import argparse
 import ctypes
 import importlib
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -58,12 +59,13 @@ import torch
 
 from . import bench, engine
 
-AB_KERNELS = ("k5_density_alpha", "k5_sesph_force", "k5_iisph_adv",
-              "k5_iisph_aii", "k5_iisph_force", "k6_fused_tension")
+# the wrappers a change redesigned (none: the communicator layer changed
+# the solvers around the kernels, not a kernel; the steps below compare)
+AB_KERNELS = ()
 # the paths of bench.flagship_paths whose steps call them
-AB_SOLVERS = ("sesph", "pcisph", "iisph", "dfsph+tension")
+AB_SOLVERS = ()
 # The older wrappers' arguments, from this tree's, where a signature
-# changed (none of the K5 entries' or K6's did).
+# changed.
 OLD_ARGS = {}
 # name -> (arguments of a recorded call -> the one PyTorch call that
 # computes the same function's core, as chip_smoke.py times it); none
@@ -85,17 +87,7 @@ from wcsph_tpu_torch.grid import build_grid, pack
 from wcsph_tpu_torch.state import state_to_numpy
 side, keep = int(sys.argv[1]), sys.argv[2]
 
-def syncs(run):
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            run()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
-
+{host_syncs}
 for name, (solver, over) in bench.flagship_paths(side).items():
     sim = bench.build_sim(side, "cuda", solver, **over)
     res = bench.measure(sim, 3, 10)
@@ -109,17 +101,20 @@ for name, (solver, over) in bench.flagship_paths(side).items():
         return pack(build_grid(st.pos, st.n_liquid, sim.cfg), [st.vel])
 
     stage_ms = bench.time_call(stage, tuple, 20)
-    stage_syncs = syncs(stage)
+    stage_syncs = host_syncs(stage)
     print(json.dumps({"path": name,
                       "particle_steps_per_s": res["particle_steps_per_s"],
                       "step_ms_median": statistics.median(res["step_ms"]),
                       "step_ms": res["step_ms"], "iters": res["iters"],
                       "replays": replays, "bin_pack_ms": stage_ms,
                       "bin_pack_host_syncs": stage_syncs,
-                      "host_syncs_per_step": syncs(sim.step)}), flush=True)
+                      "host_syncs_per_step": host_syncs(sim.step)}), flush=True)
     del sim, st
     torch.cuda.empty_cache()
 """
+# bench.host_syncs goes into the script as source: an older tree's bench
+# may not have it
+_STEPS = _STEPS.replace("{host_syncs}", inspect.getsource(bench.host_syncs))
 
 
 def compare_states(old_dir: Path, new_dir: Path) -> dict:

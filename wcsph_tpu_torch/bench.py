@@ -17,6 +17,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -183,6 +184,20 @@ def time_call(fn, make_args, reps: int) -> float:
         b.synchronize()
         total += a.elapsed_time(b)
     return total / reps
+
+
+def host_syncs(fn) -> int:
+    """The host synchronizations that ``fn()`` makes on the card, counted
+    under torch.cuda.set_sync_debug_mode("warn")."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def device_ms(fn, make_args, reps: int):

@@ -233,6 +233,8 @@ class Grid:
     pairs: object = None       # dense_ops.Pairs, built on first plain sweep
     nbr: NeighborList | None = None   # engine.nbr_list_fill, DFSPH, IISPH
     star: StarHits | None = None      # the last K8 call's hits, PCISPH
+    checks: tuple = ()         # further statuses a caller adds (each
+                               # with status, check, checked), read first
     n_liquid_read: int | None = None  # L, once a read has brought it
 
     @property
@@ -259,11 +261,12 @@ class Grid:
         first read after a K8 call that call's overflow flag, stacked into
         the same transfer; it raises ``ListOverflow`` where the list or the
         hits were short, ValueError where a count was below the pairs
-        within h."""
+        within h.  The statuses of ``checks`` ride on the same first read
+        and are checked before the list's."""
         extra = []
         if self.n_liquid_read is None:
             extra.append(self.n_liquid)
-        pending = [c for c in (self.nbr, self.star)
+        pending = [c for c in (*self.checks, self.nbr, self.star)
                    if c is not None and not c.checked]
         extra += [t for c in pending for t in c.status]
         if not extra and not more:

@@ -7,7 +7,7 @@ import torch
 
 from .. import engine
 from ..config import SimConfig
-from ..grid import Grid, ListOverflow, ListSlots
+from ..grid import ListOverflow, ListSlots
 
 f32 = np.float32
 
@@ -18,22 +18,12 @@ def gravity_column(cfg: SimConfig, like: torch.Tensor) -> torch.Tensor:
                         device=like.device)[:, None]
 
 
-def liquid_total(grid: Grid, x: torch.Tensor) -> torch.Tensor:
-    """The 0-dim sum of ``x`` over the liquid rows, on the device."""
-    return torch.sum(torch.where(grid.liquid, x, 0.0))
-
-
-def liquid_sum(grid: Grid, x: torch.Tensor) -> np.float32:
-    """Sum of ``x`` over the liquid rows, read to the host (``Grid.read``)."""
-    return f32(grid.read(liquid_total(grid, x)))
-
-
-def liquid_vel_max(grid: Grid, velp: torch.Tensor) -> np.float32:
+def vel_max(comm, velp: torch.Tensor) -> np.float32:
     """max |v| over the liquid rows, read to the host (0 with no liquid)."""
-    if grid.n == 0:
+    if comm.grid.n == 0:
         return f32(0.0)
-    v2 = torch.where(grid.liquid, torch.sum(velp * velp, dim=0), -torch.inf)
-    return f32(np.sqrt(max(f32(grid.read(v2.max())), f32(0.0))))
+    v2 = comm.lmax(torch.sum(velp * velp, dim=0))
+    return f32(np.sqrt(max(f32(comm.read(v2)), f32(0.0))))
 
 
 def replaying(run, slots: ListSlots):

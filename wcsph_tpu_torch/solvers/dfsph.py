@@ -22,9 +22,16 @@ float32 scalar arithmetic.  From the positions to the filled list the step
 makes no host read; its first read, the divergence loop's, also brings the
 liquid count and the list's status.  A list that outgrew the slot buffer
 kept from step to step (``grid.ListSlots``) makes the step run again from
-its inputs with a larger buffer (``common.replaying``).  There is no
-communicator layer: the single-device engine is called directly (the
-multi-GPU port will add one).
+its inputs with a larger buffer (``common.replaying``).
+
+Every function of the step's middle takes a communicator
+(``parallel/comm.py``), as the JAX package's do: ``step`` builds a
+``NoComm`` (one card: lifts and lowers are identities, the reductions run
+over the grid's liquid rows); the slab step (``parallel/slab.py``) passes
+a ``SlabComm``, under which each sweep's neighbour-read inputs are lifted
+(their ghost rows exchanged), each sweep's outputs lowered, every liquid
+sum and max all-reduced, and the loops take their unfused forms
+(``engine.use_fused_iters``).
 """
 
 from __future__ import annotations
@@ -37,8 +44,9 @@ import torch
 from .. import engine, viscosity
 from ..config import SimConfig
 from ..grid import Grid, ListSlots, build_grid, pack, unpack
+from ..parallel.comm import NoComm
 from ..state import FluidState, StepDiagnostics
-from .common import liquid_sum, liquid_total, replaying
+from .common import replaying
 
 f32 = np.float32
 
@@ -66,7 +74,14 @@ class _SolveResult(NamedTuple):
     err_pre: np.float32      # error BEFORE the first correction
 
 
-def divergence_solve(grid: Grid, velp, kvp, alphap, cntp, dt,
+def _kappa_update(comm, velp, k, dt):
+    """The unfused loops' velocity update by the kappas ``k`` (read at the
+    neighbour: lifted)."""
+    return comm.lower(engine.kappa_velocity_update(comm.grid, velp,
+                                                   comm.lift(k), dt))
+
+
+def divergence_solve(comm, velp, kvp, alphap, cntp, dt,
                      drho0=None) -> _SolveResult:
     """Divergence-free velocity solver (reference dfsph.py:131-146,
     415-485): the warm start, then iterations of the kappa velocity update
@@ -76,14 +91,15 @@ def divergence_solve(grid: Grid, velp, kvp, alphap, cntp, dt,
     warm-start drho of the incoming velocity (from the density sweep's 7th
     channel).  ``err_pre`` is the liquid sum of drho before the first
     iteration; it rides on the first iteration's read."""
-    cfg = grid.cfg
+    grid, cfg = comm.grid, comm.cfg
     rho0 = cfg.rest_density
     dt = f32(dt)
-    fused = engine.use_fused_iters(cfg)
+    fused = engine.use_fused_iters(comm)
     alpha_dt = (alphap / float(dt)).contiguous()
 
     def drho_of(velp):
-        return engine.drho_divergence(grid, velp, cntp)
+        return comm.lower(engine.drho_divergence(grid, comm.lift(velp),
+                                                 cntp))
 
     if fused:
         velp = velp.clone()
@@ -96,9 +112,9 @@ def divergence_solve(grid: Grid, velp, kvp, alphap, cntp, dt,
     else:
         def iterate(velp, kvp, drho):
             k = drho * alpha_dt
-            velp = engine.kappa_velocity_update(grid, velp, k, dt)
+            velp = _kappa_update(comm, velp, k, dt)
             drho = drho_of(velp)
-            return velp, kvp + k, drho, liquid_total(grid, drho)
+            return velp, kvp + k, drho, comm.lsum(drho)
 
     drho = None
     if cfg.divergence_warm_start:
@@ -115,42 +131,43 @@ def divergence_solve(grid: Grid, velp, kvp, alphap, cntp, dt,
             drho = torch.where(cntp < cfg.min_div_neighbors, 0.0,
                                torch.clamp(acc, min=0.0))
         else:
-            vel_ws = engine.kappa_velocity_update(grid, velp, k_ws, dt)
+            vel_ws = _kappa_update(comm, velp, k_ws, dt)
             velp = torch.where((drho_ws > 0.0)[None], vel_ws, velp)
     if drho is None:
         drho = drho_of(velp)          # begin_divergence_iter (dfsph.py:441)
 
     kvp = torch.zeros_like(kvp)
     drho = drho.contiguous()
-    err_pre_sum = liquid_total(grid, drho)
+    err_pre_sum = comm.lsum(drho)
     err, err_pre, it, threshold = f32(0.0), f32(0.0), 0, None
     while it == 0 or (err > threshold and it < cfg.dfsph_div_max_iters):
         velp, kvp, drho, e = iterate(velp, kvp, drho)
         if threshold is None:
             # the first read brings err_pre and the liquid count
-            err, err_pre = map(f32, grid.read(e, err_pre_sum))
-            threshold = f32(cfg.dfsph_div_tol) * f32(grid.liquid_count) / dt
+            err, err_pre = map(f32, comm.read(e, err_pre_sum))
+            threshold = f32(cfg.dfsph_div_tol) * f32(comm.n_liquid) / dt
         else:
-            err = f32(grid.read(e))
+            err = f32(comm.read(e))
         it += 1
     # end_divergence_iter (dfsph.py:479-485): kappa_v stored scaled by dt
     return _SolveResult(vel=velp, kappa=kvp * float(dt), iters=it, err=err,
                         err_pre=err_pre)
 
 
-def pressure_solve(grid: Grid, velp, kp, alphap, rhop, dt) -> _SolveResult:
+def pressure_solve(comm, velp, kp, alphap, rhop, dt) -> _SolveResult:
     """Constant-density solver (reference dfsph.py:150-164, 487-552),
     fused (K2, then one K3 an iteration) or unfused (a kappa sweep and a
     divergence sweep an iteration), as ``divergence_solve``."""
-    cfg = grid.cfg
+    grid, cfg = comm.grid, comm.cfg
     rho0 = cfg.rest_density
     dt = f32(dt)
     dt2 = dt * dt
-    fused = engine.use_fused_iters(cfg)
+    fused = engine.use_fused_iters(comm)
     alpha_dt2 = (alphap / float(dt2)).contiguous()
 
     def adv_of(velp):
-        return engine.advected_density(grid, velp, rhop, float(dt))
+        return comm.lower(engine.advected_density(grid, comm.lift(velp),
+                                                  rhop, float(dt)))
 
     if fused:
         velp = velp.clone()
@@ -163,9 +180,9 @@ def pressure_solve(grid: Grid, velp, kp, alphap, rhop, dt) -> _SolveResult:
     else:
         def iterate(velp, kp, adv):
             k = (adv - 1.0) * alpha_dt2
-            velp = engine.kappa_velocity_update(grid, velp, k, dt)
+            velp = _kappa_update(comm, velp, k, dt)
             adv = adv_of(velp)
-            return velp, kp + k, adv, liquid_total(grid, adv - 1.0)
+            return velp, kp + k, adv, comm.lsum(adv - 1.0)
 
     adv = None
     if cfg.pressure_warm_start:
@@ -179,21 +196,21 @@ def pressure_solve(grid: Grid, velp, kp, alphap, rhop, dt) -> _SolveResult:
                 (grid.liq * (adv_ws > 1.0)).contiguous(), acc)
             adv = torch.clamp(rr0 + float(dt) * acc, min=1.0)
         else:
-            vel_ws = engine.kappa_velocity_update(grid, velp, k_ws, dt)
+            vel_ws = _kappa_update(comm, velp, k_ws, dt)
             velp = torch.where((adv_ws > 1.0)[None], vel_ws, velp)
     if adv is None:
         adv = adv_of(velp)           # begin_pressure_iter (dfsph.py:510)
 
     kp = torch.zeros_like(kp)
     adv = adv.contiguous()
-    err_sum = liquid_sum(grid, adv - 1.0)
-    n_liq = f32(grid.liquid_count)
+    err_sum = f32(comm.read(comm.lsum(adv - 1.0)))
+    n_liq = f32(comm.n_liquid)
     err_pre = err_sum / n_liq
     err, it = f32(0.0), 0
     while ((err > f32(cfg.dfsph_tol)) or (it < cfg.dfsph_min_iters)) \
             and it < cfg.dfsph_max_iters:
         velp, kp, adv, e = iterate(velp, kp, adv)
-        err = f32(grid.read(e)) / n_liq
+        err = f32(comm.read(e)) / n_liq
         it += 1
     # end_pressure_iter (dfsph.py:549-552): kappa stored scaled by dt^2
     return _SolveResult(vel=velp, kappa=kp * float(dt) * float(dt),
@@ -228,14 +245,20 @@ def density_and_list(grid: Grid, velp, slots: ListSlots | None = None):
     return out
 
 
-def step_middle(grid: Grid, cfg: SimConfig, velp, omegap, vgp, kp, kvp, dt,
+def step_middle(comm, cfg: SimConfig, velp, omegap, vgp, kp, kvp, dt,
                 last_pressure_iters: int,
                 slots: ListSlots | None = None) -> MidResult:
     """The whole per-step solve on the sorted layout (everything between
-    bin/pack and unpack/position update)."""
+    bin/pack and unpack/position update), on the communicator's grid."""
+    grid = comm.grid
     dt = f32(dt)
     liq = grid.liquid
-    rhop, alphap, cntp, div_acc = density_and_list(grid, velp, slots)
+    rhop, alphap, cntp, div_acc = density_and_list(grid, comm.lift(velp),
+                                                   slots)
+    # rho is read at the neighbour by the viscosity, vorticity and tension
+    # sweeps
+    rhop = comm.lift(rhop, 1.0)
+    alphap, cntp, div_acc = map(comm.lower, (alphap, cntp, div_acc))
     drho0 = None
     if cfg.divergence_warm_start:
         drho0 = torch.where(cntp < cfg.min_div_neighbors, 0.0,
@@ -244,7 +267,7 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, omegap, vgp, kp, kvp, dt,
     # exactly 0 at boundary rows (reference dfsph.py:449-477)
     alphap = torch.where(liq, alphap, 0.0)
 
-    div = divergence_solve(grid, velp, kvp, alphap, cntp, dt, drho0=drho0)
+    div = divergence_solve(comm, velp, kvp, alphap, cntp, dt, drho0=drho0)
     velp = div.vel
 
     # non-pressure forces (dfsph.py:84-103), liquid rows only: boundary
@@ -254,25 +277,25 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, omegap, vgp, kp, kvp, dt,
     if cfg.tension_coff != 0.0 or cfg.tension_coff_b != 0.0:
         # surface normals + cohesion, curvature and adhesion: one K6 call,
         # or unfused a normals sweep and a tension sweep
-        if engine.use_fused_iters(cfg):
+        if engine.use_fused_iters(comm):
             _, dv_t = engine.fused_tension(grid, rhop)
         else:
-            dv_t = engine.k1_tension_accel(
-                grid, rhop, engine.surface_normals(grid, rhop))
+            normals = comm.lower(engine.surface_normals(grid, rhop))
+            dv_t = comm.lower(engine.k1_tension_accel(
+                grid, rhop, comm.lift(normals)))
         d_vel = d_vel + torch.where(liq[None], dv_t, 0.0)
-    visc = viscosity.solve_dense(grid, velp, vgp, rhop, dt)
+    visc = viscosity.solve_dense(comm, velp, vgp, rhop, dt)
     d_vel = d_vel + (visc.vel_new - velp) / float(dt)    # end_viscosity
     if cfg.enable_vorticity:
-        dv_vort, omegap = engine.vorticity(grid, velp, omegap, rhop, cntp,
-                                           dt)
+        dv_vort, omegap = map(comm.lower, engine.vorticity(
+            grid, comm.lift(velp), comm.lift(omegap), rhop, cntp, dt))
         d_vel = d_vel + torch.where(liq[None], dv_vort, 0.0)
 
     # adaptive dt (dfsph.py:107-129): CFL from the old dt, iteration
     # feedback from this frame's viscosity and LAST frame's pressure iters
     vnew = velp + d_vel * float(dt)
-    vmax = torch.max(torch.where(liq, torch.sum(vnew * vnew, dim=0),
-                                 -torch.inf)) if grid.n else None
-    vmax_sq = max(f32(grid.read(vmax)) if vmax is not None
+    vmax = comm.lmax(torch.sum(vnew * vnew, dim=0)) if grid.n else None
+    vmax_sq = max(f32(comm.read(vmax)) if vmax is not None
                   else f32(-np.inf), f32(0.1))
     if cfg.adaptive_dt:
         feedback = max(visc.iters, last_pressure_iters)
@@ -291,7 +314,7 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, omegap, vgp, kp, kvp, dt,
     new_dt = f32(new_dt)
 
     velp = velp + d_vel * float(new_dt)                   # update_vel
-    pr = pressure_solve(grid, velp, kp, alphap, rhop, new_dt)
+    pr = pressure_solve(comm, velp, kp, alphap, rhop, new_dt)
     return MidResult(vel=pr.vel, omega=omegap, vel_guess=visc.delta_v,
                      kappa=pr.kappa, kappa_v=div.kappa, new_dt=new_dt,
                      div_iters=div.iters, pr_iters=pr.iters,
@@ -314,7 +337,7 @@ def step(state: FluidState, cfg: SimConfig,
 
     def run():
         grid, packed = bin_and_pack(state, cfg)
-        return grid, step_middle(grid, cfg, *packed, state.dt,
+        return grid, step_middle(NoComm(grid, cfg), cfg, *packed, state.dt,
                                  state.last_pressure_iters, slots)
 
     nl = state.n_liquid

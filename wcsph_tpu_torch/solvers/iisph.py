@@ -22,6 +22,8 @@ float32 scalar arithmetic.  From the positions to the filled list the step
 makes no host read; its first read (the viscosity PCG's) also brings the
 liquid count and the list's status, and a list that outgrew its kept slot
 buffer makes the step run again with a larger one (``common.replaying``).
+The middle takes a communicator (``parallel/comm.py``, as in
+``solvers/dfsph.py``).
 """
 
 from __future__ import annotations
@@ -34,9 +36,9 @@ import torch
 from .. import engine, viscosity
 from ..config import SimConfig
 from ..grid import Grid, ListSlots, build_grid, pack, unpack
+from ..parallel.comm import NoComm
 from ..state import FluidState, StepDiagnostics
-from .common import (gravity_column, liquid_sum, liquid_total,
-                     liquid_vel_max, replaying)
+from .common import gravity_column, replaying, vel_max
 
 f32 = np.float32
 
@@ -75,38 +77,43 @@ def density_and_list(grid: Grid, slots: ListSlots | None = None):
     return rhop, cntp
 
 
-def step_middle(grid: Grid, cfg: SimConfig, velp, vgp, pp, dt,
+def step_middle(comm, cfg: SimConfig, velp, vgp, pp, dt,
                 slots: ListSlots | None = None) -> MidResult:
-    """The whole IISPH solve on the sorted layout."""
+    """The whole IISPH solve on the sorted layout, on the communicator's
+    grid."""
+    grid = comm.grid
     rho0 = cfg.rest_density
     v0 = cfg.liquid_volume
     dt = f32(dt)
     liq3 = grid.liquid[None]
 
     rhop, cntp = density_and_list(grid, slots)
+    # rho, and d_ii and 1 / den^2 formed from it, are read at the neighbour
+    rhop = comm.lift(rhop, 1.0)
 
     # implicit viscosity; velocity updates are liquid-masked so boundary
     # rows keep velocity 0 exactly (they feed (v_i - v_j) pair terms)
-    visc = viscosity.solve_dense(grid, velp, vgp, rhop, dt)
+    visc = viscosity.solve_dense(comm, velp, vgp, rhop, dt)
     d_vel = gravity_column(cfg, velp) + (visc.vel_new - velp) / float(dt)
     velp = velp + torch.where(liq3, d_vel * float(dt), 0.0)
 
     # advection coefficients (iisph.py:276-316).  Raw rho, no clamp: rho is
     # bounded away from 0 by the self term rho0 V0 W(0)
-    dii_raw, adv_acc, dji_acc = engine.iisph_adv(grid, velp)
+    dii_raw, adv_acc, dji_acc = map(comm.lower, engine.iisph_adv(
+        grid, comm.lift(velp)))
     den_i2 = (rhop / rho0) ** 2
     d_ii = dii_raw * ((rho0 / rhop) ** 2)[None]
     adv_rho = rhop / rho0 + float(dt) * adv_acc
     deninv = v0 / den_i2
-    a_ii = engine.k5_iisph_aii(grid, d_ii) - deninv * dji_acc
+    a_ii = comm.lower(engine.k5_iisph_aii(grid, d_ii)) - deninv * dji_acc
 
     pp = 0.5 * pp                                       # warm start
-    err_sum = liquid_sum(grid, torch.clamp(adv_rho - 1.0, min=0.0))
-    n_liq = f32(grid.liquid_count)
+    err_sum = f32(comm.read(comm.lsum(torch.clamp(adv_rho - 1.0, min=0.0))))
+    n_liq = f32(comm.n_liquid)
     err_pre = err_sum / n_liq
     b_rhs = 1.0 - adv_rho
 
-    fused = engine.use_fused_iters(cfg)
+    fused = engine.use_fused_iters(comm)
     h2 = float(dt * dt)
     liq = grid.liquid
 
@@ -122,8 +129,10 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, vgp, pp, dt,
         p_new = torch.where(ok, p_new, 0.0)
         resid = torch.where(p_new != 0.0, (a_ii * p_new + s) * h2 - b_rhs,
                             0.0)
-        return p_new, liquid_total(grid, resid)
+        return p_new, comm.lsum(resid)
 
+    if not fused:
+        d_ii = comm.lift(d_ii)      # the s sweep reads d_ii at the neighbour
     err, it = f32(0.0), 0
     while ((err > f32(cfg.iisph_tol)) or (it < cfg.iisph_min_iters)) \
             and it < cfg.iisph_max_iters:
@@ -134,17 +143,18 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, vgp, pp, dt,
         else:
             # wcsph_tpu/solvers/iisph.py:127-145: the dij sweep, then the
             # s sweep on the finished dij
-            dij = engine.k1_iisph_dij(
-                grid, torch.where(liq, -v0 * pp / den_i2, 0.0))
-            s = engine.k1_iisph_s(grid, d_ii, dij,
-                                  torch.where(liq, pp, 0.0),
-                                  v0 * pp / den_i2)
+            dij = comm.lower(engine.k1_iisph_dij(
+                grid, comm.lift(torch.where(liq, -v0 * pp / den_i2, 0.0))))
+            s = comm.lower(engine.k1_iisph_s(
+                grid, d_ii, comm.lift(dij),
+                comm.lift(torch.where(liq, pp, 0.0)), v0 * pp / den_i2))
             pp, resid = jacobi_tail(pp, s)
-        err = f32(grid.read(resid)) / n_liq
+        err = f32(comm.read(resid)) / n_liq
         it += 1
 
     # pressure force + integrate (iisph.py:372-396)
-    d_vel_p = engine.k5_iisph_force(grid, pp / den_i2)
+    d_vel_p = comm.lower(engine.k5_iisph_force(grid,
+                                               comm.lift(pp / den_i2)))
     velp = velp + torch.where(liq3, d_vel_p * float(dt), 0.0)
     return MidResult(vel=velp, pressure=pp, delta_v=visc.delta_v, iters=it,
                      visc_iters=visc.iters, err=err, err_pre=err_pre)
@@ -167,9 +177,11 @@ def step(state: FluidState, cfg: SimConfig,
 
     def run():
         grid, packed = bin_and_pack(state, cfg)
-        return grid, step_middle(grid, cfg, *packed, dt, slots)
+        comm = NoComm(grid, cfg)
+        return comm, step_middle(comm, cfg, *packed, dt, slots)
 
-    grid, mid = replaying(run, slots)
+    comm, mid = replaying(run, slots)
+    grid = comm.grid
     vel, pressure, vel_guess = unpack(
         grid, [mid.vel, mid.pressure, mid.delta_v],
         [state.vel, state.pressure, state.vel_guess])
@@ -181,7 +193,7 @@ def step(state: FluidState, cfg: SimConfig,
         density_error=mid.err,
         density_error_pre=mid.err_pre,
         neighbor_overflow=0,
-        vel_max=liquid_vel_max(grid, mid.vel),
+        vel_max=vel_max(comm, mid.vel),
     )
     return state.replace(pos=pos, vel=vel, pressure=pressure,
                          vel_guess=vel_guess, time=f32(state.time + dt),

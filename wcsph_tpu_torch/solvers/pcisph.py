@@ -24,7 +24,8 @@ iteration is the JAX package's unfused form instead: the moved positions
 x* = x + liq v* dt in torch ops, a prediction sweep at x* with the old
 pressure (``k1_pcisph_predict``), the pressure update, and a second one
 with the new pressure for the acceleration.  Each call scans the cells at
-x*: no hit buffer, so nothing to size or replay.
+x*: no hit buffer, so nothing to size or replay.  The middle takes a
+communicator (``parallel/comm.py``, as in ``solvers/dfsph.py``).
 """
 
 from __future__ import annotations
@@ -38,10 +39,10 @@ import torch
 
 from .. import engine, kernels
 from ..config import SimConfig
-from ..grid import Grid, ListSlots, build_grid, pack, unpack
+from ..grid import ListSlots, build_grid, pack, unpack
+from ..parallel.comm import NoComm
 from ..state import FluidState, StepDiagnostics
-from .common import (gravity_column, liquid_total, liquid_vel_max,
-                     replaying)
+from .common import gravity_column, replaying, vel_max
 
 f32 = np.float32
 
@@ -94,22 +95,24 @@ class MidResult(NamedTuple):
     err_pre: np.float32       # predicted density error before any pressure
 
 
-def step_middle(grid: Grid, cfg: SimConfig, velp, dt,
+def step_middle(comm, cfg: SimConfig, velp, dt,
                 slots: ListSlots | None = None) -> MidResult:
-    """The whole PCISPH solve on the sorted layout; ``slots``: K8's hit
-    buffer (sized here where it is unsized or None)."""
+    """The whole PCISPH solve on the sorted layout, on the communicator's
+    grid; ``slots``: K8's hit buffer (sized here where it is unsized or
+    None)."""
+    grid = comm.grid
     coff = pci_coefficient(cfg.particle_radius)
     dt = f32(dt)
 
     # non-pressure forces + density (pcisph.py:199-218); the SESPH force
     # sweep with zero pressure is the pure explicit viscosity
     rhop, cntp = engine.density(grid)
-    fused = engine.use_fused_iters(cfg)
+    fused = engine.use_fused_iters(comm)
     slots = ListSlots() if slots is None else slots
     if fused and slots.capacity is None:   # the first step's one host read
         slots.size_for(grid.n * int(cntp.max()))
-    d_vel = gravity_column(cfg, velp) + engine.sesph_force(
-        grid, velp, rhop, torch.zeros_like(rhop))
+    d_vel = gravity_column(cfg, velp) + comm.lower(engine.sesph_force(
+        grid, comm.lift(velp), comm.lift(rhop, 1.0), torch.zeros_like(rhop)))
     w0 = cfg.liquid_volume * kernels.cubic_w0(cfg.support_radius)
     liq = grid.liquid
 
@@ -126,16 +129,19 @@ def step_middle(grid: Grid, cfg: SimConfig, velp, dt,
         else:
             # wcsph_tpu/solvers/pcisph.py:183-216: predict at x*, update
             # p, predict again at x* for the acceleration
-            xstar = grid.pos + torch.where(liq[None],
-                                           vel_star * float(dt), 0.0)
-            adv_raw, _ = engine.pcisph_predict(grid, xstar, pp)
+            # (the first prediction's acceleration is not used: its
+            # pressure needs no lift)
+            xstar = comm.lift(grid.pos + torch.where(
+                liq[None], vel_star * float(dt), 0.0), 1e9)
+            adv_raw = comm.lower(engine.pcisph_predict(grid, xstar, pp)[0])
             adv = torch.clamp(w0 + adv_raw, min=1.0)
             pp = pp + coff * (adv - 1.0) / float(dt * dt)   # pcisph.py:255
-            _, d_vel_pre = engine.pcisph_predict(grid, xstar, pp)
-            scal = liquid_total(grid, adv - 1.0)
+            d_vel_pre = comm.lower(engine.pcisph_predict(
+                grid, xstar, comm.lift(pp))[1])
+            scal = comm.lsum(adv - 1.0)
         # each read brings the liquid count the first time, and K8's
         # overflow flag
-        err = f32(grid.read(scal)) / f32(grid.liquid_count)
+        err = f32(comm.read(scal)) / f32(comm.n_liquid)
         # the first iteration predicts with p == 0: its error IS the
         # pre-solve violation
         if it == 0:
@@ -163,9 +169,11 @@ def step(state: FluidState, cfg: SimConfig,
 
     def run():
         grid, (velp,) = bin_and_pack(state, cfg)
-        return grid, step_middle(grid, cfg, velp, dt, slots)
+        comm = NoComm(grid, cfg)
+        return comm, step_middle(comm, cfg, velp, dt, slots)
 
-    grid, mid = replaying(run, slots)
+    comm, mid = replaying(run, slots)
+    grid = comm.grid
     vel, pressure = unpack(grid, [mid.vel, mid.pressure],
                            [state.vel, state.pressure])
     pos = state.pos.clone()
@@ -175,7 +183,7 @@ def step(state: FluidState, cfg: SimConfig,
         density_error=mid.err,
         density_error_pre=mid.err_pre,
         neighbor_overflow=0,
-        vel_max=liquid_vel_max(grid, mid.vel),
+        vel_max=vel_max(comm, mid.vel),
     )
     return state.replace(pos=pos, vel=vel, pressure=pressure,
                          time=f32(state.time + dt), diag=diag)

@@ -4,7 +4,8 @@
 One step: bin + pack (``bin_and_pack``) -> density (K5 ``_DensityAlpha``)
 -> Tait EOS pressure -> explicit viscosity + symmetric pressure force in
 one sweep (K5 ``_SesphForce``) -> semi-implicit Euler.  No inner loop;
-fixed dt.
+fixed dt.  The middle takes a communicator (``parallel/comm.py``, as in
+``solvers/dfsph.py``).
 """
 
 from __future__ import annotations
@@ -13,9 +14,10 @@ import numpy as np
 
 from .. import engine, ops
 from ..config import SimConfig
-from ..grid import Grid, ListSlots, build_grid, pack, unpack
+from ..grid import ListSlots, build_grid, pack, unpack
+from ..parallel.comm import NoComm
 from ..state import FluidState, StepDiagnostics
-from .common import gravity_column, liquid_sum, liquid_vel_max
+from .common import gravity_column, vel_max
 
 f32 = np.float32
 
@@ -33,13 +35,22 @@ def default_config(**overrides) -> SimConfig:
     return SimConfig(**base)
 
 
-def step_middle(grid: Grid, cfg: SimConfig, velp, dt):
-    """Density -> EOS -> forces -> velocity update on the sorted layout."""
+def step_middle(comm, cfg: SimConfig, velp, dt):
+    """Density -> EOS -> forces -> velocity update on the sorted layout, on
+    the communicator's grid.  The EOS is per row, so the lifted density
+    gives the pressure at the ghost rows too."""
+    grid = comm.grid
     rho_raw, _ = engine.density(grid)
-    rhop, pp = ops.tait_pressure(rho_raw, cfg)
-    d_vel = gravity_column(cfg, velp) + engine.sesph_force(grid, velp, rhop,
-                                                           pp)
+    rhop, pp = ops.tait_pressure(comm.lift(rho_raw, 1.0), cfg)
+    d_vel = gravity_column(cfg, velp) + comm.lower(engine.sesph_force(
+        grid, comm.lift(velp), rhop, pp))
     return velp + d_vel * float(dt), rhop, pp           # sesph.py:191-196
+
+
+def density_error(comm, cfg: SimConfig, rhop) -> np.float32:
+    """The mean liquid density over rho0, less 1, read to the host."""
+    rho_sum = f32(comm.read(comm.lsum(rhop)))
+    return rho_sum / f32(comm.n_liquid) / f32(cfg.rest_density) - f32(1.0)
 
 
 def bin_and_pack(state: FluidState, cfg: SimConfig):
@@ -55,16 +66,15 @@ def step(state: FluidState, cfg: SimConfig,
     nl = state.n_liquid
     dt = f32(state.dt)
     grid, (velp,) = bin_and_pack(state, cfg)
-    velp, rhop, pp = step_middle(grid, cfg, velp, dt)
+    comm = NoComm(grid, cfg)
+    velp, rhop, pp = step_middle(comm, cfg, velp, dt)
     vel, pressure = unpack(grid, [velp, pp], [state.vel, state.pressure])
     pos = state.pos.clone()
     pos[:, :nl] += vel * float(dt)
-    rho_sum = liquid_sum(grid, rhop)
     diag = StepDiagnostics(
-        density_error=rho_sum / f32(grid.liquid_count)
-        / f32(cfg.rest_density) - f32(1.0),
+        density_error=density_error(comm, cfg, rhop),
         neighbor_overflow=0,
-        vel_max=liquid_vel_max(grid, velp),
+        vel_max=vel_max(comm, velp),
     )
     return state.replace(pos=pos, vel=vel, pressure=pressure,
                          time=f32(state.time + dt), diag=diag)

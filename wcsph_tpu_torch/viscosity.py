@@ -9,7 +9,10 @@ in the unfused one (``engine.use_fused_iters``) a matvec sweep
 stay on the device.  The setup sweep and the matvec walk the step's
 neighbour list (built by the solver before it calls here; on the card they
 raise without one).  The loop ends on the host: it reads delta' after each
-iteration (``Grid.read``).
+iteration (``Grid.read``).  Like the JAX package's, the solve takes a
+communicator (``parallel/comm.py``): on a slab each sweep's
+neighbour-read input is lifted, its output lowered, and both dots are
+all-reduced.
 
 Warm start: the previous frame's delta-v lives in vel_guess and the
 initial guess is vel_guess + vel; on return vel_guess holds the new
@@ -24,7 +27,6 @@ import numpy as np
 import torch
 
 from . import engine
-from .grid import Grid
 from .utils import mat3
 
 
@@ -41,18 +43,21 @@ def _identity_precond(minv: mat3.Sym3) -> mat3.Sym3:
     return mat3.Sym3(xx=one, xy=zero, xz=zero, yy=one, yz=zero, zz=one)
 
 
-def solve_dense(grid: Grid, velp: torch.Tensor, vel_guessp: torch.Tensor,
+def solve_dense(comm, velp: torch.Tensor, vel_guessp: torch.Tensor,
                 rhop: torch.Tensor, dt) -> ViscositySolution:
-    cfg = grid.cfg
-    liq = grid.liquid
-    liq3 = liq[None]
-    fused = engine.use_fused_iters(cfg)
+    """``rhop`` is read at the neighbour: on a slab the caller has lifted
+    it."""
+    grid, cfg = comm.grid, comm.cfg
+    liq3 = grid.liquid[None]
+    fused = engine.use_fused_iters(comm)
 
     def ldot(a, b):
-        return torch.sum(torch.where(liq, torch.sum(a * b, dim=0), 0.0))
+        return comm.lsum(torch.sum(a * b, dim=0))
 
     x = vel_guessp + velp
-    minv, ax0 = engine.visc_init(grid, x, rhop, dt)
+    minv, ax0 = engine.visc_init(grid, comm.lift(x), rhop, dt)
+    minv = type(minv)(*map(comm.lower, minv))
+    ax0 = comm.lower(ax0)
     if not cfg.viscosity_precond:
         minv = _identity_precond(minv)
     r = torch.where(liq3, velp - ax0, 0.0)
@@ -61,7 +66,7 @@ def solve_dense(grid: Grid, velp: torch.Tensor, vel_guessp: torch.Tensor,
     if fused:
         rinv = engine.rho_inv(rhop)
         minv6 = torch.stack(list(minv)).contiguous()
-    delta0 = np.float32(grid.read(delta))
+    delta0 = np.float32(comm.read(delta))
     delta_h = delta0
     it = 0
     # (it == 0) | (it < max & delta > err * delta0 & delta0 >= eps)
@@ -74,8 +79,8 @@ def solve_dense(grid: Grid, velp: torch.Tensor, vel_guessp: torch.Tensor,
                                               minv6, dt)[1]
         else:
             # wcsph_tpu/viscosity.py:202-217
-            ad = torch.where(liq3, engine.visc_matvec(grid, d, rhop, dt),
-                             0.0)
+            ad = torch.where(liq3, comm.lower(engine.visc_matvec(
+                grid, comm.lift(d), rhop, dt)), 0.0)
             alpha = delta / (cfg.eps + ldot(d, ad))
             x = x + alpha * d
             r = r - alpha * ad
@@ -83,6 +88,6 @@ def solve_dense(grid: Grid, velp: torch.Tensor, vel_guessp: torch.Tensor,
             delta_new = ldot(r, s)
             d = s + (delta_new / delta) * d
             delta = delta_new
-        delta_h = np.float32(grid.read(delta))
+        delta_h = np.float32(comm.read(delta))
         it += 1
     return ViscositySolution(vel_new=x, delta_v=x - velp, iters=it)
