@@ -104,18 +104,27 @@ its own lines and raising on failure:
    kernel's bound and must give the same shell;
 7. the slab decomposition (``wcsph_tpu_torch.parallel``): the 1M DFSPH
    dam break (3 warm-up + 10 steps) over 4 ranks spawned from here, which
-   share the card over gloo (the halo staged through host memory), the
-   gathered state against the single-device port's unfused DFSPH over the
-   same steps (the same iterations at every step, pos within 1e-5 m and
-   vel within 1e-4 m/s, no NaN, every particle in one seat, no K2-K4 or
-   K6-K8 launched on any rank), one line a rank (own rows, ghost
-   rows and migrants a step, replays, median step ms, host
-   synchronizations of a step); where the machine has two cards or more,
-   the same over NCCL, one rank a card; then SESPH, PCISPH, IISPH and DFSPH
-   with tension at side 24 over 3 ranks, kicked in x so that seats migrate,
-   each against its single-device unfused run (SESPH and PCISPH bit for
-   bit), and seats must cross.  The
-   times of ranks that share a card are not a scaling figure.
+   share the card over gloo (the halo staged through host memory), on the
+   one-plane front (``step_slab``, every loop unfused) and on the
+   two-plane direct front (``step_slab_direct``, the JAX package's default
+   multi-chip step: DFSPH's loops run K2 and K3), in turns (one plane,
+   direct, direct, one plane), each gathered state
+   against the single-device port over the same steps in the front's loop
+   forms (the same iterations at every step, pos within 1e-5 m and vel
+   within 1e-4 m/s, no NaN, every particle in one seat, no fused loop
+   kernel launched on any rank but, on the direct front, K2 once a step
+   and K3 once an iteration, and no ``k1_kappa_acc``), one line a rank
+   (own rows, ghost rows and migrants a step, replays, median step ms,
+   host synchronizations of a step) and one line a rank with both fronts
+   side by side; where the machine has two cards or more, the same over
+   NCCL, one rank a card; then at side 24 over 3 ranks, kicked in x so that
+   seats migrate: SESPH, PCISPH, IISPH and DFSPH with tension on both
+   fronts (seats must cross on the one-plane front; with tension the direct
+   front launches K2 and K3, not K6), and the four global-grid sharded
+   steps (``halo.*_step_sharded``, every rank holding the same state after
+   each step, ``halo.density_sharded`` equal to one device's density bit
+   for bit), each against its single-device run (SESPH and PCISPH bit for
+   bit).  The times of ranks that share a card are not a scaling figure.
 
 The line before the last is one JSON object with the per-kernel record;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -1878,6 +1887,7 @@ SLAB_RANKS = 4            # ranks of the 1M run (gloo: all on the one card)
 SLAB_SMALL_RANKS = 3      # ranks of the side-24 runs: an inner slab
 SLAB_SMALL_SIDE = 24
 SLAB_SMALL_STEPS = 6
+SHARDED_STEPS = 4         # steps of each global-grid sharded step at side 24
 SLAB_KICK = 3.0           # m/s in x at side 24, so that seats migrate
 SLAB_SECONDS = 600        # a spawn's deadline
 # The slab step against one device, from the sound runs' readings on the
@@ -1914,38 +1924,52 @@ def slab_spawn(world, jobs, where, device, backend):
     return out, time.perf_counter() - t0
 
 
+# the fused loop kernels a direct-front rank may launch (DFSPH's two)
+DIRECT_FUSED = ("k2_fused_kappa_drho", "k3_fused_iter_full")
+
+
 def slab_gates(tag, got, ranks, ref_state, ref_iters, label, card,
-               exact=False):
+               exact=False, front="slab"):
     """The slab run ``got`` (rank 0's gathered state, its iterations)
-    against the single-device port's ``ref_state`` after the same steps:
-    the same iterations at every step, pos and vel within SLAB_POS_TOL and
-    SLAB_VEL_TOL (``exact``: bit for bit), no NaN, every particle in one
-    seat (the ranks' own rows add up to the scene; slab_gather checks the
-    ids), no fused loop kernel launched on any rank.  One line a rank."""
+    against the single-device port's ``ref_state`` after the same steps in
+    the front's loop forms: the same iterations at every step, pos and vel
+    within SLAB_POS_TOL and SLAB_VEL_TOL (``exact``: bit for bit), no NaN,
+    every particle in one seat (the ranks' own rows add up to the scene;
+    slab_gather checks the ids; on the sharded front, every rank holding
+    the same state after each step), no fused loop kernel launched on any
+    rank but, on the direct front, K2 and K3 (``direct_launches``).  One
+    line a rank."""
     want_pos = ref_state.pos.cpu().numpy()
     want_vel = ref_state.vel.cpu().numpy()
     iters = [tuple(int(v) for v in i) for i in got["iters"]]
     dpos = float(np.abs(got["pos"] - want_pos).max())
     dvel = float(np.abs(got["vel"] - want_vel).max())
-    own = sum(r["counts"][-1][0] for r in ranks)
+    allowed = DIRECT_FUSED if front == "direct" else ()
     fused = sorted({k for r in ranks for k in r["launches"]
-                    if k in FUSED_LOOPS})
+                    if k in FUSED_LOOPS and k not in allowed})
     for r in ranks:
-        counts = np.asarray(r["counts"])
         steps = max(len(r["step_ms"]), 1)
         per_step = {k: round(v / steps, 2) for k, v in r["launches"].items()}
-        log(f"[phase 7] {tag} rank {r['rank']}/{r['world']}: own rows "
-            f"{counts[:, 0].tolist()}, ghost rows {counts[:, 1].tolist()}, "
-            f"migrants in {counts[:, 2].tolist()} a step; seats "
-            f"{r['ncap']}, ghost buffer {r['kghost']}, migration buffer "
-            f"{r['kmig']}; replays {r['replays']}; median step "
-            f"{statistics.median(r['step_ms']):.3f} ms ({label}) on "
+        if front == "sharded":
+            rows = (f"the same state on every rank at each step "
+                    f"{all(r['same_on_every_rank'])}")
+        else:
+            counts = np.asarray(r["counts"])
+            rows = (f"own rows {counts[:, 0].tolist()}, ghost rows "
+                    f"{counts[:, 1].tolist()}, migrants in "
+                    f"{counts[:, 2].tolist()} a step; seats {r['ncap']}, "
+                    f"ghost buffer {r['kghost']}, migration buffer "
+                    f"{r['kmig']}; replays {r['replays']}")
+        log(f"[phase 7] {tag} rank {r['rank']}/{r['world']}: {rows}; median "
+            f"step {statistics.median(r['step_ms']):.3f} ms ({label}) on "
             f"{card}; host syncs of a step {r.get('host_syncs')}; launches "
             f"a step {per_step}")
+    own = (ref_state.n_total if front == "sharded"
+           else sum(r["counts"][-1][0] for r in ranks))
     log(f"[phase 7] {tag}: (div, pressure, visc) iterations {iters} against "
         f"one device's {ref_iters}; max|dpos| {dpos:.3e}, max|dvel| "
         f"{dvel:.3e}; own rows {own} of {ref_state.n_total}; fused loop "
-        f"kernels launched: {fused or 'none'}")
+        f"kernels launched beyond the front's: {fused or 'none'}")
     if iters != [tuple(i) for i in ref_iters]:
         raise AssertionError(f"{tag}: iteration counts differ from one "
                              "device's")
@@ -1958,21 +1982,130 @@ def slab_gates(tag, got, ranks, ref_state, ref_iters, label, card,
     np.testing.assert_allclose(got["vel"], want_vel, **SLAB_VEL_TOL)
     if own != ref_state.n_total:
         raise AssertionError(f"{tag}: {own} own rows, not one a particle")
+    if front == "sharded" and not all(all(r["same_on_every_rank"])
+                                      for r in ranks):
+        raise AssertionError(f"{tag}: the ranks' states differ")
     if fused:
         raise AssertionError(f"{tag}: a rank launched {fused}")
-    return {"iters": iters, "max_abs_dpos": dpos, "max_abs_dvel": dvel,
-            "ranks": [{k: r.get(k) for k in ("rank", "counts", "replays",
-                                             "step_ms", "host_syncs",
-                                             "launches", "ncap", "kghost",
-                                             "kmig")} for r in ranks]}
+    return {"front": front, "iters": iters, "max_abs_dpos": dpos,
+            "max_abs_dvel": dvel,
+            "ranks": [{k: r.get(k) for k in (
+                "rank", "counts", "replays", "step_ms", "host_syncs",
+                "launches", "ncap", "kghost", "kmig", "same_on_every_rank")}
+                for r in ranks]}
+
+
+def direct_launches(tag, cfg, ranks, iters, warmup, tension=False):
+    """On every rank of a direct-front DFSPH run, over its timed steps:
+    K2 once a step the divergence warm start asks for it, K3 once a
+    divergence and a pressure iteration, no ``k1_kappa_acc`` (the unfused
+    loops' kappa sweep), and with tension the unfused normals and tension
+    sweeps, not K6.  A step that replays had launched K2 and its first K3
+    before its first read raised: each replay in the timed steps adds
+    those."""
+    timed = iters[warmup:]
+    ws = int(cfg.divergence_warm_start)
+    for r in ranks:
+        again = r["timed_replays"]
+        want = {"k2_fused_kappa_drho": (len(timed) + again) * ws,
+                "k3_fused_iter_full": sum(d + p for d, p, _ in timed)
+                + again, "k1_kappa_acc": 0, "k6_fused_tension": 0}
+        if tension:
+            want.update(k1_surface_normals=len(timed),
+                        k1_tension_accel=len(timed))
+        got = {k: r["launches"].get(k, 0) for k in want}
+        if got != want or not got["k2_fused_kappa_drho"] \
+                or not got["k3_fused_iter_full"]:
+            raise AssertionError(f"{tag} rank {r['rank']}: launches {got}, "
+                                 f"want {want} ({again} replays)")
+        log(f"[phase 7] {tag} rank {r['rank']}: launched {got} over "
+            f"{len(timed)} timed steps ({again} replays)")
+
+
+def fronts_side_by_side(turns, card):
+    """One line a rank: each front's median step in its two turns (one
+    plane, direct, direct, one plane: ``turns``, records of
+    ``slab_gates``), host syncs a step, ghost rows a step and replays,
+    from one call, and the direct front's mean step over the one-plane
+    front's."""
+    rows = []
+    for per_rank in zip(*(t["ranks"] for t in turns)):
+        row = {"rank": per_rank[0]["rank"]}
+        for name, (a, b) in (("one_plane", (per_rank[0], per_rank[3])),
+                             ("direct", (per_rank[1], per_rank[2]))):
+            row[name] = {
+                "median_step_ms": [statistics.median(r["step_ms"])
+                                   for r in (a, b)],
+                "host_syncs": a.get("host_syncs"),
+                "ghost_rows": statistics.mean(c[1] for c in a["counts"]),
+                "replays": a["replays"] + b["replays"]}
+        one, two = (statistics.mean(row[k]["median_step_ms"])
+                    for k in ("one_plane", "direct"))
+        row["direct_over_one_plane"] = two / one
+        log(f"[phase 7] rank {row['rank']} on {card}, one-plane / direct "
+            "front: median step in turns (one, direct, direct, one) "
+            f"{row['one_plane']['median_step_ms'][0]:.3f}, "
+            f"{row['direct']['median_step_ms'][0]:.3f}, "
+            f"{row['direct']['median_step_ms'][1]:.3f}, "
+            f"{row['one_plane']['median_step_ms'][1]:.3f} ms (direct / one "
+            f"{two / one:.3f}), host syncs {row['one_plane']['host_syncs']} "
+            f"/ {row['direct']['host_syncs']} a step, ghost rows "
+            f"{row['one_plane']['ghost_rows']:.0f} / "
+            f"{row['direct']['ghost_rows']:.0f} a step, replays "
+            f"{row['one_plane']['replays']} / {row['direct']['replays']}")
+        rows.append(row)
+    return rows
+
+
+def where_they_differ(tag, got, ref_state, cfg, ranks, thresh=1e-6):
+    """Where a slab run's velocities leave one device's: the liquid
+    particles whose largest |dvel| component is over ``thresh``, and how
+    many of them lie in the two outermost x-planes of a slab, where a halo
+    error would show first (one line; a record)."""
+    from wcsph_tpu_torch.parallel import halo
+
+    nl = ref_state.n_liquid
+    dv = np.abs(got["vel"] - ref_state.vel.cpu().numpy()).max(0)
+    geo = halo.SlabGeometry(cfg, ranks, 0)
+    fx, _ = geo.planes(ref_state.pos[:, :nl].cpu())
+    off = fx.numpy().astype(np.int64) % geo.width
+    edge = (off < 2) | (off >= geo.width - 2)
+    big = dv > thresh
+    out = {"over": int(big.sum()), "over_at_slab_edges": int((big & edge)
+                                                             .sum()),
+           "edge_share": float(edge.mean())}
+    log(f"[phase 7] {tag}: {out['over']} particles with |dvel| over "
+        f"{thresh:g}, {out['over_at_slab_edges']} of them in a slab's two "
+        f"outermost x-planes (which hold {out['edge_share']:.3f} of the "
+        "particles)")
+    return out
+
+
+def kicked(side, dev, name, **over):
+    """The side-``side`` flagship path ``name`` at a fixed dt of 3 ms,
+    kicked SLAB_KICK m/s in x so that seats migrate: (state, config padded
+    for SLAB_SMALL_RANKS)."""
+    from wcsph_tpu_torch import bench
+    from wcsph_tpu_torch.parallel import halo
+
+    solver, path_over = bench.flagship_paths(side)[name]
+    sim = bench.build_sim(side, dev, solver, adaptive_dt=False,
+                          dt_init=3e-3, **{**path_over, **over})
+    vel = sim.state.vel.clone()
+    vel[0] += SLAB_KICK
+    return sim.state.replace(vel=vel), halo.slab_config(sim.cfg,
+                                                        SLAB_SMALL_RANKS)
 
 
 def slab_full_width(dev, card):
     """Phase 7: the 1M DFSPH dam break over SLAB_RANKS ranks sharing the
-    card over gloo (and over NCCL, one rank a card, where there are two
-    cards or more), then SESPH, PCISPH, IISPH and DFSPH with tension at
-    side 24 over SLAB_SMALL_RANKS ranks with an x-kick, each against the
-    single-device port's unfused step over the same steps."""
+    card over gloo, on the one-plane front and on the direct front in
+    turns (and
+    over NCCL, one rank a card, where there are two cards or more); then
+    at side 24 over SLAB_SMALL_RANKS ranks with an x-kick SESPH, PCISPH,
+    IISPH and DFSPH with tension on both fronts and the four global-grid
+    sharded steps (with ``halo.density_sharded``); each against the
+    single-device port over the same steps in the front's loop forms."""
     import shutil
     import tempfile
 
@@ -1985,68 +2118,120 @@ def slab_full_width(dev, card):
     record = {}
     try:
         steps = MAIN_WARMUP + MAIN_STEPS
-        msim = bench.build_sim(MAIN_SIDE, dev, "dfsph",
-                               fused_solver_iters=False)
-        cfg = halo.slab_config(msim.cfg, SLAB_RANKS)
-        job = dryrun.save_job("dfsph-1M", "dfsph", msim.state, cfg, steps,
-                              where, warmup=MAIN_WARMUP)
-        ref_state, ref_iters = dryrun.reference(msim.state, cfg, "dfsph",
-                                                steps)
+        msim = bench.build_sim(MAIN_SIDE, dev, "dfsph")
+        cfgs = {"slab": halo.slab_config(dataclasses.replace(
+                    msim.cfg, fused_solver_iters=False), SLAB_RANKS),
+                "direct": halo.slab_config(msim.cfg, SLAB_RANKS)}
+        refs = {f: dryrun.reference(msim.state, cfg, "dfsph", steps, f)
+                for f, cfg in cfgs.items()}
+        # both fronts in turns (one plane, direct, direct, one plane), so
+        # that neither owns the spawn's first or last turn
+        names = {"slab": ("dfsph-1M", "dfsph-1M-2"),
+                 "direct": ("dfsph-1M-direct", "dfsph-1M-direct-2")}
+        order = [("slab", 0), ("direct", 0), ("direct", 1), ("slab", 1)]
+        jobs = [dryrun.save_job(names[f][k], "dfsph", msim.state, cfgs[f],
+                                steps, where, warmup=MAIN_WARMUP, front=f)
+                for f, k in order]
         del msim
         torch.cuda.empty_cache()
-        runs, secs = slab_spawn(SLAB_RANKS, [job], where, "cuda", "gloo")
-        log(f"[phase 7] 1M DFSPH over {SLAB_RANKS} {SLAB_LABEL}: spawn, "
-            f"{steps} steps and the gathers in {secs:.1f} s; not a scaling "
-            "figure")
-        record["dfsph-1M-gloo"] = slab_gates(
-            f"1M DFSPH, {SLAB_RANKS} ranks, gloo", *runs["dfsph-1M"],
-            ref_state, ref_iters, f"{SLAB_RANKS} {SLAB_LABEL}", card)
+        runs, secs = slab_spawn(SLAB_RANKS, jobs, where, "cuda", "gloo")
+        log(f"[phase 7] 1M DFSPH over {SLAB_RANKS} {SLAB_LABEL}, one-plane "
+            f"and direct front in turns: spawn, 4 x {steps} steps and the "
+            f"gathers in {secs:.1f} s; not a scaling figure")
+        label = f"{SLAB_RANKS} {SLAB_LABEL}"
+        turns = []
+        for f, k in order:
+            name = names[f][k]
+            what = "" if f == "slab" else ", direct front"
+            turns.append(slab_gates(
+                f"1M DFSPH{what}, turn {k + 1}, {SLAB_RANKS} ranks, gloo",
+                *runs[name], *refs[f], label, card, front=f))
+            record[f"{name}-gloo"] = turns[-1]
+            if f == "direct":
+                direct_launches(f"1M DFSPH, direct front, turn {k + 1}",
+                                cfgs[f], runs[name][1], refs[f][1],
+                                MAIN_WARMUP)
+        record["fronts-1M"] = fronts_side_by_side(turns, card)
+        # the two single-device references (unfused; K2 and K3 fused)
+        # against each other, and where each front leaves its own
+        gap = float((refs["slab"][0].vel - refs["direct"][0].vel).abs().max())
+        log(f"[phase 7] one device, unfused against K2 and K3 fused, after "
+            f"{steps} steps: max|dvel| {gap:.3e}")
+        record["fronts-1M-where"] = {"reference_gap_max_abs_dvel": gap, **{
+            f: where_they_differ(f"1M DFSPH, {f} front", runs[names[f][0]][0],
+                                 refs[f][0], cfgs[f], SLAB_RANKS)
+            for f in cfgs}}
         if torch.cuda.device_count() >= 2:
             # 2 or 4 ranks: the planes padded for SLAB_RANKS divide
             world = SLAB_RANKS if torch.cuda.device_count() >= SLAB_RANKS \
                 else 2
-            njob = dataclasses.replace(job, name="dfsph-1M-nccl")
-            runs, secs = slab_spawn(world, [njob], where, "cuda:rank",
-                                    "nccl")
-            record["dfsph-1M-nccl"] = slab_gates(
-                f"1M DFSPH, {world} ranks, NCCL", *runs["dfsph-1M-nccl"],
-                ref_state, ref_iters, f"{world} ranks, one card each, NCCL",
-                card)
+            njobs = [dataclasses.replace(j, name=f"{j.name}-nccl")
+                     for j in jobs[:2]]
+            runs, secs = slab_spawn(world, njobs, where, "cuda:rank", "nccl")
+            for j in njobs:
+                record[j.name] = slab_gates(
+                    f"{j.name}, {world} ranks, NCCL", *runs[j.name],
+                    *refs[j.front], f"{world} ranks, one card each, NCCL",
+                    card, front=j.front)
         else:
             log("[phase 7] the NCCL transport was not run: the machine has "
                 f"{torch.cuda.device_count()} card (NCCL takes one rank a "
                 "card)")
-        del ref_state
+        del refs
 
+        # side 24, 3 ranks: the one-plane front (unfused loops), the
+        # direct front (fused loops asked for), the sharded steps
         small, refs = [], {}
-        paths = bench.flagship_paths(SLAB_SMALL_SIDE)
-        for name in ("sesph", "pcisph", "iisph", "dfsph+tension"):
-            solver, over = paths[name]
-            ssim = bench.build_sim(SLAB_SMALL_SIDE, dev, solver,
-                                   fused_solver_iters=False,
-                                   adaptive_dt=False, dt_init=3e-3, **over)
-            scfg = halo.slab_config(ssim.cfg, SLAB_SMALL_RANKS)
-            vel = ssim.state.vel.clone()
-            vel[0] += SLAB_KICK
-            state = ssim.state.replace(vel=vel)
-            small.append(dryrun.save_job(name, solver, state, scfg,
-                                         SLAB_SMALL_STEPS, where))
-            refs[name] = dryrun.reference(state, scfg, solver,
-                                          SLAB_SMALL_STEPS)
+        plan = [(f"{n}", "slab", n, SLAB_SMALL_STEPS, False)
+                for n in ("sesph", "pcisph", "iisph", "dfsph+tension")]
+        plan += [(f"direct-{n}", "direct", n, SLAB_SMALL_STEPS, True)
+                 for n in ("sesph", "pcisph", "iisph", "dfsph+tension")]
+        plan += [(f"sharded-{n}", "sharded", n, SHARDED_STEPS, False)
+                 for n in SOLVERS]
+        for name, front, path, nsteps, fused in plan:
+            state, scfg = kicked(SLAB_SMALL_SIDE, dev, path,
+                                 fused_solver_iters=fused)
+            solver = path.split("+")[0]
+            small.append(dryrun.save_job(name, solver, state, scfg, nsteps,
+                                         where, front=front))
+            refs[name] = (*dryrun.reference(state, scfg, solver, nsteps,
+                                            front), scfg, solver, path)
+            if front == "sharded":
+                refs[f"{name}-density"] = dryrun.reference_density(state,
+                                                                   scfg)
         runs, secs = slab_spawn(SLAB_SMALL_RANKS, small, where, "cuda",
                                 "gloo")
         log(f"[phase 7] side {SLAB_SMALL_SIDE}, {SLAB_SMALL_RANKS} "
             f"{SLAB_LABEL}, kicked {SLAB_KICK} m/s in x: spawn and "
             f"{len(small)} runs in {secs:.1f} s")
-        for name, (got, ranks) in runs.items():
+        label = f"{SLAB_SMALL_RANKS} {SLAB_LABEL}"
+        for name, front, path, _, _ in plan:
+            got, ranks = runs[name]
+            ref_state, ref_iters, scfg, solver, _ = refs[name]
             rec = slab_gates(f"side {SLAB_SMALL_SIDE} {name}", got, ranks,
-                             *refs[name], f"{SLAB_SMALL_RANKS} {SLAB_LABEL}",
-                             card, exact=name in SLAB_BIT_EQUAL)
-            moved = sum(c[2] for r in ranks for c in r["counts"])
-            if moved <= 0:
-                raise AssertionError(f"side {SLAB_SMALL_SIDE} {name}: no "
-                                     "seat crossed a slab boundary")
-            record[f"{name}-side{SLAB_SMALL_SIDE}"] = rec
+                             ref_state, ref_iters, label, card,
+                             exact=solver in SLAB_BIT_EQUAL, front=front)
+            if front == "slab":
+                moved = sum(c[2] for r in ranks for c in r["counts"])
+                if moved <= 0:
+                    raise AssertionError(f"side {SLAB_SMALL_SIDE} {name}: no "
+                                         "seat crossed a slab boundary")
+            if front == "direct" and solver == "dfsph":
+                direct_launches(f"side {SLAB_SMALL_SIDE} {name}", scfg, ranks,
+                                ref_iters, 0, tension="+tension" in path)
+            if front == "sharded":
+                rho = got["rho"]
+                want = refs[f"{name}-density"].cpu().numpy()
+                if not np.array_equal(rho, want):
+                    raise AssertionError(f"side {SLAB_SMALL_SIDE} {name}: "
+                                         "density_sharded differs from one "
+                                         "device's")
+                rec["density_sharded_bit_equal"] = True
+            key = (name if front == "slab"
+                   else f"{path}-{front}")
+            record[f"{key}-side{SLAB_SMALL_SIDE}"] = rec
+        log(f"[phase 7] side {SLAB_SMALL_SIDE}: density_sharded equals one "
+            "device's density bit for bit on every sharded run")
     finally:
         shutil.rmtree(where, ignore_errors=True)
     return record

@@ -1238,15 +1238,16 @@ def iisph_adv(grid: Grid, vel: torch.Tensor):
     return out[0:3], out[3], out[4]
 
 
-def use_fused_iters(comm) -> bool:
-    """Run the solver loops in their fused forms, one K2-K4 or K6-K8 call
-    an iteration, or in the JAX package's unfused forms, K1's emits one
-    sweep a call (use_fused_iters of the JAX engine, engine.py:2602): fused
-    where the config asks for it (``fused_solver_iters``) and the
-    communicator can run a fused kernel (``parallel/comm.py``: a
-    ``NoComm`` can; a ``SlabComm`` cannot, as no halo exchange can run
-    between a fused kernel's phases)."""
-    return comm.cfg.fused_solver_iters and comm.fused_loops
+def use_fused_iters(comm, method: str) -> bool:
+    """Run a solver loop in its fused form, one K2-K4 or K6-K8 call an
+    iteration, or in the JAX package's unfused form, K1's emits one sweep
+    a call (use_fused_iters of the JAX engine, engine.py:2602): fused where
+    the config asks for it (``fused_solver_iters``) and the communicator
+    carries ``method``, the JAX engine's name of the fused loop
+    (``parallel/comm.py``: a ``NoComm`` carries all six, the one-plane
+    ``SlabComm`` none, the two-plane ``DirectSlabComm`` DFSPH's
+    ``fused_kappa_drho`` and ``fused_iter_full``)."""
+    return comm.cfg.fused_solver_iters and method in comm.fused
 
 
 def kappa_velocity_update(grid: Grid, vel: torch.Tensor, k: torch.Tensor,

@@ -8,7 +8,9 @@ Port of ``wcsph_tpu/parallel/comm.py``.  The solvers (``solvers/*.py``,
 * ``comm.lift(q, fill)``: make a sorted field right at the ghost rows
   before a sweep reads it at a neighbour (identity / a halo exchange);
 * ``comm.lower(q)``: a sweep's output at the own rows only (identity /
-  the ghost rows set to 0);
+  the ghost rows set to 0 / identity on two ghost planes);
+* ``comm.fused``, ``comm.fused_kappa_drho``, ``comm.fused_iter_full``: the
+  fused loops it runs, and K2 and K3 with the exchanges they need;
 * ``comm.lsum`` / ``comm.lmax``: sums and maxima over the own liquid rows,
   on the device (plain / then ``all_reduce``);
 * ``comm.read(x, *more)``: the step's host reads (``Grid.read``: the first
@@ -41,6 +43,47 @@ A ``Transport`` carries the slab path's messages over a
 
 The caller picks the backend when it creates the group; an init that fails
 raises, and nothing falls back to the other backend.
+
+Which loops run fused (``engine.use_fused_iters(comm, method)``, the JAX
+engine's test of whether the communicator's engine carries ``method``):
+each communicator carries a ``fused`` set of the JAX engine's method names.
+``NoComm`` carries all six; the one-plane ``SlabComm`` none (no exchange
+can run between a fused kernel's two stencils); the two-plane
+``DirectSlabComm`` the two of DFSPH's loops, ``fused_kappa_drho`` (K2) and
+``fused_iter_full`` (K3), as the JAX package's ``SlabPaddedEngine`` does
+(``wcsph_tpu/parallel/resident_slab.py:262-388``).
+
+Why two ghost planes make K2 and K3 exact at the own rows (the deep-halo
+argument of ``resident_slab.py:22-34``).  Call the ghost planes g1 (outer)
+and g2 (inner, next to the own planes).  Both kernels run two stencils:
+A, a velocity update that reads the kappas (K3: S and A) at the
+neighbours, then B, a divergence that reads A's new velocities at the
+neighbours.  A at a g2 row reads g1, g2 and own rows, all right after the
+refresh, so the new velocity at g2 is exact; B at an own row reads only
+g2 and own rows, so it is exact.  A at g1 is cut off at the slab's edge
+and wrong, but only g2 reads g1 in B, and B's outputs at ghost rows are
+never used: the next refresh overwrites both ghost planes.  So:
+
+* ``lower`` is the identity: the inputs that K2 and K3 read only at the
+  receiver (K2's gate ``liq (drho_ws > 0)``, from the density sweep's
+  warm-start channel and count) must hold their true values at g2, where
+  the density sweep computed them exactly (its window there reaches g1,
+  g2 and own rows, whose positions are all present).  A one-plane
+  ``lower`` would zero them, K2 would leave the velocity at g2 stale, and
+  the divergence at the first own plane would read it;
+* before each K3 call one stacked exchange (``lift_many``, the JAX
+  ``_refresh``) brings the velocity, S (drho or the advected density) and
+  A (alpha / dt or / dt^2) into both ghost planes; before K2, the
+  velocity and the kappas.  This is the JAX adapter's set, kept as it is:
+  A is constant over a solve and the velocity at g2 stays exact from one
+  iteration to the next, but the exchange is one message either way;
+* K3's error sums every liquid row, ghost rows too: the loop takes the
+  all-reduced sum over the own liquid rows instead (``lsum``, JAX's
+  ``_own_err``).  On one card the kernel's own sum stays.
+
+Every other sweep runs as on the one-plane front (each neighbour-read input
+lifted, now into both planes; sums over own rows), and the outputs it
+leaves at ghost rows are read by no own row before the next lift.
 """
 
 from __future__ import annotations
@@ -50,16 +93,26 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from .. import engine
+
+# the JAX engine's fused loop methods (K2, K3, K4, K6, K7, K8)
+FUSED_ALL = frozenset({"fused_kappa_drho", "fused_iter_full",
+                       "fused_visc_iter", "fused_tension",
+                       "fused_jacobi_iter", "fused_pcisph_iter"})
+# those of SlabPaddedEngine: DFSPH's divergence and pressure loops
+FUSED_DFSPH = frozenset({"fused_kappa_drho", "fused_iter_full"})
+
 
 class NoComm:
     """One card: the sweeps see the whole grid; lifts and lowers are
-    identities and the reductions run over the grid's liquid rows."""
+    identities and the reductions run over the grid's liquid rows.
+    ``fused``: the loops that may run fused (all of them unless the caller
+    asks for fewer, as the reference of the two-plane front does)."""
 
-    fused_loops = True    # the fused loop kernels may run (K2-K4, K6-K8)
-
-    def __init__(self, grid, cfg):
+    def __init__(self, grid, cfg, fused=FUSED_ALL):
         self.grid = grid
         self.cfg = cfg
+        self.fused = fused
 
     def lift(self, q, fill=0.0):
         return q
@@ -81,6 +134,16 @@ class NoComm:
     @property
     def n_liquid(self) -> int:
         return self.grid.liquid_count
+
+    def fused_kappa_drho(self, vel, kf, gate, acc):
+        """K2 on the grid (see ``engine.k2_fused_kappa_drho``)."""
+        return engine.k2_fused_kappa_drho(self.grid, vel, kf, gate, acc)
+
+    def fused_iter_full(self, vel, kv, s, a, paux, dt, mode: int):
+        """K3 on the grid, returning the kernel's own error sum
+        (``engine.k3_fused_iter_full``)."""
+        return engine.k3_fused_iter_full(self.grid, vel, kv, s, a, paux, dt,
+                                         mode)
 
 
 class Transport:
@@ -164,9 +227,10 @@ class SlabComm:
     """One rank's slab: the sweeps run on its own rows plus the ghost rows
     of its neighbours' boundary planes (``grid``); lifts exchange the ghost
     rows' values, reductions cover the own liquid rows and then every
-    rank (``all_reduce``).  Built each step by ``halo.make_slab_comm``."""
+    rank (``all_reduce``).  Built each step by ``halo.make_slab_comm``;
+    one ghost plane a side, on which every loop runs unfused."""
 
-    fused_loops = False   # no exchange can run between a fused kernel's
+    fused = frozenset()   # no exchange can run between a fused kernel's
                           # phases: the loops take their unfused forms
 
     def __init__(self, grid, cfg, own: torch.Tensor, plan: HaloPlan,
@@ -182,16 +246,28 @@ class SlabComm:
         """Write the neighbours' values of ``q`` (..., M) into its ghost
         rows, in place, and return it; ``fill`` goes to the rows of empty
         ghost entries (no sweep reads them)."""
+        return self.lift_many((q, fill))[0]
+
+    def lift_many(self, *fields):
+        """``lift`` of several ``(q, fill)`` fields, (M,) or (k, M), in one
+        ring exchange: their ghost rows' values travel as one stacked
+        message a side (the JAX package's ``_refresh``).  Returns the
+        fields, written in place."""
         p = self._plan
-        out = q.index_select(-1, p.send_rows)
+        rows = [q.view(-1, q.shape[-1]) for q, _ in fields]
+        out = torch.cat([r.index_select(1, p.send_rows) for r in rows])
         n_l, n_r = p.n_send
         got = [g for g in self._tr.ring(
-            out[..., :n_l] if n_l else None,
-            out[..., n_l:] if n_r else None, *p.n_recv) if g is not None]
+            out[:, :n_l] if n_l else None,
+            out[:, n_l:] if n_r else None, *p.n_recv) if g is not None]
         if got:
-            got = torch.cat(got, dim=-1).masked_fill_(p.recv_empty, fill)
-            q.index_copy_(q.dim() - 1, p.recv_rows, got)
-        return q
+            got = torch.cat(got, dim=-1)
+            k = 0
+            for r, (_, fill) in zip(rows, fields):
+                r.index_copy_(1, p.recv_rows, got[k:k + r.shape[0]]
+                              .masked_fill_(p.recv_empty, fill))
+                k += r.shape[0]
+        return [q for q, _ in fields]
 
     def lower(self, q: torch.Tensor) -> torch.Tensor:
         """``q`` (..., M) with its ghost rows set to 0."""
@@ -213,3 +289,30 @@ class SlabComm:
         if not self._status.checked:
             self.read(torch.zeros((), device=self.grid.device))
         return self._status.n_liquid
+
+
+class DirectSlabComm(SlabComm):
+    """One rank's slab with two ghost planes a side (the counterpart of
+    the JAX package's ``PaddedSlabComm`` and ``SlabPaddedEngine``,
+    ``resident_slab.py:234-388``): ``lower`` is the identity, and DFSPH's
+    loops run K2 and K3 on the local rows, each after one stacked refresh
+    of the fields it reads at the neighbours (module docstring)."""
+
+    fused = FUSED_DFSPH
+
+    def lower(self, q: torch.Tensor) -> torch.Tensor:
+        return q
+
+    def fused_kappa_drho(self, vel, kf, gate, acc):
+        """K2 after one refresh of the velocity and the kappas (the gate is
+        read at the receiver only); exact at the own rows."""
+        self.lift_many((vel, 0.0), (kf, 0.0))
+        return engine.k2_fused_kappa_drho(self.grid, vel, kf, gate, acc)
+
+    def fused_iter_full(self, vel, kv, s, a, paux, dt, mode: int):
+        """K3 after one refresh of the velocity, S and A; returns the
+        all-reduced error over the own liquid rows (the kernel's own sum
+        covers the ghost rows too)."""
+        self.lift_many((vel, 0.0), (s, 0.0), (a, 0.0))
+        engine.k3_fused_iter_full(self.grid, vel, kv, s, a, paux, dt, mode)
+        return self.lsum(s - float(mode))

@@ -1,14 +1,17 @@
 """X-slabs over ranks: the slab config, the slab's planes and ghost rows,
-and the communicator of one step (port of what the slab step needs from
+the communicator of one step, and the global-grid sharded steps (port of
 ``wcsph_tpu/parallel/halo.py``).
 
 The grid's x-planes of cells are split into contiguous slabs, one a rank
 (``slab_config`` pads the domain so that the planes divide evenly).  A
 rank owns the particles whose cell lies in its planes.  Every neighbour
 access is at most one x-plane away (a 27-cell window), so a rank needs one
-ghost plane from each ring neighbour: the particles of the neighbour's
-boundary plane, its liquid ones sent anew each step (``make_slab_comm``),
-its boundary ones fixed (``slab.slab_init``).
+ghost plane from each ring neighbour for one sweep: the particles of the
+neighbour's boundary plane, its liquid ones sent anew each step
+(``make_slab_comm``), its boundary ones fixed (``slab.slab_init``).  The
+two-plane front (``slab.step_slab_direct``) takes two planes a side
+(``SlabGeometry.ghost``), so that a fused kernel's second sweep reads only
+rows its first sweep made exact (``comm.py``).
 
 The rank's local grid bins its own rows and its ghost rows with the
 single-device grid's cell ids (``grid_res``, ``domain_min``): the cells, the
@@ -39,7 +42,7 @@ import torch
 
 from ..config import SimConfig
 from ..grid import HEADROOM, build_grid
-from .comm import HaloPlan, SlabComm, Transport
+from .comm import DirectSlabComm, HaloPlan, SlabComm, Transport
 
 EMPTY_POS = 1.0e9     # the position of an empty seat: outside the domain
 MIN_BUFFER = 64       # the least size of a ghost or migration buffer
@@ -66,17 +69,25 @@ def buffer_size(need: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class SlabGeometry:
     """Rank ``rank``'s planes of the grid of ``cfg`` over ``world`` ranks:
-    it owns x-planes [lo, hi), its ghost planes are lo - 1 and hi (none at
-    the domain's edges)."""
+    it owns x-planes [lo, hi), its ghost planes are [lo - ghost, lo) and
+    [hi, hi + ghost) (none outside the domain); it sends its ``ghost``
+    outermost own planes to each side."""
 
     cfg: SimConfig
     world: int
     rank: int
+    ghost: int = 1
 
     def __post_init__(self):
         if self.cfg.grid_res[0] % self.world:
             raise ValueError(f"{self.cfg.grid_res[0]} x-planes do not divide "
                              f"among {self.world} ranks: use slab_config()")
+        if self.ghost not in (1, 2):
+            raise ValueError(f"{self.ghost} ghost planes: 1 or 2")
+        if self.width < self.ghost:
+            raise ValueError(f"slabs of {self.width} x-planes are thinner "
+                             f"than {self.ghost} ghost planes: a ghost plane "
+                             "must lie in the ring neighbour's slab")
 
     @property
     def width(self) -> int:
@@ -108,6 +119,14 @@ class SlabGeometry:
         inbox = ((f >= 0.0) & (f < res[:, None])).all(0)
         return f[0], inbox
 
+    def edges(self, fx: torch.Tensor, lo) -> torch.Tensor:
+        """(2, N) bool: each x-plane ``fx`` among the ``ghost`` first and
+        among the ``ghost`` last planes of the slab that starts at ``lo``
+        (a plane or an (N,) tensor of them): the planes sent left, right."""
+        hi = lo + self.width
+        return torch.stack([(fx >= lo) & (fx < lo + self.ghost),
+                            (fx >= hi - self.ghost) & (fx < hi)])
+
     def owner(self, fx: torch.Tensor) -> torch.Tensor:
         """(N,) int64 owning rank of each x-plane (clamped into the grid: a
         particle outside the domain belongs to the slab nearest to it; a
@@ -123,12 +142,13 @@ class SlabSolids:
     ghosts of its neighbours' boundary planes (left, right), then one
     empty position (the local grid's last row, where empty ghost entries
     land), as one planar block; with the own ones it sends, as indices
-    into its own."""
+    into its own, and the own ones' particle ids."""
 
     pos: torch.Tensor          # (3, n_own + n_left + n_right + 1)
     n_own: int
     n_ghost: tuple             # (from the left, from the right)
     send: tuple                # (int64 to the left, to the right)
+    ids: torch.Tensor          # (n_own,) int64 particle ids of the own
 
 
 def first_k(mask: torch.Tensor, k: int):
@@ -218,8 +238,9 @@ def make_slab_comm(fields: torch.Tensor, pid: torch.Tensor,
     arrivals, particles moved past a neighbour's slab), stacked into the
     step's status.
 
-    Returns (the ``SlabComm``, whose grid carries the status in ``checks``;
-    (3,) int64 own rows, ghost rows and arrivals, on the device)."""
+    Returns (the ``SlabComm``, or at ``geo.ghost`` 2 the
+    ``DirectSlabComm``, whose grid carries the status in ``checks``; (3,)
+    int64 own rows, ghost rows and arrivals, on the device)."""
     ncap = pid.shape[0]
     kg = kghost
     dev = fields.device
@@ -227,9 +248,9 @@ def make_slab_comm(fields: torch.Tensor, pid: torch.Tensor,
     pos = fields[0:3, :ncap]
     fx, inbox = geo.planes(pos)
     valid = pid >= 0
-    edge = valid & inbox
-    go_l, n_l = first_k(edge & (fx == geo.lo), kg)
-    go_r, n_r = first_k(edge & (fx == geo.hi - 1), kg)
+    sent = (valid & inbox) & geo.edges(fx, geo.lo)
+    go_l, n_l = first_k(sent[0], kg)
+    go_r, n_r = first_k(sent[1], kg)
 
     def payload(idx, n):
         return torch.where(torch.arange(kg, device=dev) < n,
@@ -276,7 +297,9 @@ def make_slab_comm(fields: torch.Tensor, pid: torch.Tensor,
     px = torch.div(grid.cell, geo.plane, rounding_mode="floor")
     inside = px < geo.cfg.grid_res[0]
     in_slab = (px >= geo.lo) & (px < geo.hi)
-    misplaced = (inside & (ghost == in_slab)).sum()
+    near = (px >= geo.lo - geo.ghost) & (px < geo.hi + geo.ghost)
+    misplaced = (inside & torch.where(ghost, in_slab | ~near,
+                                      ~in_slab)).sum()
     own = grid.liquid & (order < ncap)
     mig_need, seats, arrivals, jumped = migration
     local = torch.stack([torch.maximum(n_l, n_r), mig_need, seats,
@@ -285,4 +308,120 @@ def make_slab_comm(fields: torch.Tensor, pid: torch.Tensor,
     grid.checks = (status,)
     counts = torch.stack([valid.sum() + solids.n_own,
                           (inside & ghost).sum(), arrivals]).to(torch.int64)
-    return SlabComm(grid, cfg, own, plan, transport, status), counts
+    kind = DirectSlabComm if geo.ghost == 2 else SlabComm
+    return kind(grid, cfg, own, plan, transport, status), counts
+
+
+# ---------------------------------------------------------------------------
+# The global-grid sharded steps (halo.py:87-291 of the JAX package)
+# ---------------------------------------------------------------------------
+#
+# Every rank holds the whole FluidState on its device.  Each step re-splits
+# it (``slab.resplit``: the particles of the rank's planes as seats, the
+# liquid ones of its neighbours' boundary planes as ghosts through the
+# ring, the boundary's from the state; no migration, since nothing is kept
+# from one step to the next), bins them with the whole grid's cell ids and
+# runs the solver's middle under the one-plane ``SlabComm``; the own
+# seats' outputs are all-gathered back into particle order, so every rank
+# ends the step with the same whole state.  The JAX functions take a packed
+# grid and a mesh; these take the whole state, its config and a
+# ``torch.distributed`` group (None: the default group).
+
+def _whole_comm(state, cfg: SimConfig, group, solver: str):
+    """(the split's ``SlabState``, its seat fields, the one-plane
+    ``SlabComm`` of one step on the whole ``state``, the ``Transport``)."""
+    from . import slab
+
+    sst, fields, migration, tr, geo = slab.resplit(state, cfg, group,
+                                                   solver)
+    comm, _ = make_slab_comm(fields, sst.pid, sst.solids, cfg, tr, geo,
+                             sst.kghost, 0, migration)
+    return sst, fields, comm, tr
+
+
+def density_sharded(state, cfg: SimConfig, group=None) -> torch.Tensor:
+    """(N,) the SPH density of every particle of ``state`` (K5's density
+    sweep, ``engine.density``) over the x-slabs, in particle order on every
+    rank; 0 for a particle outside the domain (it has no row).  The
+    counterpart of ``density_sharded`` (wcsph_tpu/parallel/halo.py:87-103),
+    which returns the packed grid's densities."""
+    from .. import engine
+
+    sst, _, comm, tr = _whole_comm(state, cfg, group, "dfsph")
+    grid = comm.grid
+    rho, _ = engine.density(grid)
+    # the particle id of each local column: the seats', -1 for the liquid
+    # ghosts, the own boundary's, -1 for the boundary ghosts
+    sol = sst.solids
+    none = sst.pid.new_full((1,), -1).long()
+    col_id = torch.cat([sst.pid.long(), none.expand(2 * sst.kghost),
+                        sol.ids, none.expand(sol.pos.shape[1] - sol.n_own)])
+    ids = col_id[grid.order]
+    keep = (grid.cell < cfg.num_cells) & (ids >= 0)
+    n = state.n_total
+    out = torch.zeros(n + 1, dtype=torch.float32, device=rho.device)
+    out.scatter_(0, torch.where(keep, ids, n), torch.where(keep, rho, 0.0))
+    # each particle is an own row of one rank: the sum adds zeros to it
+    return tr.all_reduce(out[:n])
+
+
+def pressure_solve_sharded(state, cfg: SimConfig, group=None):
+    """DFSPH's constant-density solve of ``state`` (its vel, kappa and
+    dt) over the x-slabs, after the density sweep (density, alpha and the
+    list): ((3, N_L) velocity, (N_L,) kappa, iterations, error), in
+    particle order on every rank.  One halo exchange a neighbour-read
+    input, an all-reduced error an iteration.  The counterpart of
+    ``pressure_solve_sharded`` (wcsph_tpu/parallel/halo.py:106-131), which
+    takes the packed grid, the packed fields and their alpha and rho."""
+    from ..grid import pack, unpack
+    from ..solvers import dfsph
+    from . import slab
+
+    sst, fields, comm, tr = _whole_comm(state, cfg, group, "dfsph")
+    grid = comm.grid
+    seat_vel, seat_k = slab._fields(fields, "vel"), slab._fields(fields,
+                                                                 "kappa")
+    velp, kp = pack(grid, [seat_vel, seat_k])
+    rhop, alphap, _, _ = dfsph.density_and_list(grid, comm.lift(velp),
+                                                sst.slots)
+    rhop = comm.lift(rhop, 1.0)
+    alphap = torch.where(grid.liquid, comm.lower(alphap), 0.0)
+    pr = dfsph.pressure_solve(comm, velp, kp, alphap, rhop, state.dt)
+    vel, kappa = unpack(grid, [pr.vel, pr.kappa], [seat_vel, seat_k])
+    ncap = sst.ncap
+    out = slab.gather_rows(tr, torch.cat([vel[:, :ncap], kappa[None, :ncap]]),
+                           sst.pid, state.n_liquid)
+    return out[:3], out[3], pr.iters, pr.err
+
+
+def _step_sharded(state, cfg: SimConfig, group, solver: str):
+    from . import slab
+
+    return slab.step_resplit(state, cfg, group, solver)
+
+
+def dfsph_step_sharded(state, cfg: SimConfig, group=None):
+    """One DFSPH step of the whole ``state`` with its middle (density and
+    alpha, divergence solve, viscosity PCG, vorticity, CFL, pressure
+    solve) over the x-slabs, unfused; the new whole state on every rank
+    (wcsph_tpu/parallel/halo.py:134-188)."""
+    return _step_sharded(state, cfg, group, "dfsph")
+
+
+def iisph_step_sharded(state, cfg: SimConfig, group=None):
+    """One IISPH step with its middle (density, viscosity PCG, advection
+    coefficients, relaxed-Jacobi loop, pressure force) over the x-slabs
+    (wcsph_tpu/parallel/halo.py:191-228)."""
+    return _step_sharded(state, cfg, group, "iisph")
+
+
+def pcisph_step_sharded(state, cfg: SimConfig, group=None):
+    """One PCISPH step with its prediction loop over the x-slabs
+    (wcsph_tpu/parallel/halo.py:231-263)."""
+    return _step_sharded(state, cfg, group, "pcisph")
+
+
+def sesph_step_sharded(state, cfg: SimConfig, group=None):
+    """One SESPH step with its sweeps over the x-slabs
+    (wcsph_tpu/parallel/halo.py:266-291)."""
+    return _step_sharded(state, cfg, group, "sesph")

@@ -1,5 +1,9 @@
 """Slab-owned particles: per-slab binning, halo exchange and migration
-(port of ``wcsph_tpu/parallel/slab.py``).
+(port of ``wcsph_tpu/parallel/slab.py``), on two fronts: one ghost plane a
+side (``step_slab``), or two (``step_slab_direct``, the JAX package's
+default multi-chip step, ``resident_slab.step_slab_direct``); and the
+global-grid sharded steps' per-step split of a whole state
+(``step_resplit``, ``halo.*_sharded``).
 
 Each rank of a ``torch.distributed`` group owns the particles of its x-slab
 (``halo.SlabGeometry``): liquid seats of a fixed capacity (``SlabState``,
@@ -20,6 +24,21 @@ device:
    under the slab's ``SlabComm``: the lifts refresh ghost rows, the sums
    and maxima are all-reduced, the loops take their unfused forms;
 4. unpack and the position update of the own seats.
+
+The two-plane front (``step_slab_direct``; ``slab_init(..., ghost=2)``)
+runs the same step with two ghost planes a side under a
+``DirectSlabComm``, on which DFSPH's divergence and pressure loops run K2
+and K3 on the rank's local rows (the deep-halo argument is in
+``comm.py``); SESPH, PCISPH, IISPH, the tension and the viscosity PCG take
+their unfused forms, as under the JAX adapter.  Where the port differs
+from the JAX front: JAX keeps each slab in a padded plane layout,
+``[sentinel | g1 g2 | own | g2' g1' | sentinel]``, with its own local
+grid origin, and refreshes whole planes; the port bins own and ghost rows
+with the whole grid's cell ids into one sorted layout and exchanges only
+the liquid ghost rows (its boundary ghosts are fixed at ``slab_init``).
+The JAX front counts dropped particles as ``lost`` and keeps side buffers
+for them; the port drops nothing (below).  A CFL-bounded move crosses at
+most one slab, on both fronts.
 
 Seats stay sorted by particle id, and ghosts arrive in their sender's seat
 order, so within a cell the rows lie in particle order, as on one card:
@@ -87,6 +106,7 @@ class SlabState:
     kghost: int                # liquid ghosts a side
     kmig: int                  # migrants a side
     slots: ListSlots           # the rank's neighbour-list buffer
+    ghost: int = 1             # ghost planes a side (2: step_slab_direct)
     replays: int = 0           # steps run again with larger buffers
     counts: torch.Tensor | None = None   # (3,) own rows, ghost rows and
                                          # arrivals of the last step
@@ -106,94 +126,119 @@ def _fields(block: torch.Tensor, name: str) -> torch.Tensor:
     return block[a:b] if b - a > 1 else block[a]
 
 
-def slab_init(state: FluidState, cfg: SimConfig, group=None,
-              solver: str = "dfsph", device="cuda") -> SlabState:
-    """This rank's seats of ``state`` (every rank calls it with the same
-    whole state): its liquid particles in id order, padded to a capacity
-    common to all ranks (the fullest slab x ``SLACK``, a multiple of 8,
-    as the JAX package's), and its boundary particles with their ghosts.
-    Host-side work on the state, like the JAX package's; the seats go to
-    ``device`` (the card unless the caller asks for the CPU).  For the
-    non-DFSPH solvers ``kappa`` carries the pressure."""
-    tr = Transport(group)
-    geo = SlabGeometry(cfg, tr.world, tr.rank)
-    nl, n = state.n_liquid, state.n_total
-    pos = state.pos.detach().to("cpu", torch.float32)
+def _split(state: FluidState, tr: Transport, geo: SlabGeometry,
+           solver: str, work, device, slack: float):
+    """This rank's share of the whole ``state`` (every rank holds it),
+    worked out on the device ``work`` and put on ``device``: ((14, ncap)
+    seat block, (ncap,) int32 ids, ``SlabSolids``, the first ghost buffer).
+    Its liquid particles in id order, padded to a capacity common to all
+    ranks (the fullest slab x ``slack``, a multiple of 8, as the JAX
+    package's), and its boundary particles with the ghosts of
+    ``geo.ghost`` planes a side.  One host read brings every size.  For
+    the non-DFSPH solvers ``kappa`` carries the pressure."""
+    nl = state.n_liquid
+    pos = state.pos.detach().to(work, torch.float32)
     fx, inbox = geo.planes(pos)
     owner = geo.owner(fx)
     liq_owner = owner[:nl]
     counts = torch.bincount(liq_owner, minlength=tr.world)
-    ncap = int(-8 * (-(int(counts.max()) * SLACK) // 8))
-    mine = torch.nonzero(liq_owner == tr.rank)[:, 0]
-    # the first ghost buffer: the fullest boundary plane of any slab
-    edge = inbox[:nl]
-    lo = liq_owner * geo.width
-    planes = torch.stack([edge & (fx[:nl] == lo),
-                          edge & (fx[:nl] == lo + geo.width - 1)])
-    plane_counts = torch.zeros((2, tr.world), dtype=torch.int64)
-    plane_counts.index_add_(1, liq_owner, planes.long())
+    # the first ghost buffer: the fullest pair of boundary planes of any
+    # slab
+    sent = inbox[:nl] & geo.edges(fx[:nl], liq_owner * geo.width)
+    plane_counts = torch.zeros((2, tr.world), dtype=torch.int64,
+                               device=pos.device)
+    plane_counts.index_add_(1, liq_owner, sent.long())
+    # boundary particles (ids nl .. n - 1, in id order): own, ghosts, sent
+    s_fx, s_in, s_owner = fx[nl:], inbox[nl:], owner[nl:]
+    own = s_owner == tr.rank
+    ghost_l = (s_in & (s_fx >= geo.lo - geo.ghost) & (s_fx < geo.lo)
+               & (tr.rank > 0))
+    ghost_r = (s_in & (s_fx >= geo.hi) & (s_fx < geo.hi + geo.ghost)
+               & (tr.rank < tr.world - 1))
+    send = own & s_in & geo.edges(s_fx, geo.lo)
+    mine = liq_owner == tr.rank
+    masks = (mine, own, ghost_l, ghost_r, send[0], send[1])
+    top, pmax, *sizes = torch.stack(
+        [counts.max(), plane_counts.max(), *(m.sum() for m in masks)]
+    ).tolist()
+    ncap = int(-8 * (-(top * slack) // 8))
+    mine, own, ghost_l, ghost_r, send_l, send_r = (
+        first_k(m, k)[0] for m, k in zip(masks, [ncap, *sizes[1:]]))
+    seated = torch.arange(ncap, device=pos.device) < sizes[0]
 
     def seat(x, fill=0.0):
-        x = x.detach().to("cpu", torch.float32)
-        out = torch.full((*x.shape[:-1], ncap), fill, dtype=torch.float32)
-        out[..., :len(mine)] = x[..., mine]
-        return out
+        x = x.detach().to(work, torch.float32)
+        return torch.where(seated, x[..., mine], fill)
 
     kappa = state.kappa if solver == "dfsph" else state.pressure
     block = torch.cat([seat(pos[:, :nl], EMPTY_POS), seat(state.vel),
                        seat(state.omega), seat(state.vel_guess),
                        seat(kappa)[None], seat(state.kappa_v)[None]])
-    block = block.to(device)
-    pid = torch.full((ncap,), -1, dtype=torch.int32)
-    pid[:len(mine)] = mine.to(torch.int32)
-
-    # boundary particles (ids nl .. n - 1, in id order): own, ghosts, sent
-    s_fx, s_in, s_owner = fx[nl:], inbox[nl:], owner[nl:]
-    own = s_owner == tr.rank
-    ghost_l = s_in & (s_fx == geo.lo - 1) & (tr.rank > 0)
-    ghost_r = s_in & (s_fx == geo.hi) & (tr.rank < tr.world - 1)
-    own_idx = torch.nonzero(own)[:, 0]
-    own_fx, own_in = s_fx[own_idx], s_in[own_idx]
+    pid = torch.where(seated, mine, -1).to(torch.int32)
+    own_rank = torch.cumsum(s_owner == tr.rank, 0) - 1
     spos = pos[:, nl:]
     solids = SlabSolids(
-        pos=torch.cat([spos[:, own_idx], spos[:, ghost_l], spos[:, ghost_r],
-                       torch.full((3, 1), EMPTY_POS)], dim=1).to(device),
-        n_own=len(own_idx),
-        n_ghost=(int(ghost_l.sum()), int(ghost_r.sum())),
-        send=tuple(torch.nonzero(own_in & (own_fx == p))[:, 0].to(device)
-                   for p in (geo.lo, geo.hi - 1)))
+        pos=torch.cat([spos[:, own], spos[:, ghost_l], spos[:, ghost_r],
+                       torch.full((3, 1), EMPTY_POS, device=pos.device)],
+                      dim=1).to(device),
+        n_own=sizes[1], n_ghost=(sizes[2], sizes[3]),
+        send=tuple(own_rank[idx].to(device) for idx in (send_l, send_r)),
+        ids=(nl + own).to(device))
+    return block.to(device), pid.to(device), solids, buffer_size(pmax)
+
+
+def slab_init(state: FluidState, cfg: SimConfig, group=None,
+              solver: str = "dfsph", device="cuda",
+              ghost: int = 1) -> SlabState:
+    """This rank's seats of ``state`` (every rank calls it with the same
+    whole state; ``_split`` at ``SLACK``), with ``ghost`` ghost planes a
+    side (2 for ``step_slab_direct``).  Host-side work on the state, like
+    the JAX package's; the seats go to ``device`` (the card unless the
+    caller asks for the CPU)."""
+    tr = Transport(group)
+    geo = SlabGeometry(cfg, tr.world, tr.rank, ghost)
+    block, pid, solids, kghost = _split(state, tr, geo, solver, "cpu",
+                                        device, SLACK)
     return SlabState(
-        pid=pid.to(device), **{k: _fields(block, k) for k in _ROWS},
+        pid=pid, **{k: _fields(block, k) for k in _ROWS},
         solids=solids, dt=state.dt, time=state.time,
         last_visc_iters=state.last_visc_iters,
         last_pressure_iters=state.last_pressure_iters, diag=state.diag,
-        n_liquid=nl, n_total=n, kghost=buffer_size(int(plane_counts.max())),
-        kmig=max(MIN_BUFFER, ncap // 16), slots=ListSlots())
+        n_liquid=state.n_liquid, n_total=state.n_total, kghost=kghost,
+        kmig=max(MIN_BUFFER, pid.shape[0] // 16), slots=ListSlots(),
+        ghost=ghost)
+
+
+def gather_rows(tr: Transport, rows: torch.Tensor, pid: torch.Tensor,
+                nl: int) -> torch.Tensor:
+    """(K, nl) in particle order, on every rank, from every rank's seat
+    rows (K, ncap) with ids ``pid`` (-1 empty; every rank holds as many
+    seats).  The rows travel as float64 beside the ids (exact).  Raises
+    unless every liquid particle holds exactly one seat."""
+    k = rows.shape[0]
+    blk = torch.cat([rows.double(), pid.double()[None]])
+    every = tr.all_gather(blk).transpose(0, 1).reshape(k + 1, -1)
+    ids = every[k].long()
+    keep = ids >= 0
+    got = every[:k, keep].float()
+    ids = ids[keep]
+    if ids.numel() != nl or torch.unique(ids).numel() != nl:
+        raise RuntimeError(f"{ids.numel()} seated liquid particles "
+                           f"({torch.unique(ids).numel()} ids) of {nl}")
+    out = torch.empty((k, nl), dtype=torch.float32, device=got.device)
+    out[:, ids] = got
+    return out
 
 
 def slab_gather(sst: SlabState, proto: FluidState, group=None,
                 solver: str = "dfsph") -> FluidState:
     """The whole state in particle order, on every rank, on the seats'
-    device: every rank's seats gathered (the liquid fields; every rank
-    holds as many seats), the boundary positions and the fields no seat
-    carries from ``proto``.  For the non-DFSPH solvers the ``kappa`` seats
-    carry the pressure.  Raises unless every liquid particle holds exactly
-    one seat."""
-    tr = Transport(group)
-    blk = torch.cat([sst.block().double(), sst.pid.double()[None]])
-    every = tr.all_gather(blk).transpose(0, 1).reshape(_NROWS + 1, -1)
-    pid = every[_NROWS].long()
-    keep = pid >= 0
-    rows = every[:_NROWS, keep].float()
-    pid = pid[keep]
-    nl = sst.n_liquid
-    if pid.numel() != nl or torch.unique(pid).numel() != nl:
-        raise RuntimeError(f"{pid.numel()} seated liquid particles "
-                             f"({torch.unique(pid).numel()} ids) of {nl}")
-    out = torch.empty((_NROWS, nl), dtype=torch.float32, device=rows.device)
-    out[:, pid] = rows
+    device: every rank's seats gathered (``gather_rows``), the boundary
+    positions and the fields no seat carries from ``proto``.  For the
+    non-DFSPH solvers the ``kappa`` seats carry the pressure."""
+    out = gather_rows(Transport(group), sst.block(), sst.pid, sst.n_liquid)
     pos = proto.pos.clone()
-    pos[:, :nl] = _fields(out, "pos").to(pos.device)
+    pos[:, :sst.n_liquid] = _fields(out, "pos").to(pos.device)
     seated = ("vel", "omega", "vel_guess") + (
         ("kappa", "kappa_v") if solver == "dfsph" else ())
     named = {k: _fields(out, k).to(proto.vel.device) for k in seated}
@@ -304,8 +349,17 @@ _MIDDLES = {
 def _step(sst: SlabState, cfg: SimConfig, tr: Transport, geo: SlabGeometry,
           solver: str, ncap: int, kghost: int, kmig: int,
           replays: int) -> SlabState:
-    middle, names = _MIDDLES[solver]
     fields, pid, migration = _migrate(sst, tr, geo, ncap, kghost, kmig)
+    return _solve(sst, cfg, tr, geo, solver, fields, pid, migration,
+                  kghost, kmig, replays)
+
+
+def _solve(sst: SlabState, cfg: SimConfig, tr: Transport,
+           geo: SlabGeometry, solver: str, fields, pid, migration,
+           kghost: int, kmig: int, replays: int) -> SlabState:
+    """Steps 2-4 on the seats ``fields``, ``pid`` (``_migrate``'s)."""
+    middle, names = _MIDDLES[solver]
+    ncap = pid.shape[0]
     comm, counts = make_slab_comm(fields, pid, sst.solids, cfg, tr, geo,
                                   kghost, kmig, migration)
     grid = comm.grid
@@ -331,13 +385,17 @@ def _step(sst: SlabState, cfg: SimConfig, tr: Transport, geo: SlabGeometry,
         diag=diag, kghost=kghost, kmig=kmig, replays=replays, counts=counts)
 
 
-def step_slab(sst: SlabState, cfg: SimConfig, comm_group=None,
-              solver: str = "dfsph") -> SlabState:
-    """One step of ``solver`` on this rank's slab (every rank of the group
-    calls it).  A step whose buffers were short on any rank runs again
-    from ``sst`` with the sizes it asked for (counted in ``replays``)."""
+def _front(sst: SlabState, cfg: SimConfig, comm_group, solver: str,
+           ghost: int) -> SlabState:
+    """One step at ``ghost`` ghost planes a side; a step whose buffers
+    were short on any rank runs again from ``sst`` with the sizes it asked
+    for (counted in ``replays``)."""
+    if sst.ghost != ghost:
+        raise ValueError(f"a state seated with {sst.ghost} ghost plane(s) "
+                         f"a side, stepped on the {ghost}-plane front: "
+                         f"slab_init(..., ghost={ghost})")
     tr = Transport(comm_group)
-    geo = SlabGeometry(cfg, tr.world, tr.rank)
+    geo = SlabGeometry(cfg, tr.world, tr.rank, ghost)
     ncap, kghost, kmig = sst.ncap, sst.kghost, sst.kmig
     replays = sst.replays
     while True:
@@ -354,3 +412,57 @@ def step_slab(sst: SlabState, cfg: SimConfig, comm_group=None,
                 ncap = -8 * (-buffer_size(e.seats) // 8)
             if e.list_need > (sst.slots.capacity or 0):
                 sst.slots.size_for(e.list_need)
+
+
+def step_slab(sst: SlabState, cfg: SimConfig, comm_group=None,
+              solver: str = "dfsph") -> SlabState:
+    """One step of ``solver`` on this rank's slab, one ghost plane a side
+    (every rank of the group calls it); every loop runs unfused."""
+    return _front(sst, cfg, comm_group, solver, 1)
+
+
+def step_slab_direct(sst: SlabState, cfg: SimConfig, comm_group=None,
+                     solver: str = "dfsph") -> SlabState:
+    """One step of ``solver`` on this rank's slab, two ghost planes a side
+    (``slab_init(..., ghost=2)``), under the ``DirectSlabComm``: DFSPH's
+    divergence and pressure loops run K2 and K3, every other loop unfused
+    (the counterpart of ``resident_slab.step_slab_direct``,
+    ``wcsph_tpu/parallel/resident_slab.py:905-1027``)."""
+    return _front(sst, cfg, comm_group, solver, 2)
+
+
+def resplit(state: FluidState, cfg: SimConfig, group=None,
+            solver: str = "dfsph"):
+    """The global-grid sharded steps' split of the whole ``state`` (every
+    rank holds it, on its device), anew for one step and on that device:
+    (this rank's ``SlabState`` at one ghost plane, with seats for exactly
+    the fullest slab and a fresh list buffer; (14, ncap + 2 kghost) seat
+    fields with empty ghost columns; the migration's counts, all 0: no
+    seat moves; the ``Transport``; the ``SlabGeometry``)."""
+    tr = Transport(group)
+    geo = SlabGeometry(cfg, tr.world, tr.rank)
+    dev = state.pos.device
+    block, pid, solids, kghost = _split(state, tr, geo, solver, dev, dev,
+                                        1.0)
+    sst = SlabState(
+        pid=pid, **{k: _fields(block, k) for k in _ROWS}, solids=solids,
+        dt=state.dt, time=state.time, last_visc_iters=state.last_visc_iters,
+        last_pressure_iters=state.last_pressure_iters, diag=state.diag,
+        n_liquid=state.n_liquid, n_total=state.n_total, kghost=kghost,
+        kmig=0, slots=ListSlots())
+    empty = torch.tensor(_EMPTY, dtype=torch.float32, device=dev)[:, None]
+    fields = torch.cat([block, empty.expand(-1, 2 * kghost)], dim=1)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    return sst, fields, (zero,) * 4, tr, geo
+
+
+def step_resplit(state: FluidState, cfg: SimConfig, group=None,
+                 solver: str = "dfsph") -> FluidState:
+    """One step of ``solver`` on the whole ``state`` (``resplit``), its
+    middle under the one-plane ``SlabComm``; the own seats' outputs and
+    positions gathered back into particle order, the same on every
+    rank."""
+    sst, fields, migration, tr, geo = resplit(state, cfg, group, solver)
+    out = _solve(sst, cfg, tr, geo, solver, fields, sst.pid, migration,
+                 sst.kghost, 0, 0)
+    return slab_gather(out, state, group, solver)

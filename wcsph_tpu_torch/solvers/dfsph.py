@@ -27,11 +27,15 @@ its inputs with a larger buffer (``common.replaying``).
 Every function of the step's middle takes a communicator
 (``parallel/comm.py``), as the JAX package's do: ``step`` builds a
 ``NoComm`` (one card: lifts and lowers are identities, the reductions run
-over the grid's liquid rows); the slab step (``parallel/slab.py``) passes
-a ``SlabComm``, under which each sweep's neighbour-read inputs are lifted
-(their ghost rows exchanged), each sweep's outputs lowered, every liquid
-sum and max all-reduced, and the loops take their unfused forms
-(``engine.use_fused_iters``).
+over the grid's liquid rows); the slab steps (``parallel/slab.py``) pass
+a ``SlabComm`` or a ``DirectSlabComm``, under which each sweep's
+neighbour-read inputs are lifted (their ghost rows exchanged), each
+sweep's outputs lowered, and every liquid sum and max all-reduced.  The
+one-plane ``SlabComm`` runs every loop unfused; the two-plane
+``DirectSlabComm`` runs the divergence and pressure loops fused, K2 and K3
+through the communicator (``comm.fused_kappa_drho``,
+``comm.fused_iter_full``: refresh, kernel, own-row error), and the
+tension and the viscosity PCG unfused (``engine.use_fused_iters``).
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import torch
 from .. import engine, viscosity
 from ..config import SimConfig
 from ..grid import Grid, ListSlots, build_grid, pack, unpack
-from ..parallel.comm import NoComm
+from ..parallel.comm import FUSED_ALL, NoComm
 from ..state import FluidState, StepDiagnostics
 from .common import replaying
 
@@ -94,7 +98,7 @@ def divergence_solve(comm, velp, kvp, alphap, cntp, dt,
     grid, cfg = comm.grid, comm.cfg
     rho0 = cfg.rest_density
     dt = f32(dt)
-    fused = engine.use_fused_iters(comm)
+    fused = engine.use_fused_iters(comm, "fused_kappa_drho")
     alpha_dt = (alphap / float(dt)).contiguous()
 
     def drho_of(velp):
@@ -107,8 +111,8 @@ def divergence_solve(comm, velp, kvp, alphap, cntp, dt,
 
         def iterate(velp, kvp, drho):
             # the whole iteration in one K3 call, in place
-            return velp, kvp, drho, engine.k3_fused_iter_full(
-                grid, velp, kvp, drho, alpha_dt, cnt_gate, dt, 0)
+            return velp, kvp, drho, comm.fused_iter_full(
+                velp, kvp, drho, alpha_dt, cnt_gate, dt, 0)
     else:
         def iterate(velp, kvp, drho):
             k = drho * alpha_dt
@@ -125,8 +129,8 @@ def divergence_solve(comm, velp, kvp, alphap, cntp, dt,
         drho_ws = drho_of(velp) if drho0 is None else drho0
         if fused:
             acc = torch.empty_like(drho_ws)
-            velp, acc = engine.k2_fused_kappa_drho(
-                grid, velp, (float(dt) * k_ws).contiguous(),
+            velp, acc = comm.fused_kappa_drho(
+                velp, (float(dt) * k_ws).contiguous(),
                 (grid.liq * (drho_ws > 0.0)).contiguous(), acc)
             drho = torch.where(cntp < cfg.min_div_neighbors, 0.0,
                                torch.clamp(acc, min=0.0))
@@ -162,7 +166,7 @@ def pressure_solve(comm, velp, kp, alphap, rhop, dt) -> _SolveResult:
     rho0 = cfg.rest_density
     dt = f32(dt)
     dt2 = dt * dt
-    fused = engine.use_fused_iters(comm)
+    fused = engine.use_fused_iters(comm, "fused_kappa_drho")
     alpha_dt2 = (alphap / float(dt2)).contiguous()
 
     def adv_of(velp):
@@ -175,8 +179,8 @@ def pressure_solve(comm, velp, kp, alphap, rhop, dt) -> _SolveResult:
 
         def iterate(velp, kp, adv):
             # the whole iteration in one K3 call (mode 1), in place
-            return velp, kp, adv, engine.k3_fused_iter_full(
-                grid, velp, kp, adv, alpha_dt2, rr0, dt, 1)
+            return velp, kp, adv, comm.fused_iter_full(
+                velp, kp, adv, alpha_dt2, rr0, dt, 1)
     else:
         def iterate(velp, kp, adv):
             k = (adv - 1.0) * alpha_dt2
@@ -191,8 +195,8 @@ def pressure_solve(comm, velp, kp, alphap, rhop, dt) -> _SolveResult:
         adv_ws = adv_of(velp)
         if fused:
             acc = torch.empty_like(adv_ws)
-            velp, acc = engine.k2_fused_kappa_drho(
-                grid, velp, (float(dt) * k_ws).contiguous(),
+            velp, acc = comm.fused_kappa_drho(
+                velp, (float(dt) * k_ws).contiguous(),
                 (grid.liq * (adv_ws > 1.0)).contiguous(), acc)
             adv = torch.clamp(rr0 + float(dt) * acc, min=1.0)
         else:
@@ -277,7 +281,7 @@ def step_middle(comm, cfg: SimConfig, velp, omegap, vgp, kp, kvp, dt,
     if cfg.tension_coff != 0.0 or cfg.tension_coff_b != 0.0:
         # surface normals + cohesion, curvature and adhesion: one K6 call,
         # or unfused a normals sweep and a tension sweep
-        if engine.use_fused_iters(comm):
+        if engine.use_fused_iters(comm, "fused_tension"):
             _, dv_t = engine.fused_tension(grid, rhop)
         else:
             normals = comm.lower(engine.surface_normals(grid, rhop))
@@ -330,15 +334,16 @@ def bin_and_pack(state: FluidState, cfg: SimConfig):
 
 
 def step(state: FluidState, cfg: SimConfig,
-         slots: ListSlots | None = None) -> FluidState:
+         slots: ListSlots | None = None, fused=FUSED_ALL) -> FluidState:
     """One step; ``slots``: the neighbour list's buffer, kept by the caller
-    from step to step (a fresh one, sized by this step, where None)."""
+    from step to step (a fresh one, sized by this step, where None);
+    ``fused``: the loops that may run fused (``NoComm``)."""
     slots = ListSlots() if slots is None else slots
 
     def run():
         grid, packed = bin_and_pack(state, cfg)
-        return grid, step_middle(NoComm(grid, cfg), cfg, *packed, state.dt,
-                                 state.last_pressure_iters, slots)
+        return grid, step_middle(NoComm(grid, cfg, fused), cfg, *packed,
+                                 state.dt, state.last_pressure_iters, slots)
 
     nl = state.n_liquid
     grid, mid = replaying(run, slots)

@@ -36,7 +36,7 @@ import torch
 from .. import engine, viscosity
 from ..config import SimConfig
 from ..grid import Grid, ListSlots, build_grid, pack, unpack
-from ..parallel.comm import NoComm
+from ..parallel.comm import FUSED_ALL, NoComm
 from ..state import FluidState, StepDiagnostics
 from .common import gravity_column, replaying, vel_max
 
@@ -113,7 +113,7 @@ def step_middle(comm, cfg: SimConfig, velp, vgp, pp, dt,
     err_pre = err_sum / n_liq
     b_rhs = 1.0 - adv_rho
 
-    fused = engine.use_fused_iters(comm)
+    fused = engine.use_fused_iters(comm, "fused_jacobi_iter")
     h2 = float(dt * dt)
     liq = grid.liquid
 
@@ -168,16 +168,17 @@ def bin_and_pack(state: FluidState, cfg: SimConfig):
 
 
 def step(state: FluidState, cfg: SimConfig,
-         slots: ListSlots | None = None) -> FluidState:
+         slots: ListSlots | None = None, fused=FUSED_ALL) -> FluidState:
     """One step; ``slots``: the neighbour list's buffer, kept by the caller
-    from step to step (a fresh one, sized by this step, where None)."""
+    from step to step (a fresh one, sized by this step, where None);
+    ``fused``: the loops that may run fused (``NoComm``)."""
     nl = state.n_liquid
     dt = f32(state.dt)
     slots = ListSlots() if slots is None else slots
 
     def run():
         grid, packed = bin_and_pack(state, cfg)
-        comm = NoComm(grid, cfg)
+        comm = NoComm(grid, cfg, fused)
         return comm, step_middle(comm, cfg, *packed, dt, slots)
 
     comm, mid = replaying(run, slots)

@@ -40,7 +40,7 @@ import torch
 from .. import engine, kernels
 from ..config import SimConfig
 from ..grid import ListSlots, build_grid, pack, unpack
-from ..parallel.comm import NoComm
+from ..parallel.comm import FUSED_ALL, NoComm
 from ..state import FluidState, StepDiagnostics
 from .common import gravity_column, replaying, vel_max
 
@@ -107,7 +107,7 @@ def step_middle(comm, cfg: SimConfig, velp, dt,
     # non-pressure forces + density (pcisph.py:199-218); the SESPH force
     # sweep with zero pressure is the pure explicit viscosity
     rhop, cntp = engine.density(grid)
-    fused = engine.use_fused_iters(comm)
+    fused = engine.use_fused_iters(comm, "fused_pcisph_iter")
     slots = ListSlots() if slots is None else slots
     if fused and slots.capacity is None:   # the first step's one host read
         slots.size_for(grid.n * int(cntp.max()))
@@ -160,16 +160,17 @@ def bin_and_pack(state: FluidState, cfg: SimConfig):
 
 
 def step(state: FluidState, cfg: SimConfig,
-         slots: ListSlots | None = None) -> FluidState:
+         slots: ListSlots | None = None, fused=FUSED_ALL) -> FluidState:
     """One step; ``slots``: K8's hit buffer, kept by the caller from step
-    to step (a fresh one, sized by this step, where None)."""
+    to step (a fresh one, sized by this step, where None); ``fused``: the
+    loops that may run fused (``NoComm``)."""
     nl = state.n_liquid
     dt = f32(state.dt)
     slots = ListSlots() if slots is None else slots
 
     def run():
         grid, (velp,) = bin_and_pack(state, cfg)
-        comm = NoComm(grid, cfg)
+        comm = NoComm(grid, cfg, fused)
         return comm, step_middle(comm, cfg, velp, dt, slots)
 
     comm, mid = replaying(run, slots)

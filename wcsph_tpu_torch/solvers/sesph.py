@@ -15,7 +15,7 @@ import numpy as np
 from .. import engine, ops
 from ..config import SimConfig
 from ..grid import ListSlots, build_grid, pack, unpack
-from ..parallel.comm import NoComm
+from ..parallel.comm import FUSED_ALL, NoComm
 from ..state import FluidState, StepDiagnostics
 from .common import gravity_column, vel_max
 
@@ -60,9 +60,9 @@ def bin_and_pack(state: FluidState, cfg: SimConfig):
 
 
 def step(state: FluidState, cfg: SimConfig,
-         slots: ListSlots | None = None) -> FluidState:
-    """One step (``slots`` is unused: this step builds no neighbour
-    list)."""
+         slots: ListSlots | None = None, fused=FUSED_ALL) -> FluidState:
+    """One step (``slots`` and ``fused`` are unused: this step builds no
+    neighbour list and runs no loop)."""
     nl = state.n_liquid
     dt = f32(state.dt)
     grid, (velp,) = bin_and_pack(state, cfg)

@@ -49,7 +49,7 @@ def solve_dense(comm, velp: torch.Tensor, vel_guessp: torch.Tensor,
     it."""
     grid, cfg = comm.grid, comm.cfg
     liq3 = grid.liquid[None]
-    fused = engine.use_fused_iters(comm)
+    fused = engine.use_fused_iters(comm, "fused_visc_iter")
 
     def ldot(a, b):
         return comm.lsum(torch.sum(a * b, dim=0))
