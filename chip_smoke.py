@@ -25,11 +25,16 @@ its own lines and raising on failure:
    the plain build bit for bit, a fill into a short buffer is clamped and
    flagged as the twin's, those seventeen raise on a grid without a list,
    and a short count raises at the grid's first read; K8 into a hit
-   buffer of the widest row's hits and into one of half that width: its hits equal the twin's slot for slot, and both flag the
-   same row count; last the cut sweeps (the DFSPH density sweep, K5's
-   density and SESPH-force entries) on a block squeezed to 0.6 of its
-   spacing, where receivers have more hits than the density sweep's
-   per-thread buffer (``engine.CUT_SLOTS``) and so sum it more than once,
+   buffer of the widest row's hits and into one of half that width: its
+   hits equal the twin's slot for slot, and both flag the same row count;
+   the unfused PCISPH prediction's cut and walk likewise (its kept hits,
+   full counts and records as the twin's, the walk at a second pressure
+   bit-equal to a cut there, the half width, whose rows of more hits the
+   walk scans again, bit-equal to the full width); last the cut sweeps
+   (the DFSPH density sweep, K5's density and SESPH-force entries) on a
+   block squeezed to 0.6 of its spacing, where receivers have more hits
+   than the density sweep's per-thread buffer (``engine.CUT_SLOTS``) and
+   so sum it more than once,
    and K5's columns hold several 32-candidate chunks; at side 24 and on
    the 0.6 block the surface kernels (``aniso_moments``, its count bit for
    bit, ``aniso_g`` and ``mc_field`` plain and anisotropic), and on each
@@ -55,6 +60,8 @@ its own lines and raising on failure:
    offsets and fill once per DFSPH and IISPH step); an unfused path
    launches none of K2, K3, K4, K6, K7, K8 and each of K1's unfused entries
    as often as its iterations ask, a fused path none of those entries;
+   the unfused PCISPH path one more step with its walks counting the rows
+   they scan again (the buffer sized by the first step: expected 0);
    then the step's stage
    from the bin through the filled list (SESPH, PCISPH: through the pack)
    under ``torch.cuda.set_sync_debug_mode("error")``, and the host
@@ -291,12 +298,15 @@ def kernel_inputs(grid, liq_pos, rng):
         kv=(seeded(m) * liq).contiguous(),
         r=(seeded(3, m) * liq).contiguous(),
         d=(seeded(3, m) * liq).contiguous(),
+        # the unfused prediction's second call: another pressure
+        p2=(seeded(m, scale=1e3).abs() * liq).contiguous(),
     )
 
 
 def k8_width(grid, inp):
     """The most hits a row of K8's iteration at these inputs has (the plain
-    twin's, on a copy of the grid)."""
+    twin's, on a copy of the grid); the unfused prediction's cut at
+    ``inp["xstar"]``, the same moved positions, has the same."""
     import dataclasses
 
     from wcsph_tpu_torch import dense_ops
@@ -309,9 +319,10 @@ def k8_width(grid, inp):
 
 def kernel_cases(grid, inp):
     """(wrapper name, label, make operands, outputs of (operands, return
-    value), tolerance) for every kernel entry, K3 in both modes, K8 into a
-    hit buffer of the widest row's hits.  ``make`` returns fresh copies of
-    what a call updates in place."""
+    value), tolerance) for every kernel entry, K3 in both modes, K8 and the
+    unfused prediction's cut into a hit buffer of the widest row's hits,
+    the walk over the hits of a cut there at a second pressure.  ``make``
+    returns fresh copies of what a call updates in place."""
     import torch
 
     from wcsph_tpu_torch import engine
@@ -319,7 +330,12 @@ def kernel_cases(grid, inp):
     from wcsph_tpu_torch.utils import mat3
 
     dt = inp["dt"]
-    hits = ListSlots(k8_width(grid, inp) * grid.n)
+    width = k8_width(grid, inp)
+    hits = ListSlots(width * grid.n)
+    saved = dict(engine.LAUNCHES)
+    cut = engine.k1_pcisph_predict(grid, inp["xstar"], inp["p"],
+                                   ListSlots(width * grid.n))[1]
+    engine.LAUNCHES.update(saved)     # check launches are not main-path
     x = (inp["vel"] + inp["r"] * 0.01).contiguous()
     minv, _ = engine.visc_init(grid, x, inp["rho"], dt)
     minv6 = torch.stack(list(minv)).contiguous()
@@ -382,7 +398,10 @@ def kernel_cases(grid, inp):
          TOL_SWEEP),
         ("k1_visc_acc", "", lambda: (grid, inp["d"], inp["rinv"]),
          lambda a, r: [r], TOL_SWEEP),
-        ("k1_pcisph_predict", "", lambda: (grid, inp["xstar"], inp["p"]),
+        ("k1_pcisph_predict", "",
+         lambda: (grid, inp["xstar"], inp["p"], hits),
+         lambda a, r: list(torch.split(r[0], (1, 3))), TOL_SWEEP),
+        ("k1_pcisph_walk", "", lambda: (grid, inp["xstar"], inp["p2"], cut),
          fields(1, 3), TOL_SWEEP),
         ("k1_iisph_dij", "", lambda: (grid, inp["fac"]), lambda a, r: [r],
          TOL_SWEEP),
@@ -573,6 +592,94 @@ def check_k8_hits(grid, inp, chk):
             f"equal to the twin's slot for slot, records equal, overflow "
             f"flag {int(got.over)} as the twin's")
     engine.LAUNCHES.update(saved)     # check launches are not main-path
+
+
+def check_predict_hits(grid, inp, chk):
+    """The unfused PCISPH prediction's cut and walk at ``inp["xstar"]``,
+    into a hit buffer of the widest row's hits and into one of half that
+    width, against their twins: the cut's outputs (within TOL_SWEEP), its
+    full hit counts, records and kept hits slot for slot as the twin's;
+    the walk at a second pressure within TOL_SWEEP of the twin's walk of
+    the twin's hits, and bit-equal to a cut at that pressure; the outputs
+    of the half width, where the rows of more hits are scanned again
+    inside the walk, bit-equal to those of the full width.  Returns the
+    rows scanned again at the half width."""
+    import torch
+
+    from wcsph_tpu_torch import dense_ops, engine
+    from wcsph_tpu_torch.grid import ListSlots
+
+    saved = dict(engine.LAUNCHES)
+    width = k8_width(grid, inp)
+    m = grid.n
+    xs, p, p2 = inp["xstar"], inp["p"], inp["p2"]
+    outs, rescanned = [], 0
+    for w in (width, width // 2):
+        cut, got = engine.k1_pcisph_predict(grid, xs, p, ListSlots(w * m))
+        cut_t, want = dense_ops.pcisph_predict(grid, xs, p, ListSlots(w * m))
+        walk = engine.k1_pcisph_walk(grid, xs, p2, got)
+        again = engine.k1_pcisph_predict(grid, xs, p2, ListSlots(w * m))[0]
+        walk_t = dense_ops.pcisph_walk(grid, xs, p2, want)
+        torch.cuda.synchronize()
+        for name, a, b in (("k1_pcisph_predict", cut, cut_t),
+                           ("k1_pcisph_walk", walk, walk_t)):
+            for c, (x, y) in enumerate(zip(torch.split(a, (1, 3)),
+                                           torch.split(b, (1, 3)))):
+                chk.close(name, x, y, TOL_SWEEP, f"[width {w} out {c}]")
+        kept = torch.clamp(want.count, max=w)
+        live = (torch.arange(w, device=grid.device)[:, None]
+                < kept[None, :]).flatten()
+        if not (got.width == want.width == w
+                and torch.equal(got.count, want.count)
+                and torch.equal(got.idx[: w * m][live],
+                                want.idx[: w * m][live])
+                and torch.equal(got.rec, want.rec)):
+            raise AssertionError(f"k1_pcisph_predict at width {w}: hits, "
+                                 "counts or records differ from its twin")
+        if not torch.equal(walk, again):
+            raise AssertionError(f"k1_pcisph_walk at width {w}: not the "
+                                 "bits of a cut at the same x* and pressure")
+        outs.append((cut, walk))
+        rows = int(((got.count > w) & grid.liquid).sum())
+        rescanned = rows if w < width else rescanned
+        log(f"  k1_pcisph_predict / k1_pcisph_walk: width {w}: "
+            f"{int(live.sum())} kept hits equal to the twin's slot for "
+            f"slot, full counts and records equal; the walk at a second "
+            f"pressure equals a cut there bit for bit; {rows} rows scanned "
+            "again in the walk")
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError("the unfused prediction at half width differs "
+                             "from the full width's bits")
+    if rescanned == 0:
+        raise AssertionError("the half width scanned no row again")
+    log(f"  k1_pcisph_predict / k1_pcisph_walk: the half width ({width // 2},"
+        f" {rescanned} rows scanned again) has the full width's bits")
+    engine.LAUNCHES.update(saved)     # check launches are not main-path
+    return rescanned
+
+
+def walk_rescans(sim):
+    """One more step of an unfused PCISPH path with the walk wrapped to
+    count, per call, the rows of more hits than the buffer's width, which
+    it scans again: (walks, width, the largest hit count, rows scanned
+    again over the walks).  Host reads; not a timed step."""
+    from wcsph_tpu_torch import engine
+
+    seen = []
+    walk = engine.k1_pcisph_walk
+
+    def counting(grid, xstar, p, hits):
+        seen.append((hits.width, int(hits.count.max()),
+                     int(((hits.count > hits.width) & grid.liquid).sum())))
+        return walk(grid, xstar, p, hits)
+
+    engine.k1_pcisph_walk = counting
+    try:
+        sim.step()
+    finally:
+        engine.k1_pcisph_walk = walk
+    return (len(seen), seen[0][0], max(s[1] for s in seen),
+            sum(s[2] for s in seen))
 
 
 def check_dense(cfg, side, chk):
@@ -1791,10 +1898,13 @@ WORK = {
                       lambda P, M: P["slots"] + 2 * (-(-M // 32) + 1)),
     # K1's emits of the unfused loops: K2's kappa sum, K4's matvec sum,
     # K7's two sweeps and K6's two alone; the PCISPH prediction is K8's
-    # predicted density and acceleration in one sweep (W and gradW 13)
+    # predicted density and acceleration in one sweep (W and gradW 13),
+    # cut and walk alike: the hits, records and counts the cut keeps for
+    # the walk are scratch between the two launches (as K8's), not outputs
     "k1_kappa_acc": (1, 3, lambda P, M: 24 * P["liq"]),
     "k1_visc_acc": (4, 3, lambda P, M: 39 * P["liq"]),
     "k1_pcisph_predict": (4, 4, lambda P, M: 37 * P["star"]),
+    "k1_pcisph_walk": (4, 4, lambda P, M: 37 * P["star"]),
     "k1_iisph_dij": (1, 3, lambda P, M: 24 * P["liq"]),
     "k1_iisph_s": (8, 1, lambda P, M: 48 * P["liq"]),
     "k1_surface_normals": (1, 3, lambda P, M: 23 * P["liq"]),
@@ -1846,8 +1956,8 @@ def bounds(grid, counts, k_fields):
 # K1's entries that only the unfused solver loops run, and the fused
 # kernels they stand in for
 UNFUSED_ENTRIES = ("k1_kappa_acc", "k1_visc_acc", "k1_pcisph_predict",
-                   "k1_iisph_dij", "k1_iisph_s", "k1_surface_normals",
-                   "k1_tension_accel")
+                   "k1_pcisph_walk", "k1_iisph_dij", "k1_iisph_s",
+                   "k1_surface_normals", "k1_tension_accel")
 FUSED_LOOPS = ("k2_fused_kappa_drho", "k3_fused_iter_full",
                "k4_fused_visc_iter", "k6_fused_tension",
                "k7_fused_jacobi_iter", "k8_fused_pcisph_iter")
@@ -1860,13 +1970,13 @@ def unfused_launches(cfg, solver, iters):
     sweep for its warm start, a divergence sweep before its loop and one
     of each an iteration, its pressure solve likewise (a kappa sweep and a
     divergence sweep more for its warm start, when on), the tension one
-    normals and one tension sweep a step; PCISPH two prediction sweeps an
-    iteration; IISPH a dij and an s sweep an iteration; one viscosity
-    matvec an iteration."""
+    normals and one tension sweep a step; PCISPH a prediction cut and a
+    walk of its hits an iteration; IISPH a dij and an s sweep an
+    iteration; one viscosity matvec an iteration."""
     steps = len(iters)
     d, p, v = (sum(i[k] for i in iters) for k in range(3))
     if solver == "pcisph":
-        return {"k1_pcisph_predict": 2 * p}
+        return {"k1_pcisph_predict": p, "k1_pcisph_walk": p}
     if solver == "iisph":
         return {"k1_iisph_dij": p, "k1_iisph_s": p, "k1_visc_acc": v}
     ws_d = int(cfg.divergence_warm_start)
@@ -2306,6 +2416,7 @@ def main():
         raise AssertionError("a kernel entry has no case")
     check_kernels(grid, cases, chk)
     check_k8_hits(grid, inp, chk)
+    check_predict_hits(grid, inp, chk)
     check_surface(grid, chk, f"side {side}")
     check_dense(sim.cfg, side, chk)
     log("[phase 2] every kernel agrees with its plain twin")
@@ -2415,7 +2526,7 @@ def main():
         "dfsph+tension": dfsph_kernels + ("k6_fused_tension",),
         "dfsph-unfused": dfsph_unfused,
         "pcisph-unfused": ("k5_density_alpha", "k5_sesph_force",
-                           "k1_pcisph_predict") + stage,
+                           "k1_pcisph_predict", "k1_pcisph_walk") + stage,
         "iisph-unfused": ("k5_density_alpha", "k5_iisph_adv",
                           "k5_iisph_aii", "k5_iisph_force", "k1_visc_init",
                           "k1_visc_acc", "k1_iisph_dij", "k1_iisph_s")
@@ -2494,6 +2605,15 @@ def main():
             "step_ms": res["step_ms"], "launches": ran,
             "host_syncs_per_step": syncs, "host_sync_step_iters": sync_iters,
             "replays": res["replays"]}
+        if solver == "pcisph" and not fused:
+            walks, width, most, again = walk_rescans(msim)
+            log(f"[phase 4] {path}: one more step's {walks} prediction "
+                f"walks at width {width} (the buffer sized by the first "
+                f"step): the most hits of a row {most}, rows scanned again "
+                f"{again} (expected 0)")
+            path_records[path]["walk_rescans"] = {
+                "walks": walks, "width": width, "most_hits": most,
+                "rows_scanned_again": again}
         if not fused:
             # one host read an iteration in either form: beyond those, the
             # unfused step may read no more than the fused one
@@ -2541,6 +2661,7 @@ def main():
     cases = kernel_cases(mgrid, minp)
     check_kernels(mgrid, cases, chk)
     check_k8_hits(mgrid, minp, chk)
+    check_predict_hits(mgrid, minp, chk)
     log(f"[phase 4] the grid stage, the list and every kernel agree with "
         f"their plain twins at M={mgrid.n}")
     times = time_kernels(mgrid, cases, mcount)

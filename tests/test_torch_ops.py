@@ -383,7 +383,8 @@ def test_fused_tension(squeezed):
 
 def test_starred_pair_list(case):
     """build_pairs with moved positions: the candidates are those of the
-    ORIGINAL cells, the cut is taken at the moved positions."""
+    ORIGINAL cells, the cut is taken at the moved positions; the unfused
+    PCISPH prediction there, its cut and the walk of the cut's hits."""
     rng = np.random.RandomState(11)
     tg = case.tg
     h = case.cfg.support_radius
@@ -421,10 +422,37 @@ def test_starred_pair_list(case):
     adv1, acc1 = _predicted_density_and_accel(
         case.grid, case.cfg, case.grid.xp + case.jpack(move),
         case.jpack(press))
-    adv2, acc2 = engine.pcisph_predict(tg, tg.pos + case.tpack(move),
-                                       case.tpack(press))
+    xs2 = tg.pos + case.tpack(move)
+    adv2, acc2, hits = engine.pcisph_predict(tg, xs2, case.tpack(press))
     w0 = case.cfg.liquid_volume * cubic_w0(h)
     assert float(np.abs(case.jparticles(acc1)).max()) > 0.0
     _close(case.jparticles(adv1),
            case.tparticles(torch.clamp(w0 + adv2, min=1.0)), case.liquid)
     _close(case.jparticles(acc1), case.tparticles(acc2), case.liquid)
+
+    # the unfused loop's second call at the same x*, a second seeded
+    # pressure: the walk over the cut's hits equals a cut there bit for
+    # bit, with a width that holds every row's hits and with 4, where the
+    # rows of more hits are scanned again; both within the tolerance above
+    # of the JAX twin at that pressure
+    from wcsph_tpu_torch.grid import ListSlots
+
+    press2 = (1e3 * rng.rand(case.nl)).astype(np.float32)
+    p2 = case.tpack(press2)
+    want = engine.k1_pcisph_predict(tg, xs2, p2)[0]
+    short = engine.k1_pcisph_predict(tg, xs2, case.tpack(press),
+                                     ListSlots(4 * tg.n))[1]
+    assert hits.width == int(hits.count.max()) and short.width == 4
+    assert torch.equal(short.count, hits.count)
+    assert int((short.count > 4).sum()) > 0
+    adv3, acc3 = _predicted_density_and_accel(
+        case.grid, case.cfg, case.grid.xp + case.jpack(move),
+        case.jpack(press2))
+    for kept in (hits, short):
+        got = engine.k1_pcisph_walk(tg, xs2, p2, kept)
+        assert torch.equal(got, want)
+        _close(case.jparticles(adv3),
+               case.tparticles(torch.clamp(w0 + got[0], min=1.0)),
+               case.liquid)
+        _close(case.jparticles(acc3), case.tparticles(got[1:4]),
+               case.liquid)

@@ -183,8 +183,8 @@ KERNEL_NAMES = [
     "k5_density_alpha", "k5_sesph_force", "k5_iisph_adv", "k5_iisph_aii",
     "k5_iisph_force", "k6_fused_tension", "k7_fused_jacobi_iter",
     "k8_fused_pcisph_iter", "k1_kappa_acc", "k1_visc_acc",
-    "k1_pcisph_predict", "k1_iisph_dij", "k1_iisph_s", "k1_surface_normals",
-    "k1_tension_accel"]
+    "k1_pcisph_predict", "k1_pcisph_walk", "k1_iisph_dij", "k1_iisph_s",
+    "k1_surface_normals", "k1_tension_accel"]
 
 
 def _cuda_entries():
@@ -208,7 +208,9 @@ OWN_KERNEL_NAMES = ["bin_cells", "pack_rows", "unpack_rows",
 
 
 def test_kernel_tables_list_the_same_entries():
-    """KERNELS has the 22 counterparts of TPU kernels and OWN_KERNELS the
+    """KERNELS has the counterparts of the 22 TPU kernel entries, 23
+    wrappers (``_PcisphPredict`` has two: the cut and the walk of its
+    hits), and OWN_KERNELS the
     port's own (the bin, pack, unpack, the neighbour list's offsets and
     fill, the surface's field, anisotropy moments and G, the sampler's
     phase step and the rasterizer's splat); LAUNCHES and _SIGNATURES have
@@ -217,7 +219,8 @@ def test_kernel_tables_list_the_same_entries():
     has a wrapper of its name, a source that defines its entry, a plain
     twin and a ctypes signature with as many parameters as the entry."""
     assert set(engine.KERNELS) == set(KERNEL_NAMES)
-    assert len(KERNEL_NAMES) == 22
+    assert len(KERNEL_NAMES) == 23
+    assert len({engine.KERNELS[n][1] for n in KERNEL_NAMES}) == 22
     assert set(engine.OWN_KERNELS) == set(OWN_KERNEL_NAMES)
     names = set(KERNEL_NAMES) | set(engine.OWN_KERNELS)
     assert names == set(engine.LAUNCHES) == set(engine._SIGNATURES)

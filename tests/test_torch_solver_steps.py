@@ -136,6 +136,11 @@ def test_pressurized_steps_match_jax(solver):
     assert pmax0 > p_floor, pmax0
     for ts in tss:
         ts.check_health()
+    if solver == "pcisph":
+        # both forms keep their iterations' hits in the step's buffer,
+        # sized by the first step: K8's, and the unfused prediction's cut
+        # for its walk
+        assert all(ts.list_slots.capacity for ts in tss)
 
 
 def test_dfsph_tension_steps_match_jax():

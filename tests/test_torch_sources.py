@@ -232,11 +232,13 @@ def test_solver_walkers_never_scan_the_cells():
     the unfused loops' entries of those four sweeps run the listed sweep
     kernel, which walks the step's list, and K8's acceleration sweep walks
     the hits of its first sweep: none scans a candidate cell.  The unfused
-    PCISPH prediction cuts the cells' candidates at x* into register
-    masks.  K5's entries of the steps without a list launch the
-    cut sweep kernel, which cuts the cells' candidates into register masks
-    before it sums (for_each_neighbor_masked) and never runs the single
-    cell loop; no single-loop sweep kernel is left.
+    PCISPH prediction's cut cuts the cells' candidates at x* into register
+    masks and keeps its hits, which its walk sums, scanning again only a
+    row of more hits than their width.  K5's entries of the steps without
+    a list launch the cut sweep kernel, which cuts the cells' candidates
+    into register masks before it sums (for_each_neighbor_masked) and
+    never runs the single cell loop; no single-loop sweep kernel is
+    left.
     Each listed wrapper (those of sweeps.cu's unfused entries too) asks
     ``_geom`` for the list (``listed=True``), so that on the card it raises
     where the grid has none."""
@@ -263,13 +265,19 @@ def test_solver_walkers_never_scan_the_cells():
     assert launched("k1_surface_normals") == [("list_", "SurfaceNormals")]
     assert launched("k1_tension_accel") == [("list_", "TensionAccel")]
     # the unfused PCISPH prediction cuts the cells' candidates at x* into
-    # register masks (no list holds the pairs at x*)
+    # register masks (no list holds the pairs at x*) and keeps its hits;
+    # its walk sums them, and scans the cells again (into register masks)
+    # only for a row of more hits than their width
     assert re.search(r"\bk1_pcisph_predict_kernel<<<",
                      entry("k1_pcisph_predict"))
-    assert re.search(r"\bfor_each_neighbor_masked\s*\(",
+    assert re.search(r"\bk1_pcisph_walk_kernel<<<", entry("k1_pcisph_walk"))
+    for kernel in ("k1_pcisph_predict_kernel", "k1_pcisph_walk_kernel"):
+        assert re.search(r"\bfor_each_neighbor_masked\s*\(", bodies[kernel])
+        assert not re.search(r"\bfor_each_neighbor\s*\(", bodies[kernel])
+    assert re.search(r"\bhits\[k \* M \+ i\] = j;",
                      bodies["k1_pcisph_predict_kernel"])
-    assert not re.search(r"\bfor_each_neighbor\s*\(",
-                         bodies["k1_pcisph_predict_kernel"])
+    walk = bodies["k1_pcisph_walk_kernel"]
+    assert walk.index("n <= width") < walk.index("for_each_neighbor_masked")
     for name, emit in LISTLESS_K5.items():
         assert launched(name) == [("cut_", emit)], name
     launch = re.search(r"static int launch_cut_sweep\(.*?\n}", text,
@@ -306,5 +314,5 @@ def test_solver_walkers_never_scan_the_cells():
 
     for name in LISTED_SOLVER_WRAPPERS + LISTED_WRAPPERS:
         assert asks_for_the_list(name), name
-    for name in [*LISTLESS_K5, "k1_pcisph_predict"]:
+    for name in [*LISTLESS_K5, "k1_pcisph_predict", "k1_pcisph_walk"]:
         assert not asks_for_the_list(name), name

@@ -7,7 +7,8 @@ card.
 (``git archive <commit> | tar -x -C out/old``).  Its package is imported
 beside this one under another name, so that its own wrappers of
 ``AB_KERNELS`` build and launch its own ``csrc/`` (into its own
-``_build/``); ``OLD_ARGS`` turns a call of this tree's wrapper into the
+``_build/``); ``OLD_NAMES`` names the old wrapper where this tree split
+one, and ``OLD_ARGS`` turns a call of this tree's wrapper into the
 arguments of the old one where the signature changed.  Run from the
 repository root.  In one process on one card:
 
@@ -19,11 +20,14 @@ repository root.  In one process on one card:
    recorded call (the first of each wrapper) is replayed through the old
    tree's wrapper and this tree's, timed in turns (old, new, new, old) with
    CUDA events, beside ``LIBRARY``'s PyTorch call of the same function
-   where there is one, and compared bit for
-   bit; each side's device time and device kernels a call (torch.profiler),
-   and where its host time goes (``host_profile``); ``step_calls`` sums
-   each side's times over the calls that the recorded step made.  Where the
-   step built a list, its fill is timed alone and as its whole wrapper;
+   where there is one, and compared bit for bit (their tensors: a list's
+   slots, offsets, records, need and flag; not a cut's hits, which the old
+   tree did not keep), each side with a slot buffer of its own; each
+   side's device time and device kernels a call (torch.profiler), and
+   where its host time goes (``host_profile``); ``step_calls`` sums each
+   side's times over the calls that the recorded step made.  Where the
+   step built a list, each tree's fill kernel is also timed alone, in
+   turns;
 2. steps: the paths of ``bench.flagship_paths``, 3 warm-up and 10
    timed steps each, in child processes of the old tree and of this one, in
    turns (old, new, new, old), with each step's (divergence, pressure,
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import importlib
 import importlib.util
 import inspect
@@ -58,15 +63,23 @@ import numpy as np
 import torch
 
 from . import bench, engine
+from .grid import ListSlots, PredictHits
 
-# the wrappers a change redesigned (none: the communicator layer changed
-# the solvers around the kernels, not a kernel; the steps below compare)
-AB_KERNELS = ()
+# the wrappers a change redesigned: the unfused PCISPH prediction, split
+# into a cut and a walk of its hits, and the list's fill, cut into
+# register masks
+AB_KERNELS = ("k1_pcisph_predict", "k1_pcisph_walk", "nbr_list_fill")
 # the paths of bench.flagship_paths whose steps call them
-AB_SOLVERS = ()
+AB_SOLVERS = ("dfsph", "pcisph-unfused")
+# The older wrapper of a wrapper that this tree split off: the walk is the
+# old prediction sweep's second call of an iteration.
+OLD_NAMES = {"k1_pcisph_walk": "k1_pcisph_predict"}
 # The older wrappers' arguments, from this tree's, where a signature
-# changed.
-OLD_ARGS = {}
+# changed: the old prediction took no buffer and no hits.
+OLD_ARGS = {
+    "k1_pcisph_predict": lambda grid, xstar, p, slots: (grid, xstar, p),
+    "k1_pcisph_walk": lambda grid, xstar, p, hits: (grid, xstar, p),
+}
 # name -> (arguments of a recorded call -> the one PyTorch call that
 # computes the same function's core, as chip_smoke.py times it); none
 # computes a sweep over a cell list
@@ -155,6 +168,23 @@ def _fresh(args):
                  for a in args)
 
 
+def _recorded(args):
+    """``_fresh``, and a cut's hits copied too: the step's next cut
+    overwrites its buffer."""
+    return tuple(dataclasses.replace(a, idx=a.idx.clone(),
+                                     count=a.count.clone(),
+                                     rec=a.rec.clone())
+                 if isinstance(a, PredictHits) else a for a in _fresh(args))
+
+
+def _own(args):
+    """The arguments with a slot buffer of their own in place of a
+    ``ListSlots``, of the same capacity: the old and the new side of a
+    fill or a cut must not write one buffer."""
+    return tuple(ListSlots(a.capacity) if isinstance(a, ListSlots) else a
+                 for a in args)
+
+
 def record_step(sim):
     """Run one step with the wrappers of ``AB_KERNELS`` and the fill
     recording what the solver passes them: ({wrapper name: arguments of its
@@ -164,7 +194,7 @@ def record_step(sim):
 
     def recording(name):
         def call(*args):
-            first.setdefault(name, _fresh(args))
+            first.setdefault(name, _recorded(args))
             count[name] = count.get(name, 0) + 1
             return wrappers[name](*args)
         return call
@@ -180,8 +210,16 @@ def record_step(sim):
 
 
 def _tensors(ret):
-    """The tensors a wrapper returned (one, or a tuple or list of them)."""
-    return list(ret) if isinstance(ret, (tuple, list)) else [ret]
+    """The tensors a wrapper returned (one, or a tuple or list of them; a
+    neighbour list's slots in use, offsets, records, need and flag, of
+    either tree's ``NeighborList``); other values (a cut's hits) are left
+    out."""
+    if all(hasattr(ret, f) for f in ("idx", "off", "rec", "need", "flag")):
+        return [ret.idx[: int(ret.off[-1])], ret.off, ret.rec, ret.need,
+                ret.flag]
+    if isinstance(ret, (tuple, list)):
+        return [t for r in ret for t in _tensors(r)]
+    return [ret] if isinstance(ret, torch.Tensor) else []
 
 
 def host_profile(fn, make_args, eng, reps: int = REPS) -> dict:
@@ -243,16 +281,19 @@ def kernels_ab(first, count, old) -> dict:
     """Old and new wrapper on every recorded call, in turns, beside the
     library call, the bits compared; each side's device time, device
     kernels a call and host profile; ``step_calls`` sums each side's times
-    over the step's calls; then, where the step built its list, the fill,
-    alone and as its whole wrapper."""
+    over the step's calls; then, where the step built its list, each
+    tree's fill kernel alone, in turns."""
     out = {}
     for name in AB_KERNELS:
         if name not in first:
             continue
-        args = first[name]
         adapt = OLD_ARGS.get(name, lambda *a: a)
-        sides = {"old": (getattr(old, name), lambda: adapt(*_fresh(args))),
-                 "new": (getattr(engine, name), lambda: _fresh(args))}
+        mine = {s: _own(first[name]) for s in ("old", "new")}
+        sides = {"old": (getattr(old, OLD_NAMES.get(name, name)),
+                         lambda: adapt(*_fresh(mine["old"]))),
+                 "new": (getattr(engine, name),
+                         lambda: _fresh(mine["new"]))}
+        args = mine["new"]
         res = {s: _tensors(fn(*make())) for s, (fn, make) in sides.items()}
         torch.cuda.synchronize()
         library = LIBRARY[name](*args) if name in LIBRARY else None
@@ -283,19 +324,24 @@ def kernels_ab(first, count, old) -> dict:
     if "nbr_list_fill" not in first:
         return out
     grid, cnt, slots = first["nbr_list_fill"]
-    nl = engine.nbr_list_fill(grid, cnt, slots)
-    geom = engine._geom(grid)
+    alone = {}
+    for side, eng in (("old", old), ("new", engine)):
+        nl = eng.nbr_list_fill(grid, cnt, ListSlots(slots.capacity))
+        geom = eng._geom(grid)
 
-    def fill():
-        engine._launch("nbr_list_fill", ctypes.byref(geom), nl.off.data_ptr(),
-                       nl.idx.data_ptr(), nl.rec.data_ptr(),
-                       nl.flag.data_ptr(), engine._stream())
+        def fill(eng=eng, geom=geom, nl=nl):
+            eng._launch("nbr_list_fill", ctypes.byref(geom),
+                        nl.off.data_ptr(), nl.idx.data_ptr(),
+                        nl.rec.data_ptr(), nl.flag.data_ptr(), eng._stream())
 
-    out["nbr_list_fill"] = {
-        "kernel_ms": bench.time_call(fill, tuple, REPS),
-        "wrapper_ms": bench.time_call(engine.nbr_list_fill,
-                                      lambda: (grid, cnt, slots), REPS),
-        "slots": int(nl.need), "capacity": slots.capacity}
+        alone[side] = fill
+    times = {"old": [], "new": []}
+    for side in ("old", "new", "new", "old"):
+        times[side].append(bench.time_call(alone[side], tuple, REPS))
+    out["nbr_list_fill_alone"] = {
+        **{f"{s}_ms": sum(v) / len(v) for s, v in times.items()},
+        "turns_ms": times, "slots": int(nl.need),
+        "capacity": slots.capacity}
     return out
 
 
@@ -333,15 +379,26 @@ def main(argv=None):
             if int(grid.cell_start[-1]) != state.n_total:
                 raise AssertionError(f"{scene}: a particle left the domain")
             fill = first.get("nbr_list_fill")
-            # the list's pairs, or the step's last K8 hits, or neither
+            walk = first.get("k1_pcisph_walk")
+            hits = walk[3] if walk else None
+            # the list's pairs, or the first iteration's pairs at x*, or
+            # the step's last K8 hits, or none
             pairs = (int(fill[1][grid.liquid].sum()) if fill
+                     else int(hits.count.sum()) if hits
                      else int(grid.star.count.sum()) if grid.star is not None
                      else None)
             res = kernels_ab(first, count, old)
-            print(json.dumps({"solver": path, "scene": scene,
-                              "rows": grid.n, "pairs": pairs, "card": card,
-                              "kernels": res}), flush=True)
-            del first, grid, fill
+            print(json.dumps({
+                "solver": path, "scene": scene, "rows": grid.n,
+                "pairs": pairs, "card": card, "kernels": res,
+                # the first iteration's walk: its width, the most hits of
+                # a row, the rows it scans again
+                "walk": None if hits is None else {
+                    "width": hits.width, "most_hits": int(hits.count.max()),
+                    "rows_scanned_again": int(
+                        ((hits.count > hits.width) & grid.liquid).sum())}}),
+                flush=True)
+            del first, grid, fill, walk, hits
         del sim, state
         torch.cuda.empty_cache()
 

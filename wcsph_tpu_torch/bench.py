@@ -75,7 +75,8 @@ UNFUSED_STAGES = {
         **_UNFUSED_VISC,
         "pressure_iterations": "cuda:k1_kappa_acc,k1_div_acc"},
     "sesph": {},
-    "pcisph": {"prediction_iterations": "cuda:k1_pcisph_predict"},
+    "pcisph": {"prediction_iterations": "cuda:k1_pcisph_predict,"
+                                        "k1_pcisph_walk"},
     "iisph": {**_UNFUSED_VISC,
               "jacobi_iterations": "cuda:k1_iisph_dij,k1_iisph_s"},
 }

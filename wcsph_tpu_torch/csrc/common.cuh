@@ -13,8 +13,9 @@
 //     shared memory, and then sums the pair terms over its own hits only,
 //     in the same order; PCISPH's cut takes the positions of its 16-byte
 //     records at the moved positions x*, the candidates staying those of
-//     the cells; K5's sweeps of the steps without a list, and the unfused
-//     PCISPH prediction sweep at x*, cut in registers instead
+//     the cells; the list's fill, K5's sweeps of the steps without a
+//     list, and the unfused PCISPH prediction's cut at x* (and its walk's
+//     rows of more hits than it kept) cut in registers instead
 //     (for_each_neighbor_masked: a bit mask per 32 candidates);
 //   * or, where the step has built its neighbour list (Geom.nl_idx, see
 //     for_each_listed), walks that list: the same pairs in the same order,
@@ -98,50 +99,17 @@ __device__ __forceinline__ float volume(const Geom& g, int j) {
 }
 
 // Calls f(j, rx, ry, rz, d2) for every neighbour j of row i with
-// d2 <= h^2, j != i, in a fixed order (dx, dy, then rows ascending).
-template <class F>
-__device__ __forceinline__ void for_each_neighbor(const Geom& g, int i,
-                                                  F& f) {
-  const int M = g.M;
-  const float xi = g.pos[i], yi = g.pos[M + i], zi = g.pos[2 * M + i];
-  const int c = g.cell[i];
-  const int cz = c % g.gz;
-  const int cy = (c / g.gz) % g.gy;
-  const int cx = c / (g.gz * g.gy);
-  const int z0 = max(cz - 1, 0);
-  const int z1 = min(cz + 1, g.gz - 1);
-  for (int dx = -1; dx <= 1; ++dx) {
-    const int nx = cx + dx;
-    if (nx < 0 || nx >= g.gx) continue;
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int ny = cy + dy;
-      if (ny < 0 || ny >= g.gy) continue;
-      const int base = (nx * g.gy + ny) * g.gz;
-      const int jb = g.start[base + z0];
-      const int je = g.start[base + z1 + 1];
-      for (int j = jb; j < je; ++j) {
-        if (j == i) continue;
-        const float rx = xi - g.pos[j];
-        const float ry = yi - g.pos[M + j];
-        const float rz = zi - g.pos[2 * M + j];
-        const float d2 = rx * rx + ry * ry + rz * rz;
-        if (d2 <= g.h2) f(j, rx, ry, rz, d2);
-      }
-    }
-  }
-}
-
-// The same calls as for_each_neighbor, in the same order and with the same
-// pair arithmetic, with the cut and the body apart but no shared memory:
-// each (dx, dy) column's candidates are cut 32 at a time into a bit mask
-// in a register, and f then runs over that chunk's set bits, lowest first,
-// recomputing the geometry from the same loads (same bits).  The warp runs
+// d2 <= h^2, j != i, in the cell loop's order (dx, dy, then rows
+// ascending), with the cut and the body apart but no shared memory: each
+// (dx, dy) column's candidates are cut 32 at a time into a bit mask in a
+// register, and f then runs over that chunk's set bits, lowest first,
+// recomputing the geometry from the same loads (same bits).  A warp runs
 // the body as often as its busiest lane has hits in the chunk, not at every
-// candidate where any lane has one, and the L1 cache keeps its full size
-// for the candidates' positions.  The candidates are those of the cells
-// (Geom.cell, Geom.start); the positions of the cut and of the pair
-// geometry are the planar (3, M) `pos`: Geom.pos itself, or moved
-// positions (PCISPH's x*).
+// candidate where any lane has one (a single loop's cost), and the L1 cache
+// keeps its full size for the candidates' positions.  The candidates are
+// those of the cells (Geom.cell, Geom.start); the positions of the cut and
+// of the pair geometry are the planar (3, M) `pos`: Geom.pos itself, or
+// moved positions (PCISPH's x*).
 template <class F>
 __device__ __forceinline__ void for_each_neighbor_masked(const Geom& g, int i,
                                                          const float* pos,
@@ -204,15 +172,16 @@ struct RecordPos {
   }
 };
 
-// The same calls as for_each_neighbor, in the same order and with the same
-// pair arithmetic, but the cut and the pair body run apart.  In the single
-// loop a warp's 32 receivers (about 4 cells) scan different windows of ~216
-// candidates each, and the body runs whenever ANY lane has a hit there, so
-// every lane pays the body on most candidates though it keeps ~12% of
-// them.  Here the thread first cuts (d2 <= h^2, j != i) and appends each
-// row it keeps to its own slots of a shared buffer, `slot` (slot k at
-// slot[k * kBlock]: each lane in its own bank); then it runs f over its own
-// hits, recomputing the geometry from the same loads (same bits).  Lanes
+// The same calls as for_each_neighbor_masked, in the same order and with
+// the same pair arithmetic, the cut and the pair body apart through shared
+// memory.  In a single loop (cut and body together) a warp's 32 receivers
+// (about 4 cells) scan different windows of ~216 candidates each, and the
+// body runs whenever ANY lane has a hit there, so every lane pays the body
+// on most candidates though it keeps ~12% of them.  Here the thread first
+// cuts (d2 <= h^2, j != i) and appends each row it keeps to its own slots
+// of a shared buffer, `slot` (slot k at slot[k * kBlock]: each lane in its
+// own bank); then it runs f over its own hits, recomputing the geometry
+// from the same loads (same bits).  Lanes
 // then diverge only on their hit counts (~27), not on the union of the
 // warp's hits.  A receiver with more than kCutSlots hits sums the full
 // buffer when the next hit comes and carries on cutting: no hit is
@@ -270,8 +239,8 @@ __device__ __forceinline__ void for_each_neighbor_cut(const Geom& g, int i,
 
 // Calls f(j, rx, ry, rz, d2, rj) for every listed neighbour j of row i,
 // rj its record (x, y, z, liquid flag) as loaded, in the list's order,
-// which is the order of for_each_neighbor (the fill, nbr_list_fill in
-// sweeps.cu, writes what that loop finds): the pair geometry is the same
+// which is the cell loop's (the fill, nbr_list_fill in sweeps.cu, writes
+// what for_each_neighbor_masked finds): the pair geometry is the same
 // arithmetic on the same pairs, so a sum over the list has the bits of the
 // same sum over the cells.  Thread t of a warp reads slot 32 k + t of its
 // slice, so each k is one coalesced line; the neighbour's position and

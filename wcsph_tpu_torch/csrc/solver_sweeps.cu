@@ -30,7 +30,10 @@
 //     from iteration to iteration, so it cannot walk the step's list; but
 //     its two sweeps of one iteration share the same x*, so the first cuts
 //     the candidates once (for_each_neighbor_cut on 16-byte records of x*)
-//     and writes its hits to a buffer, which the second walks;
+//     and writes its hits to a buffer, which the second walks; so do the
+//     unfused loop's two prediction calls of one iteration, the cut
+//     (k1_pcisph_predict) into register masks, the walk (k1_pcisph_walk)
+//     over its kept hits;
 //   * K5's density and SESPH-force emits run on steps that build no list
 //     (SESPH, PCISPH; IISPH's density sweep builds it), so they scan the
 //     cells, but cut each column's candidates, 32 at a time, into a bit
@@ -650,40 +653,109 @@ __global__ void k8_acc_kernel(Geom g, const float4* __restrict__ xs,
 //   * _SurfaceNormals (2498), _TensionAccel (2519): K6's two list sweeps,
 //     the normals unscaled (the caller scales by h);
 //   * _PcisphPredict (2270): predicted density and pressure acceleration
-//     at the moved positions x* (3, M) in one sweep.  No list holds the
-//     pairs at x*, and the unfused loop calls it twice an iteration with
-//     other pressures, so it scans the cells of the grid binned at x and
-//     cuts at x* (for_each_neighbor_masked on the planar x*): K8's pair
-//     set, in the cell loop's order, at liquid receivers.  The
-//     out-of-domain rows lie in no cell's range and no cell lies in their
-//     window, so they take no pair.  Bound: the candidate loop, as K5's cut
-//     sweeps; no hit buffer, nothing kept between calls.
+//     at the moved positions x* (3, M), two entries.  No list holds the
+//     pairs at x*, and the unfused loop calls it twice an iteration at the
+//     same x* with another pressure (first the old, then the updated one),
+//     so the first call, the cut (k1_pcisph_predict_kernel), scans the
+//     cells of the grid binned at x and cuts at x* (for_each_neighbor_masked
+//     on the planar x*: K8's pair set, in the cell loop's order, at liquid
+//     receivers), sums both outputs, and keeps what the second needs: each
+//     row's record rec[i] = (x*, liquid flag), its hits in scan order at
+//     hits[k M + i] for k < width (K8's layout, grid.StarHits) and its full
+//     hit count; the second, the walk (k1_pcisph_walk_kernel), sums the
+//     same outputs over the kept hits, one 16-byte record and one pressure
+//     load a hit, as k8_acc_kernel.  A row with more hits than width scans
+//     its cells again at x* inside the walk, in the same order: the same
+//     bits, and no flag, overflow or replay.  Both run predict_pair on the
+//     same pair geometry, so the walk's bits are those of a cut at the same
+//     x* and pressure.  The out-of-domain rows lie in no cell's range and
+//     no cell lies in their window, so they take no pair.  Bound: the cut,
+//     the candidate loop, as K5's cut sweeps; the walk, its gathers.
 // ---------------------------------------------------------------------------
+
+// One pair's terms of _PcisphPredict into (adv, acc): V_j W and -c gs r,
+// c = V0 (p_i + p_j) for a liquid neighbour (lj 1), Vs p_i for a boundary
+// one (lj 0).
+__device__ __forceinline__ void predict_pair(const Geom& g, float pi,
+                                             float lj, float pj, float rx,
+                                             float ry, float rz, float d2,
+                                             float& adv, float* acc) {
+  adv += volume_of(g, lj) * kernel_w(g, d2);
+  const float c = lj * g.vl * (pi + pj) + (1.0f - lj) * g.vs * pi;
+  const float fg = c * kernel_gs(g, d2);
+  acc[0] -= fg * rx;
+  acc[1] -= fg * ry;
+  acc[2] -= fg * rz;
+}
+
+__device__ __forceinline__ void store_predict(int M, int i, float adv,
+                                              const float* acc, float* out) {
+  out[i] = adv;
+  out[M + i] = acc[0];
+  out[2 * M + i] = acc[1];
+  out[3 * M + i] = acc[2];
+}
 
 __global__ void k1_pcisph_predict_kernel(Geom g, const float* __restrict__ xs,
                                          const float* __restrict__ p,
+                                         int width, int* __restrict__ hits,
+                                         int* __restrict__ nhit,
+                                         float4* __restrict__ rec,
                                          float* __restrict__ out) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= g.M) return;
   const int M = g.M;
-  float adv = 0.0f, ax = 0.0f, ay = 0.0f, az = 0.0f;
-  if (g.liq[i] != 0.0f) {
+  const float li = g.liq[i];
+  rec[i] = make_float4(xs[i], xs[M + i], xs[2 * M + i], li);
+  float adv = 0.0f, acc[3] = {0.0f, 0.0f, 0.0f};
+  int k = 0;
+  if (li != 0.0f) {
     const float pi = p[i];
     auto f = [&](int j, float rx, float ry, float rz, float d2) {
-      const float lj = g.liq[j];
-      adv += volume_of(g, lj) * kernel_w(g, d2);
-      const float c = lj * g.vl * (pi + p[j]) + (1.0f - lj) * g.vs * pi;
-      const float fg = c * kernel_gs(g, d2);
-      ax -= fg * rx;
-      ay -= fg * ry;
-      az -= fg * rz;
+      predict_pair(g, pi, g.liq[j], p[j], rx, ry, rz, d2, adv, acc);
+      if (k < width) hits[k * M + i] = j;
+      ++k;
     };
     for_each_neighbor_masked(g, i, xs, f);
   }
-  out[i] = adv;
-  out[M + i] = ax;
-  out[2 * M + i] = ay;
-  out[3 * M + i] = az;
+  nhit[i] = k;
+  store_predict(M, i, adv, acc, out);
+}
+
+__global__ void k1_pcisph_walk_kernel(Geom g, const float* __restrict__ xs,
+                                      const float* __restrict__ p, int width,
+                                      const int* __restrict__ hits,
+                                      const int* __restrict__ nhit,
+                                      const float4* __restrict__ rec,
+                                      float* __restrict__ out) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= g.M) return;
+  const int M = g.M;
+  float adv = 0.0f, acc[3] = {0.0f, 0.0f, 0.0f};
+  const int n = nhit[i];     // 0 at boundary rows
+  if (n > 0) {
+    const float pi = p[i];
+    if (n <= width) {
+      const float4 ri = __ldg(rec + i);
+      const int* slot = hits + i;
+#pragma unroll 4
+      for (int k = 0; k < n; ++k) {
+        const int j = __ldg(slot + k * M);
+        const float4 rj = __ldg(rec + j);
+        const float rx = ri.x - rj.x;
+        const float ry = ri.y - rj.y;
+        const float rz = ri.z - rj.z;
+        predict_pair(g, pi, rj.w, p[j], rx, ry, rz,
+                     rx * rx + ry * ry + rz * rz, adv, acc);
+      }
+    } else {     // the cut kept only width of its hits: scan again
+      auto f = [&](int j, float rx, float ry, float rz, float d2) {
+        predict_pair(g, pi, g.liq[j], p[j], rx, ry, rz, d2, adv, acc);
+      };
+      for_each_neighbor_masked(g, i, xs, f);
+    }
+  }
+  store_predict(M, i, adv, acc, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -802,8 +874,21 @@ extern "C" int k1_tension_accel(const Geom* g, const float* rho,
 }
 
 extern "C" int k1_pcisph_predict(const Geom* g, const float* xs,
-                                 const float* p, float* out, void* stream) {
+                                 const float* p, int width, int* hits,
+                                 int* nhit, float* rec, float* out,
+                                 void* stream) {
   k1_pcisph_predict_kernel<<<blocks_of(g->M), kBlock, 0,
-                             (cudaStream_t)stream>>>(*g, xs, p, out);
+                             (cudaStream_t)stream>>>(
+      *g, xs, p, width, hits, nhit, reinterpret_cast<float4*>(rec), out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int k1_pcisph_walk(const Geom* g, const float* xs, const float* p,
+                              int width, const int* hits, const int* nhit,
+                              const float* rec, float* out, void* stream) {
+  k1_pcisph_walk_kernel<<<blocks_of(g->M), kBlock, 0,
+                          (cudaStream_t)stream>>>(
+      *g, xs, p, width, hits, nhit, reinterpret_cast<const float4*>(rec),
+      out);
   return static_cast<int>(cudaGetLastError());
 }

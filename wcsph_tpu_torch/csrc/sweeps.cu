@@ -17,22 +17,23 @@
 //
 // What bounds a cell-loop sweep on the H100: not DRAM (each row's fields
 // are read from device memory about once per sweep, tens of MB at 1M rows)
-// but the candidate loop itself (for_each_neighbor), ~216 candidates per
-// receiver of which ~12% lie within h, each costing its loads and its cut,
-// and a pair body that the whole warp runs wherever any of its lanes has a
-// hit.  K1's density sweep, which runs before the step's list exists,
+// but the candidate loop itself, ~216 candidates per receiver of which
+// ~12% lie within h, each costing its loads and its cut, and, in a single
+// loop, a pair body that the whole warp runs wherever any of its lanes has
+// a hit.  K1's density sweep, which runs before the step's list exists,
 // splits the two: for_each_neighbor_cut cuts first into a per-thread
 // buffer of shared memory, then sums over its own hits.
 //
 // Positions do not move between the sort and the position update.  So the
 // DFSPH and IISPH steps build a neighbour list once, right after their
-// density sweep (nbr_list_fill: one cell-loop pass that writes what the
-// loop finds, in its order, and each row's 16-byte record of position and
-// liquid flag), and every sweep that runs after it walks the list
-// (for_each_listed): K2, K3, the _DivAcc entry (which shares K2's
-// divergence launch), the _ViscInit, _Vorticity, _KappaAcc and _ViscAcc
-// entries and K4's matvec.  ~30 listed pairs per receiver, no cut, each
-// slot a coalesced read and each neighbour's geometry one 16-byte load.
+// density sweep (nbr_list_fill: one cell scan, cut into register masks,
+// that writes what it finds, in the cell loop's order, and each row's
+// 16-byte record of position and liquid flag), and every sweep that runs
+// after it walks the list (for_each_listed): K2, K3, the _DivAcc entry
+// (which shares K2's divergence launch), the _ViscInit, _Vorticity,
+// _KappaAcc and _ViscAcc entries and K4's matvec.  ~30 listed pairs per
+// receiver, no cut, each slot a coalesced read and each neighbour's
+// geometry one 16-byte load.
 // What bounds a walk then is its gathers: per listed neighbour the record
 // and the sweep's own fields of that row (vorticity: vel, om and rinv, 7
 // words; visc-init, K4 and the _ViscAcc entry: x or d and rinv, 4; the
@@ -382,10 +383,14 @@ __global__ void k3_div_kernel(Geom g, const float* __restrict__ vel,
 // The step's neighbour list (no TPU counterpart: the TPU engine cuts the
 // candidates again in every sweep, since it has no cheap gather).  One
 // thread per row writes its record rec[i] = (x, y, z, liquid flag)
-// (Geom.nl_rec), runs the cell loop once and writes each neighbour it
-// finds, in the loop's order (ascending j), into its slots of the sliced
-// ELL layout (common.cuh, Geom.nl_idx); the rest of its slots, and every
-// slot of a boundary row, take the padding sentinel -1.  The slice widths
+// (Geom.nl_rec), cuts its cells' candidates once and writes each neighbour
+// it finds, in the cell loop's order (ascending j), into its slots of the
+// sliced ELL layout (common.cuh, Geom.nl_idx); the rest of its slots, and
+// every slot of a boundary row, take the padding sentinel -1.  The cut is
+// the register-mask one (for_each_neighbor_masked: the single loop's calls
+// in its order, so the same list slot for slot): the warp runs the store
+// as often as its busiest lane has hits in a 32-candidate chunk, not at
+// every candidate where any lane has one.  The slice widths
 // come from the density sweep's count of the same pairs under the same
 // cut, so a liquid row's neighbours fill exactly its first count slots.  A
 // row that finds more neighbours than its slice has slots (a count below
@@ -413,7 +418,7 @@ __global__ void nbr_list_fill_kernel(Geom g, const int* __restrict__ off,
       if (k < n) slot[32 * k] = j;
       ++k;
     };
-    for_each_neighbor(g, i, f);
+    for_each_neighbor_masked(g, i, g.pos, f);
   }
   if (k > n) *overflow = 1;
   for (; k < n; ++k) slot[32 * k] = -1;

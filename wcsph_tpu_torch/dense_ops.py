@@ -25,8 +25,8 @@ import torch
 
 from . import kernels
 from .config import SimConfig
-from .grid import (SLICE, Grid, ListSlots, NeighborList, StarHits,
-                   outside_cell)
+from .grid import (SLICE, Grid, ListSlots, NeighborList, PredictHits,
+                   StarHits, outside_cell)
 
 
 @dataclasses.dataclass
@@ -673,24 +673,7 @@ def fused_pcisph_iter(grid: Grid, vel_star: torch.Tensor, pr: torch.Tensor,
     xs = torch.where(grid.liquid[None], grid.pos + vel_star * float(dt),
                      grid.pos)
     p = _star_pairs(grid, xs)
-    # each pair's rank among its receiver's pairs
-    n_i = torch.bincount(p.i, minlength=m)
-    by_i = torch.argsort(p.i, stable=True)
-    rank = torch.empty_like(by_i)
-    rank[by_i] = (torch.arange(by_i.shape[0], device=by_i.device)
-                  - (torch.cumsum(n_i, 0) - n_i)[p.i[by_i]])
-    if slots is None:
-        width = int(n_i.max())
-        capacity = width * m
-    elif slots.capacity is None:
-        raise ValueError("K8 keeps its hits in a sized buffer: pass a "
-                         "grid.ListSlots with a capacity")
-    else:
-        capacity = slots.capacity
-        width = capacity // m
-    keep = rank < width
-    idx = torch.full((capacity,), -1, dtype=torch.int32, device=grid.device)
-    idx[rank[keep] * m + p.i[keep]] = p.j[keep].to(torch.int32)
+    n_i, width, keep, idx = _hit_buffer(grid, p, slots)
     grid.star = StarHits(
         idx=idx, count=torch.clamp(n_i, max=width).to(torch.int32),
         rec=torch.cat([xs.T, liq[:, None]], dim=1).contiguous(), width=width,
@@ -715,6 +698,34 @@ def _star_pairs(grid: Grid, xs: torch.Tensor) -> Pairs:
                     for f in dataclasses.fields(p)})
 
 
+def _hit_buffer(grid: Grid, p: Pairs, slots: ListSlots | None):
+    """(hits of each row (M,) int64, width, kept (P,) bool, idx): the pairs
+    ``p``, each receiver's in the cell loop's order, as a hit buffer of a
+    uniform width (K8's layout): pair k of row i at ``idx[k M + i]`` for
+    k < width = ``slots.capacity // M`` (the widest row's hits where
+    ``slots`` is None), -1 elsewhere."""
+    m = grid.n
+    # each pair's rank among its receiver's pairs
+    n_i = torch.bincount(p.i, minlength=m)
+    by_i = torch.argsort(p.i, stable=True)
+    rank = torch.empty_like(by_i)
+    rank[by_i] = (torch.arange(by_i.shape[0], device=by_i.device)
+                  - (torch.cumsum(n_i, 0) - n_i)[p.i[by_i]])
+    if slots is None:
+        width = int(n_i.max()) if m else 0
+        capacity = width * m
+    elif slots.capacity is None:
+        raise ValueError("the hits are kept in a sized buffer: pass a "
+                         "grid.ListSlots with a capacity")
+    else:
+        capacity = slots.capacity
+        width = capacity // m
+    keep = rank < width
+    idx = torch.full((capacity,), -1, dtype=torch.int32, device=grid.device)
+    idx[rank[keep] * m + p.i[keep]] = p.j[keep].to(torch.int32)
+    return n_i, width, keep, idx
+
+
 def _pressure_terms(grid: Grid, p: Pairs, pr: torch.Tensor) -> torch.Tensor:
     """(3, P) c gs r per pair with c = V0 (p_i + p_j) for a liquid
     neighbour and Vs p_i for a boundary one."""
@@ -725,15 +736,56 @@ def _pressure_terms(grid: Grid, p: Pairs, pr: torch.Tensor) -> torch.Tensor:
     return c * p.gs * p.r
 
 
-def pcisph_predict(grid: Grid, xs: torch.Tensor,
-                   pr: torch.Tensor) -> torch.Tensor:
-    """(4, M) at liquid receivers, at the moved positions ``xs`` with the
-    pressure ``pr`` (``_PcisphPredict`` 2270): [sum V_j W, -sum c gs r]
-    (see ``_pressure_terms``), over the pairs of ``_star_pairs``.  A
-    receiver moved out of its cell's window still sees only that window."""
-    p = _star_pairs(grid, xs)
+def _predict_sums(grid: Grid, p: Pairs, pr: torch.Tensor) -> torch.Tensor:
+    """(4, M) [sum V_j W, -sum c gs r] over the pairs ``p``."""
     return torch.cat([_sum(p, grid.n, p.vol_j * p.w)[None],
                       -_sum(p, grid.n, _pressure_terms(grid, p, pr))])
+
+
+def pcisph_predict(grid: Grid, xs: torch.Tensor, pr: torch.Tensor,
+                   slots: ListSlots | None = None):
+    """The cut of the unfused PCISPH prediction (``_PcisphPredict`` 2270):
+    ((4, M) at liquid receivers, at the moved positions ``xs`` with the
+    pressure ``pr``: [sum V_j W, -sum c gs r] (see ``_pressure_terms``),
+    over the pairs of ``_star_pairs``; its hits, ``grid.PredictHits``).  A
+    receiver moved out of its cell's window still sees only that window.
+    The hits keep each liquid row's pairs in the cell loop's order, at most
+    ``slots.capacity // M`` of them (every one where ``slots`` is None),
+    and each row's full count."""
+    p = _star_pairs(grid, xs)
+    n_i, width, _, idx = _hit_buffer(grid, p, slots)
+    hits = PredictHits(
+        idx=idx, count=n_i.to(torch.int32),
+        rec=torch.cat([xs.T, grid.liq[:, None]], dim=1).contiguous(),
+        width=width)
+    return _predict_sums(grid, p, pr), hits
+
+
+def pcisph_walk(grid: Grid, xs: torch.Tensor, pr: torch.Tensor,
+                hits: PredictHits) -> torch.Tensor:
+    """The walk of the unfused PCISPH prediction: ``pcisph_predict``'s
+    (4, M) at the same moved positions ``xs`` with the pressure ``pr``,
+    over the hits of its cut at ``xs``: a row of at most ``hits.width``
+    hits sums its kept hits (slot k ascending), a row of more its pairs at
+    ``xs`` again, each in the cut's order (so the cut's bits)."""
+    m = grid.n
+    rows = torch.arange(m, device=grid.device)
+    count = hits.count.to(torch.int64)
+    walked = count <= hits.width
+    ii, jj = [], []
+    for k in range(min(hits.width, int(count.max()) if m else 0)):
+        live = rows[walked & (k < count)]
+        ii.append(live)
+        jj.append(hits.idx[k * m + live].to(torch.int64))
+    if bool((~walked).any()):
+        p = _star_pairs(grid, xs)
+        again = ~walked[p.i]
+        ii.append(p.i[again])
+        jj.append(p.j[again])
+    empty = torch.zeros(0, dtype=torch.int64, device=grid.device)
+    p = _pairs_at(grid, torch.cat(ii) if ii else empty,
+                  torch.cat(jj) if jj else empty, xs)
+    return _predict_sums(grid, p, pr)
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,9 @@ K1     ``k1_density_alpha_drho``,  pair sweep, one launch per call; the
        ``k1_visc_init``,           loops (``fused_solver_iters=False``,
        ``k1_vorticity``,           ``use_fused_iters``), each one emit of
        ``k1_kappa_acc``,           K2-K4 or K6-K8 alone on the JAX
-       ``k1_visc_acc``,            method's operands
-       ``k1_pcisph_predict``,
+       ``k1_visc_acc``,            method's operands (``_PcisphPredict``
+       ``k1_pcisph_predict``,      two entries: a cut, then a walk of its
+       ``k1_pcisph_walk``,         hits)
        ``k1_iisph_dij``,
        ``k1_iisph_s``,
        ``k1_surface_normals``,
@@ -76,9 +77,13 @@ pixel channel.
 K8's pairs are those at PCISPH's moved positions, new in every iteration:
 its first sweep cuts the cells' candidates there and writes its hits into
 a buffer of a uniform width (``grid.StarHits``, in the step's kept
-``grid.ListSlots``), which its second sweep walks.  The unfused loop's
-``k1_pcisph_predict`` scans the cells at those positions in each call,
-with no buffer.
+``grid.ListSlots``), which its second sweep walks.  The unfused loop calls
+the prediction twice an iteration at the same positions: its first call,
+``k1_pcisph_predict``, cuts the cells' candidates there into register
+masks and keeps its hits the same way (``grid.PredictHits``), and its
+second, ``k1_pcisph_walk``, walks them; a row with more hits than the
+buffer's width is scanned again inside the walk, so nothing is flagged or
+replayed.
 
 ``k1_density_alpha_drho`` runs before the list exists (its counts size
 it), so it scans the cells, in two phases: each receiver first cuts its
@@ -112,8 +117,8 @@ import numpy as np
 import torch
 
 from . import dense_ops, kernels
-from .grid import (OFFSET_TILES, Grid, ListSlots, NeighborList, StarHits,
-                   outside_cell)
+from .grid import (OFFSET_TILES, Grid, ListSlots, NeighborList,
+                   PredictHits, StarHits, outside_cell)
 from .utils import mat3
 
 _PKG = Path(__file__).resolve().parent
@@ -143,6 +148,8 @@ KERNELS = {
     "k1_visc_acc": (_SRC, _SYM + "_ViscAcc 2044)", dense_ops.visc_acc),
     "k1_pcisph_predict": (_SRC2, _SYM + "_PcisphPredict 2270)",
                           dense_ops.pcisph_predict),
+    "k1_pcisph_walk": (_SRC2, _SYM + "_PcisphPredict 2270)",
+                       dense_ops.pcisph_walk),
     "k1_iisph_dij": (_SRC2, _SYM + "_IisphDij 2397)", dense_ops.iisph_dij),
     "k1_iisph_s": (_SRC2, _SYM + "_IisphS 2417)", dense_ops.iisph_s),
     "k1_surface_normals": (_SRC2, _SYM + "_SurfaceNormals 2498)",
@@ -289,7 +296,8 @@ _SIGNATURES = {
     "k1_vorticity": [_G, _P, _P, _P, _F, _F, _F, _P, _P],
     "k1_kappa_acc": [_G, _P, _P, _P],
     "k1_visc_acc": [_G, _P, _P, _F, _F, _F, _P, _P],
-    "k1_pcisph_predict": [_G, _P, _P, _P, _P],
+    "k1_pcisph_predict": [_G, _P, _P, _I, _P, _P, _P, _P, _P],
+    "k1_pcisph_walk": [_G, _P, _P, _I, _P, _P, _P, _P, _P],
     "k1_iisph_dij": [_G, _P, _P, _P],
     "k1_iisph_s": [_G, _P, _P, _P, _P, _P, _P],
     "k1_surface_normals": [_G, _P, _F, _P, _P],
@@ -978,15 +986,53 @@ def k1_visc_acc(grid: Grid, x: torch.Tensor,
                   b_sol, 0.01 * h * h, listed=True)
 
 
-def k1_pcisph_predict(grid: Grid, xstar: torch.Tensor,
-                      p: torch.Tensor) -> torch.Tensor:
-    """(4, M) [sum V_j W, pressure acceleration (3)] at liquid rows, at the
-    moved positions ``xstar`` (3, M) with the pressure ``p``: the grid's
-    cells scanned, the pairs cut at ``xstar``."""
+def k1_pcisph_predict(grid: Grid, xstar: torch.Tensor, p: torch.Tensor,
+                      slots: ListSlots | None = None):
+    """The cut: ((4, M) [sum V_j W, pressure acceleration (3)] at liquid
+    rows, at the moved positions ``xstar`` (3, M) with the pressure ``p``:
+    the grid's cells scanned, the pairs cut at ``xstar``; its hits,
+    ``grid.PredictHits``, in the buffer of ``slots``, ``slots.capacity //
+    M`` a row, for ``k1_pcisph_walk`` at the same ``xstar``).  On the card
+    ``slots`` must be sized; the plain twin takes None for a buffer that
+    holds every hit."""
     if not _route(p):
-        return dense_ops.pcisph_predict(grid, xstar, p)
+        return dense_ops.pcisph_predict(grid, xstar, p, slots)
+    if slots is None or slots.capacity is None:
+        raise ValueError("the prediction keeps its hits in a sized buffer: "
+                         "pass a grid.ListSlots with a capacity")
     m = grid.n
-    return _sweep("k1_pcisph_predict", grid, [xstar, p], [(3, m), (m,)], 4)
+    _check(xstar, p, shapes=[(3, m), (m,)])
+    out = torch.empty((4, m), dtype=torch.float32, device=p.device)
+    hits = PredictHits(
+        idx=slots.buffer(p.device),
+        count=torch.empty((m,), dtype=torch.int32, device=p.device),
+        rec=torch.empty((m, 4), dtype=torch.float32, device=p.device),
+        width=slots.capacity // m)
+    _launch("k1_pcisph_predict", ctypes.byref(_geom(grid)),
+            xstar.data_ptr(), p.data_ptr(), hits.width, hits.idx.data_ptr(),
+            hits.count.data_ptr(), hits.rec.data_ptr(), out.data_ptr(),
+            _stream())
+    return out, hits
+
+
+def k1_pcisph_walk(grid: Grid, xstar: torch.Tensor, p: torch.Tensor,
+                   hits: PredictHits) -> torch.Tensor:
+    """The walk: ``k1_pcisph_predict``'s (4, M) at the same ``xstar`` with
+    the pressure ``p``, over the hits of its cut there (each row of more
+    hits than ``hits.width`` scans its cells again): the cut's bits."""
+    if not _route(p):
+        return dense_ops.pcisph_walk(grid, xstar, p, hits)
+    m = grid.n
+    _check(xstar, p, hits.rec, shapes=[(3, m), (m,), (m, 4)])
+    if (hits.count.shape != (m,) or hits.count.device != p.device
+            or hits.idx.numel() < hits.width * m):
+        raise ValueError("hits of another grid's cut")
+    out = torch.empty((4, m), dtype=torch.float32, device=p.device)
+    _launch("k1_pcisph_walk", ctypes.byref(_geom(grid)), xstar.data_ptr(),
+            p.data_ptr(), hits.width, hits.idx.data_ptr(),
+            hits.count.data_ptr(), hits.rec.data_ptr(), out.data_ptr(),
+            _stream())
+    return out
 
 
 def k1_iisph_dij(grid: Grid, fac: torch.Tensor) -> torch.Tensor:
@@ -1266,12 +1312,15 @@ def visc_matvec(grid: Grid, x: torch.Tensor, rho: torch.Tensor,
     return x - acc * (float(dt) / torch.clamp(rho, min=1.0))[None]
 
 
-def pcisph_predict(grid: Grid, xstar: torch.Tensor, p: torch.Tensor):
-    """(raw predicted density sum (M,), pressure acceleration (3, M)) at
-    the moved positions (SweepEngine.pcisph_predict); the caller adds the
-    self term and clamps."""
-    out = k1_pcisph_predict(grid, xstar, p)
-    return out[0], out[1:4]
+def pcisph_predict(grid: Grid, xstar: torch.Tensor, p: torch.Tensor,
+                   slots: ListSlots | None = None):
+    """(raw predicted density sum (M,), pressure acceleration (3, M), the
+    hits) at the moved positions with the pressure ``p``
+    (SweepEngine.pcisph_predict), by the cut (``k1_pcisph_predict``), its
+    hits kept in the buffer of ``slots`` for ``k1_pcisph_walk`` at the same
+    ``xstar``; the caller adds the self term and clamps."""
+    out, hits = k1_pcisph_predict(grid, xstar, p, slots)
+    return out[0], out[1:4], hits
 
 
 def _liquid_rho_inv(grid: Grid, rho: torch.Tensor) -> torch.Tensor:

@@ -35,8 +35,10 @@ A DFSPH or IISPH step also keeps a neighbour list of its sorted positions
 (``NeighborList``, built by ``engine.nbr_list_fill`` right after the
 density sweep), which the sweeps after it walk instead of the 27 cells.  A
 PCISPH iteration keeps its pairs at the moved positions instead
-(``StarHits``, written by K8's first sweep and walked by its second).  The
-slot buffer of either (``ListSlots``) is kept from step to step.
+(``StarHits``, written by K8's first sweep and walked by its second; in
+the unfused loop ``PredictHits``, written by the first prediction call and
+walked by the second).  The slot buffer of each (``ListSlots``) is kept
+from step to step.
 """
 
 from __future__ import annotations
@@ -68,9 +70,9 @@ class ListOverflow(Exception):
 
 class ListSlots:
     """The slot buffer of a solver's neighbour list (DFSPH, IISPH) or of
-    its PCISPH iterations' hits (``StarHits``: a uniform ``capacity // M``
-    slots a row), kept from step to step (``Simulation.list_slots``), apart
-    from the state.  Unsized, the next fill sizes it from its own need with
+    its PCISPH iterations' hits (``StarHits``, ``PredictHits``: a uniform
+    ``capacity // M`` slots a row), kept from step to step
+    (``Simulation.list_slots``), apart from the state.  Unsized, the next fill sizes it from its own need with
     ``HEADROOM`` (one host read; a PCISPH step, from its density sweep's
     largest count); sized, a fill whose list needs more clamps the list to
     it and flags the need, and the step replays after ``size_for`` the
@@ -214,6 +216,26 @@ class StarHits:
         if over:
             raise ListOverflow(over * int(self.count.shape[0]),
                                int(self.idx.shape[0]))
+
+
+@dataclasses.dataclass
+class PredictHits:
+    """The pairs within h at the moved positions x* that the unfused PCISPH
+    prediction's cut found (``engine.k1_pcisph_predict``), for the walk at
+    the same x* with another pressure (``engine.k1_pcisph_walk``): as
+    ``StarHits``, hit k of row i is ``idx[k M + i]`` in the cell loop's
+    order for k < ``width`` = capacity // M, and ``rec[i]`` = (x*, liquid
+    flag); but ``count`` is each row's full hit count, and a row with more
+    than ``width`` hits is scanned again by the walk, so nothing is flagged
+    and nothing is read back.  It stays a type apart from ``StarHits``
+    because K8's kernels write and walk a clamped count and flag the rest
+    for a replay: one count meaning either would make K8, its twin and
+    ``Grid.read`` branch on which sweep made it."""
+
+    idx: torch.Tensor    # (capacity,) int32 neighbour row of each kept hit
+    count: torch.Tensor  # (M,) int32 hits of each row (0 at boundary rows)
+    rec: torch.Tensor    # (M, 4) float32 (x*, y*, z*, liquid flag)
+    width: int           # hits a row keeps
 
 
 @dataclasses.dataclass

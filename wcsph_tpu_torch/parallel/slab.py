@@ -436,7 +436,10 @@ def resplit(state: FluidState, cfg: SimConfig, group=None,
     """The global-grid sharded steps' split of the whole ``state`` (every
     rank holds it, on its device), anew for one step and on that device:
     (this rank's ``SlabState`` at one ghost plane, with seats for exactly
-    the fullest slab and a fresh list buffer; (14, ncap + 2 kghost) seat
+    the fullest slab and a fresh list buffer, for PCISPH one of no slots:
+    nothing keeps it to the next step, so the unfused prediction keeps no
+    hits rather than take a host read to size them, and its walk scans
+    every row again, the cut's bits; (14, ncap + 2 kghost) seat
     fields with empty ghost columns; the migration's counts, all 0: no
     seat moves; the ``Transport``; the ``SlabGeometry``)."""
     tr = Transport(group)
@@ -449,7 +452,7 @@ def resplit(state: FluidState, cfg: SimConfig, group=None,
         dt=state.dt, time=state.time, last_visc_iters=state.last_visc_iters,
         last_pressure_iters=state.last_pressure_iters, diag=state.diag,
         n_liquid=state.n_liquid, n_total=state.n_total, kghost=kghost,
-        kmig=0, slots=ListSlots())
+        kmig=0, slots=ListSlots(0) if solver == "pcisph" else ListSlots())
     empty = torch.tensor(_EMPTY, dtype=torch.float32, device=dev)[:, None]
     fields = torch.cat([block, empty.expand(-1, 2 * kghost)], dim=1)
     zero = torch.zeros((), dtype=torch.int64, device=dev)

@@ -22,9 +22,12 @@ hits than the width makes the step run again with a wider buffer
 With ``fused_solver_iters=False`` (``engine.use_fused_iters``) each
 iteration is the JAX package's unfused form instead: the moved positions
 x* = x + liq v* dt in torch ops, a prediction sweep at x* with the old
-pressure (``k1_pcisph_predict``), the pressure update, and a second one
-with the new pressure for the acceleration.  Each call scans the cells at
-x*: no hit buffer, so nothing to size or replay.  The middle takes a
+pressure, the pressure update, and a second one with the new pressure for
+the acceleration.  The first call cuts the cells' candidates at x*
+(``k1_pcisph_predict``) and keeps its hits (``grid.PredictHits``) in the
+same ``slots``, sized as the fused form's; the second walks them
+(``k1_pcisph_walk``), scanning again any row with more hits than the
+buffer's width, so nothing is flagged or replayed.  The middle takes a
 communicator (``parallel/comm.py``, as in ``solvers/dfsph.py``).
 """
 
@@ -98,8 +101,8 @@ class MidResult(NamedTuple):
 def step_middle(comm, cfg: SimConfig, velp, dt,
                 slots: ListSlots | None = None) -> MidResult:
     """The whole PCISPH solve on the sorted layout, on the communicator's
-    grid; ``slots``: K8's hit buffer (sized here where it is unsized or
-    None)."""
+    grid; ``slots``: the iterations' hit buffer, K8's or the unfused
+    prediction's (sized here where it is unsized or None)."""
     grid = comm.grid
     coff = pci_coefficient(cfg.particle_radius)
     dt = f32(dt)
@@ -109,7 +112,7 @@ def step_middle(comm, cfg: SimConfig, velp, dt,
     rhop, cntp = engine.density(grid)
     fused = engine.use_fused_iters(comm, "fused_pcisph_iter")
     slots = ListSlots() if slots is None else slots
-    if fused and slots.capacity is None:   # the first step's one host read
+    if slots.capacity is None:      # the first step's one host read
         slots.size_for(grid.n * int(cntp.max()))
     d_vel = gravity_column(cfg, velp) + comm.lower(engine.sesph_force(
         grid, comm.lift(velp), comm.lift(rhop, 1.0), torch.zeros_like(rhop)))
@@ -128,16 +131,16 @@ def step_middle(comm, cfg: SimConfig, velp, dt,
                 grid, vel_star, pp, dt, coff, slots)
         else:
             # wcsph_tpu/solvers/pcisph.py:183-216: predict at x*, update
-            # p, predict again at x* for the acceleration
-            # (the first prediction's acceleration is not used: its
-            # pressure needs no lift)
+            # p, predict again at x* for the acceleration, walking the
+            # first call's hits (the first prediction's acceleration is
+            # not used: its pressure needs no lift)
             xstar = comm.lift(grid.pos + torch.where(
                 liq[None], vel_star * float(dt), 0.0), 1e9)
-            adv_raw = comm.lower(engine.pcisph_predict(grid, xstar, pp)[0])
-            adv = torch.clamp(w0 + adv_raw, min=1.0)
+            adv_raw, _, hits = engine.pcisph_predict(grid, xstar, pp, slots)
+            adv = torch.clamp(w0 + comm.lower(adv_raw), min=1.0)
             pp = pp + coff * (adv - 1.0) / float(dt * dt)   # pcisph.py:255
-            d_vel_pre = comm.lower(engine.pcisph_predict(
-                grid, xstar, comm.lift(pp))[1])
+            d_vel_pre = comm.lower(engine.k1_pcisph_walk(
+                grid, xstar, comm.lift(pp), hits)[1:4])
             scal = comm.lsum(adv - 1.0)
         # each read brings the liquid count the first time, and K8's
         # overflow flag
@@ -161,9 +164,9 @@ def bin_and_pack(state: FluidState, cfg: SimConfig):
 
 def step(state: FluidState, cfg: SimConfig,
          slots: ListSlots | None = None, fused=FUSED_ALL) -> FluidState:
-    """One step; ``slots``: K8's hit buffer, kept by the caller from step
-    to step (a fresh one, sized by this step, where None); ``fused``: the
-    loops that may run fused (``NoComm``)."""
+    """One step; ``slots``: the iterations' hit buffer, kept by the caller
+    from step to step (a fresh one, sized by this step, where None);
+    ``fused``: the loops that may run fused (``NoComm``)."""
     nl = state.n_liquid
     dt = f32(state.dt)
     slots = ListSlots() if slots is None else slots
