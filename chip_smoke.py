@@ -69,7 +69,8 @@ its own lines and raising on failure:
    step's beyond one an iteration no more than its fused path's; its
    median step beside the fused path's); then the grid
    stage, the list and each kernel against its plain twin again and timed
-   beside it at those shapes, with the least time the card could take for
+   beside it at those shapes (the unfused kappa and viscosity walks'
+   device time too), with the least time the card could take for
    the same work (``bound_ms``) and, for the grid stage, one PyTorch call
    that computes its core (``library_ms``, and its device time), the
    device time of its own kernels and their count a call (torch.profiler;
@@ -547,6 +548,11 @@ def check_list_required(grid, inp, count):
             raise AssertionError(f"{name} ran on a grid with no list")
     log(f"  {', '.join(name for name, _ in calls)} raise on a grid with no "
         "neighbour list; a fill from a short count raises at the first read")
+
+
+# The kernels whose device time (torch.profiler) phase 4 also reads: the
+# unfused loops' kappa and viscosity walks
+DEVICE_TIMED = ("k1_kappa_acc", "k1_visc_acc")
 
 
 def check_k8_hits(grid, inp, chk):
@@ -1823,13 +1829,14 @@ def grid_bytes(grid, counts, k_fields):
 
 
 def time_kernels(grid, cases, count, reps_kernel=20, reps_plain=5):
-    """(kernel ms, plain ms) per kernel (K3 timed in mode 1, the pressure
-    iteration, which the main path runs most), and for the list fill (the
+    """(kernel ms, plain ms[, device ms]) per kernel (K3 timed in mode 1,
+    the pressure iteration, which the main path runs most; the device time,
+    torch.profiler's, for ``DEVICE_TIMED``), and for the list fill (the
     whole wrapper as a step runs it, into a buffer sized as a step's:
     slice offsets and the fill, no host read; its plain twin's time
     excludes the pair list it reads)."""
     from wcsph_tpu_torch import engine
-    from wcsph_tpu_torch.bench import time_call
+    from wcsph_tpu_torch.bench import device_ms, time_call
     from wcsph_tpu_torch.grid import ListSlots
 
     saved = dict(engine.LAUNCHES)
@@ -1846,6 +1853,12 @@ def time_kernels(grid, cases, count, reps_kernel=20, reps_plain=5):
                        time_call(twins[name][2], make, reps_plain))
         log(f"  {name}: kernel {times[name][0]:.4f} ms, plain "
             f"{times[name][1]:.4f} ms (M={grid.n})")
+        if name in DEVICE_TIMED:
+            dev, kernels = device_ms(getattr(engine, name), make,
+                                     reps_kernel)
+            times[name] += (dev,)
+            log(f"  {name}: its kernel on the device {dev:.4f} ms "
+                f"({kernels:g} device kernels a call)")
     engine.LAUNCHES.update(saved)     # timing launches are not main-path
     return times
 
@@ -2721,7 +2734,10 @@ def main():
          "launches": launches[name], "max_abs_err": chk.max_abs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bound[name][0], "bound_by": bound[name][1],
-         "library_ms": library.get(name)}
+         "library_ms": library.get(name),
+         "device_ms": (times[name][2] if len(times[name]) > 2
+                       else grid_times[name][3] if name in grid_times
+                       else None)}
         for name, (src, rep, _) in [
             *engine.KERNELS.items(),
             *[(n, (src, "none: " + what, tw))

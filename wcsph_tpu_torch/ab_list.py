@@ -65,21 +65,16 @@ import torch
 from . import bench, engine
 from .grid import ListSlots, PredictHits
 
-# the wrappers a change redesigned: the unfused PCISPH prediction, split
-# into a cut and a walk of its hits, and the list's fill, cut into
-# register masks
-AB_KERNELS = ("k1_pcisph_predict", "k1_pcisph_walk", "nbr_list_fill")
+# the wrappers a change measured: the unfused kappa sum and viscosity
+# matvec, their list walks
+AB_KERNELS = ("k1_kappa_acc", "k1_visc_acc")
 # the paths of bench.flagship_paths whose steps call them
-AB_SOLVERS = ("dfsph", "pcisph-unfused")
-# The older wrapper of a wrapper that this tree split off: the walk is the
-# old prediction sweep's second call of an iteration.
-OLD_NAMES = {"k1_pcisph_walk": "k1_pcisph_predict"}
+AB_SOLVERS = ("dfsph-unfused", "iisph-unfused")
+# The older wrapper of a wrapper that this tree split off (none here).
+OLD_NAMES = {}
 # The older wrappers' arguments, from this tree's, where a signature
-# changed: the old prediction took no buffer and no hits.
-OLD_ARGS = {
-    "k1_pcisph_predict": lambda grid, xstar, p, slots: (grid, xstar, p),
-    "k1_pcisph_walk": lambda grid, xstar, p, hits: (grid, xstar, p),
-}
+# changed (none here).
+OLD_ARGS = {}
 # name -> (arguments of a recorded call -> the one PyTorch call that
 # computes the same function's core, as chip_smoke.py times it); none
 # computes a sweep over a cell list

@@ -1304,12 +1304,20 @@ def kappa_velocity_update(grid: Grid, vel: torch.Tensor, k: torch.Tensor,
     return vel + torch.where(grid.liquid[None], float(dt) * acc, 0.0)
 
 
-def visc_matvec(grid: Grid, x: torch.Tensor, rho: torch.Tensor,
-                dt) -> torch.Tensor:
+def visc_scales(rho: torch.Tensor, dt):
+    """(1 / max(rho, 1), dt / max(rho, 1) as a (1, M) row): the unfused
+    matvec's two factors of the density, the same in every iteration of a
+    solve."""
+    return rho_inv(rho), (float(dt) / torch.clamp(rho, min=1.0))[None]
+
+
+def visc_matvec(grid: Grid, x: torch.Tensor, rho: torch.Tensor, dt,
+                scales=None) -> torch.Tensor:
     """x - dt / max(rho, 1) sum c (x_i - x_j).r gs r
-    (SweepEngine.visc_matvec)."""
-    acc = k1_visc_acc(grid, x, rho_inv(rho))
-    return x - acc * (float(dt) / torch.clamp(rho, min=1.0))[None]
+    (SweepEngine.visc_matvec); ``scales``: ``visc_scales(rho, dt)``,
+    formed once a solve (None: here)."""
+    rinv, step = visc_scales(rho, dt) if scales is None else scales
+    return x - k1_visc_acc(grid, x, rinv) * step
 
 
 def pcisph_predict(grid: Grid, xstar: torch.Tensor, p: torch.Tensor,

@@ -63,9 +63,12 @@ def solve_dense(comm, velp: torch.Tensor, vel_guessp: torch.Tensor,
     r = torch.where(liq3, velp - ax0, 0.0)
     d = minv.matvec(r)
     delta = ldot(r, d)
+    # the density's factors, formed once a solve
     if fused:
         rinv = engine.rho_inv(rhop)
         minv6 = torch.stack(list(minv)).contiguous()
+    else:
+        scales = engine.visc_scales(rhop, dt)
     delta0 = np.float32(comm.read(delta))
     delta_h = delta0
     it = 0
@@ -80,7 +83,7 @@ def solve_dense(comm, velp: torch.Tensor, vel_guessp: torch.Tensor,
         else:
             # wcsph_tpu/viscosity.py:202-217
             ad = torch.where(liq3, comm.lower(engine.visc_matvec(
-                grid, comm.lift(d), rhop, dt)), 0.0)
+                grid, comm.lift(d), rhop, dt, scales)), 0.0)
             alpha = delta / (cfg.eps + ldot(d, ad))
             x = x + alpha * d
             r = r - alpha * ad
