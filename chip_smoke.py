@@ -10,7 +10,8 @@ its own lines and raising on failure:
 0. device: torch.cuda must be available; the card's name and power limit
    (nvidia-smi), torch and CUDA versions;
 1. build: compile the kernels of ``wcsph_tpu_torch/csrc`` with nvcc (one
-   nvcc per source, in parallel);
+   nvcc per source, in parallel); ptxas's registers of every kernel, and
+   one line with those of each list walker's kernels (``LIST_WALKERS``);
 2. each kernel (K1-K8, every entry point, K1's seven entries of the
    unfused solver loops too) against its plain PyTorch twin on
    the card, at the shapes of a squeezed side-24 dam break with a
@@ -69,8 +70,10 @@ its own lines and raising on failure:
    step's beyond one an iteration no more than its fused path's; its
    median step beside the fused path's); then the grid
    stage, the list and each kernel against its plain twin again and timed
-   beside it at those shapes (the unfused kappa and viscosity walks'
-   device time too), with the least time the card could take for
+   beside it at those shapes (the two walks that load slots ahead,
+   ``DEEP_WALKS``, and the list they walk also with the liquid jittered;
+   every list walker's device time too,
+   torch.profiler), with the least time the card could take for
    the same work (``bound_ms``) and, for the grid stage, one PyTorch call
    that computes its core (``library_ms``, and its device time), the
    device time of its own kernels and their count a call (torch.profiler;
@@ -482,6 +485,48 @@ def check_list(grid, vel, chk):
     return count
 
 
+# The list walks that take a depth above 1 (csrc/sweeps.cu), held to their
+# twins once more on the 1M state with every liquid position jittered by a
+# numpy-seeded uniform +-JITTER r: ragged slot counts a row run the tail of
+# each group of slots the walk loads ahead
+DEEP_WALKS = ("k1_kappa_acc", "k1_visc_acc")
+JITTER = 0.3
+
+
+def check_jittered_walks(state, cfg, chk, rng):
+    """DEEP_WALKS against their twins (``check_kernels``, TOL_SWEEP) on the
+    grid of ``state`` with its liquid positions jittered, on seeded k, d
+    and 1 / rho, after the fill's list of that grid is held to the plain
+    list (``check_list``)."""
+    import torch
+
+    from wcsph_tpu_torch.grid import build_grid
+
+    nl, r = state.n_liquid, cfg.particle_radius
+    pos = state.pos.clone()
+    pos[:, :nl] += torch.as_tensor(
+        rng.uniform(-JITTER * r, JITTER * r, (3, nl)).astype(np.float32),
+        device=pos.device)
+    grid = build_grid(pos, nl, cfg)
+    if int(grid.cell_start[-1]) != state.n_total:
+        raise AssertionError("jittered 1M state: a particle left the domain")
+    check_list(grid, torch.zeros_like(grid.pos), chk)
+    m, liq = grid.n, grid.liq
+
+    def seeded(*shape):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32),
+                               device=pos.device)
+
+    k = (seeded(m) * 1e-2 * liq).contiguous()
+    d = (seeded(3, m) * liq).contiguous()
+    rinv = torch.as_tensor((1.0 / rng.uniform(950.0, 1050.0, m))
+                           .astype(np.float32), device=pos.device)
+    make = {"k1_kappa_acc": lambda: (grid, k),
+            "k1_visc_acc": lambda: (grid, d, rinv)}
+    check_kernels(grid, [(name, "jittered", make[name], lambda a, r: [r],
+                          TOL_SWEEP) for name in DEEP_WALKS], chk)
+
+
 def check_list_required(grid, inp, count):
     """K2, K3, K4, K6, K7, IISPH's three K5 entries, k1_div_acc,
     k1_visc_init, k1_vorticity and the six list walkers of the unfused
@@ -550,9 +595,66 @@ def check_list_required(grid, inp, count):
         "neighbour list; a fill from a short count raises at the first read")
 
 
-# The kernels whose device time (torch.profiler) phase 4 also reads: the
-# unfused loops' kappa and viscosity walks
-DEVICE_TIMED = ("k1_kappa_acc", "k1_visc_acc")
+# The wrappers that walk the step's neighbour list (for_each_listed_record
+# in csrc/common.cuh), each with the __global__ kernels of its launches that
+# walk it (a template's emit after its name): phase 1 prints their
+# registers, phase 4 reads their device time (torch.profiler, every kernel
+# of a call)
+LIST_WALKERS = {
+    "k1_div_acc": ("k1_div_kernel",),
+    "k1_visc_init": ("k1_visc_init_kernel",),
+    "k1_vorticity": ("k1_vorticity_kernel",),
+    "k2_fused_kappa_drho": ("k2_kappa_kernel", "k1_div_kernel"),
+    "k3_fused_iter_full": ("k3_kappa_kernel", "k3_div_kernel"),
+    "k4_fused_visc_iter": ("k4_matvec_kernel",),
+    "k1_kappa_acc": ("k1_kappa_kernel",),
+    "k1_visc_acc": ("k1_visc_acc_kernel",),
+    "k5_iisph_adv": ("k5_list_kernel IisphAdv",),
+    "k5_iisph_aii": ("k5_list_kernel IisphAii",),
+    "k5_iisph_force": ("k5_list_kernel IisphForce",),
+    "k6_fused_tension": ("k5_list_kernel SurfaceNormals",
+                         "k5_list_kernel TensionAccel"),
+    "k7_fused_jacobi_iter": ("k5_list_kernel IisphDijOf FacFromP",
+                             "k5_list_kernel IisphSOf PressFromP"),
+    "k1_iisph_dij": ("k5_list_kernel IisphDijOf FacField",),
+    "k1_iisph_s": ("k5_list_kernel IisphSOf PressFields",),
+    "k1_surface_normals": ("k5_list_kernel SurfaceNormals",),
+    "k1_tension_accel": ("k5_list_kernel TensionAccel",),
+}
+
+
+def ptxas_registers(text):
+    """mangled kernel name -> registers, from a ``-Xptxas -v`` report."""
+    import re
+
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = int(m.group(1))
+            name = None
+    return out
+
+
+def walker_registers(regs):
+    """wrapper -> {kernel: registers} of LIST_WALKERS from
+    ``ptxas_registers`` (None where the report names no such kernel): a
+    kernel is matched by its mangled name, its own name first, then the
+    names inside its template arguments, in order."""
+    import re
+
+    def find(kernel):
+        name, *args = kernel.split()
+        pat = re.compile(rf"_ZL?{len(name)}{name}" + (
+            "I" + "".join(rf".*?(?<!\d){len(a)}{a}" for a in args)
+            if args else r"(?!I)"))
+        hits = [v for k, v in regs.items() if pat.match(k)]
+        return hits[0] if len(hits) == 1 else None
+
+    return {w: {k: find(k) for k in ks} for w, ks in LIST_WALKERS.items()}
 
 
 def check_k8_hits(grid, inp, chk):
@@ -1831,7 +1933,7 @@ def grid_bytes(grid, counts, k_fields):
 def time_kernels(grid, cases, count, reps_kernel=20, reps_plain=5):
     """(kernel ms, plain ms[, device ms]) per kernel (K3 timed in mode 1,
     the pressure iteration, which the main path runs most; the device time,
-    torch.profiler's, for ``DEVICE_TIMED``), and for the list fill (the
+    torch.profiler's, for ``LIST_WALKERS``), and for the list fill (the
     whole wrapper as a step runs it, into a buffer sized as a step's:
     slice offsets and the fill, no host read; its plain twin's time
     excludes the pair list it reads)."""
@@ -1853,11 +1955,16 @@ def time_kernels(grid, cases, count, reps_kernel=20, reps_plain=5):
                        time_call(twins[name][2], make, reps_plain))
         log(f"  {name}: kernel {times[name][0]:.4f} ms, plain "
             f"{times[name][1]:.4f} ms (M={grid.n})")
-        if name in DEVICE_TIMED:
-            dev, kernels = device_ms(getattr(engine, name), make,
-                                     reps_kernel)
+        if name in LIST_WALKERS:
+            try:
+                dev, kernels = device_ms(getattr(engine, name), make,
+                                         reps_kernel)
+            except RuntimeError as e:     # the profiler dropped events
+                times[name] += (None,)
+                log(f"  {name}: device time not measured ({e})")
+                continue
             times[name] += (dev,)
-            log(f"  {name}: its kernel on the device {dev:.4f} ms "
+            log(f"  {name}: its kernels on the device {dev:.4f} ms "
                 f"({kernels:g} device kernels a call)")
     engine.LAUNCHES.update(saved)     # timing launches are not main-path
     return times
@@ -2395,10 +2502,14 @@ def main():
     engine.library()
     log(f"[phase 1] kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
+    regs = {}
     for f in sorted(engine.BUILD_DIR.glob("*.ptxas.txt")):
         for line in f.read_text().splitlines():
             if "entry function" in line or "registers" in line:
                 log(f"  ptxas: {line.strip()}")
+        regs.update(ptxas_registers(f.read_text()))
+    log(f"[phase 1] list walkers' registers (ptxas): "
+        f"{json.dumps(walker_registers(regs))}")
 
     mark = phase_seconds(1, started)
     # ---- phase 2: kernels vs plain twins ----------------------------------
@@ -2675,8 +2786,10 @@ def main():
     check_kernels(mgrid, cases, chk)
     check_k8_hits(mgrid, minp, chk)
     check_predict_hits(mgrid, minp, chk)
+    check_jittered_walks(mstate, mgrid.cfg, chk, np.random.RandomState(5))
     log(f"[phase 4] the grid stage, the list and every kernel agree with "
-        f"their plain twins at M={mgrid.n}")
+        f"their plain twins at M={mgrid.n}, {', '.join(DEEP_WALKS)} also "
+        f"with the liquid jittered by +-{JITTER} r")
     times = time_kernels(mgrid, cases, mcount)
     grid_times = time_grid_stage(mgrid, mstate.pos, mstate.n_liquid, mcount,
                                  np.random.RandomState(4))

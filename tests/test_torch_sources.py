@@ -211,8 +211,67 @@ def test_list_walker_never_scans_the_cells(kernel):
         text += bodies[name]
         todo += [c for c in re.findall(r"\b(\w+)\s*[(<]", bodies[name])
                  if c in bodies]
-    assert re.search(r"\bfor_each_listed\s*\(", text)
+    assert re.search(r"\bfor_each_listed(_record)?(<[^>]*>)?\s*\(", text)
     assert not re.search(r"\bfor_each_neighbor(_at)?\s*\(", text)
+
+
+def _walk_depths(bodies, consts, name, depth=1):
+    """The depths at which function ``name`` (its body in ``bodies``,
+    called with the depth ``depth``) reaches the listed walk, following
+    its calls: a call's template argument is the depth it passes (``D``
+    forwards the caller's, a name is one of ``consts``), none the
+    default 1."""
+    out = set()
+    for callee, arg in re.findall(r"\b(\w+)\s*(?:<\s*(\w+)\s*>)?\s*\(",
+                                  bodies[name]):
+        walk = callee in ("for_each_listed", "for_each_listed_record")
+        if not walk and (callee not in bodies or callee == name):
+            continue
+        d = (1 if not arg else depth if arg == "D"
+             else consts[arg] if arg in consts else int(arg))
+        out |= {d} if walk else _walk_depths(bodies, consts, callee, d)
+    return out
+
+
+def test_one_listed_walk_with_a_depth():
+    """common.cuh holds one loop over a row's listed slots,
+    for_each_listed_record, with a compile-time depth D (1 by default;
+    D > 1 loads D of the row's slots ahead of their sums), which
+    for_each_listed forwards: no other function of the CUDA sources reads
+    the list's slots (Geom.nl_idx)."""
+    common = _bodies((CSRC / "common.cuh").read_text())
+    for src in CUDA_SOURCES:
+        readers = [n for n, b in _bodies((CSRC / src).read_text()).items()
+                   if re.search(r"\bnl_idx\b", b)]
+        assert readers == (["for_each_listed_record"]
+                           if src == "common.cuh" else []), (src, readers)
+    assert re.search(r"template <int D = 1, class F>\s*__device__ "
+                     r"__forceinline__ void for_each_listed_record\(",
+                     (CSRC / "common.cuh").read_text())
+    assert re.search(r"\bfor_each_listed_record<D>\s*\(",
+                     common["for_each_listed"])
+
+
+# the walkers that walk the list at a depth above 1: the two K1 entries of
+# the unfused loops
+DEEP_WALKERS = ["k1_kappa_kernel", "k1_visc_acc_kernel"]
+
+
+@pytest.mark.parametrize("kernel", LIST_WALKERS + ["k5_list_kernel"])
+def test_listed_walk_depth(kernel):
+    """The walker reaches the listed walk at one depth: above 1, a
+    constant of sweeps.cu (no switch), for DEEP_WALKERS; the default 1 for
+    every other walker of sweeps.cu and for solver_sweeps.cu's listed
+    sweep kernel."""
+    src = "solver_sweeps.cu" if kernel == "k5_list_kernel" else "sweeps.cu"
+    text = (CSRC / src).read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"^constexpr int (\w+) = (\d+);", text, re.M)}
+    bodies = {**_bodies((CSRC / "common.cuh").read_text()),
+              **_bodies(text)}
+    depths = _walk_depths(bodies, consts, kernel)
+    assert len(depths) == 1, depths
+    assert (min(depths) > 1) == (kernel in DEEP_WALKERS), depths
 
 
 # the K5 entries of the steps that build no list (SESPH, PCISPH; IISPH's
@@ -291,7 +350,7 @@ def test_solver_walkers_never_scan_the_cells():
     launch = re.search(r"static int launch_list_sweep\(.*?\n}", text,
                        re.S).group(0)
     assert re.search(r"\bk5_list_kernel<E><<<", launch)
-    assert re.search(r"\bfor_each_listed(_record)?\s*\(",
+    assert re.search(r"\bfor_each_listed(_record)?(<[^>]*>)?\s*\(",
                      bodies["k5_list_kernel"])
     assert re.search(r"\bk8_acc_kernel<<<", entry("k8_fused_pcisph_iter"))
     for walker in ("k5_list_kernel", "k8_acc_kernel"):

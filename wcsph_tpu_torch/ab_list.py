@@ -1,7 +1,7 @@
 """A/B of the step's redesigned wrappers against an older tree, on one
 card.
 
-    python -m wcsph_tpu_torch.ab_list --old out/old
+    python -m wcsph_tpu_torch.ab_list --old out/old [--variant out/v ...]
 
 ``--old`` is an unpacked copy of an older commit of this repository
 (``git archive <commit> | tar -x -C out/old``).  Its package is imported
@@ -9,8 +9,20 @@ beside this one under another name, so that its own wrappers of
 ``AB_KERNELS`` build and launch its own ``csrc/`` (into its own
 ``_build/``); ``OLD_NAMES`` names the old wrapper where this tree split
 one, and ``OLD_ARGS`` turns a call of this tree's wrapper into the
-arguments of the old one where the signature changed.  Run from the
-repository root.  In one process on one card:
+arguments of the old one where the signature changed.  Each
+``--variant`` is another tree (its root, or a directory holding just its
+``wcsph_tpu_torch/``) with this tree's wrappers and other kernel sources,
+named by its directory: its ``AB_KERNELS`` are timed and compared beside
+the old tree's and this one's in step 1, so that several designs of a
+kernel meet in one call.  Run from the repository root.  In one process
+on one card:
+
+0. code: each tree's registers, local (spill) bytes and resident blocks
+   an SM of the kernels of ``AB_KERNELS`` (``OCCUPANCY``: a probe built
+   with the tree's own source and flags asks ``cudaFuncGetAttributes``
+   and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and the kernels
+   of the libraries whose machine code (``cuobjdump -sass``) differs
+   between the old tree and this one;
 
 1. kernels: for each path of ``AB_SOLVERS`` (``bench.flagship_paths``) the
    flagship dam break (side 100) runs 4 steps from rest; then one more step
@@ -18,7 +30,8 @@ repository root.  In one process on one card:
    arguments the solver gives them, at the positions at rest and with every
    liquid position jittered by a numpy-seeded uniform +-0.3 r.  Each
    recorded call (the first of each wrapper) is replayed through the old
-   tree's wrapper and this tree's, timed in turns (old, new, new, old) with
+   tree's wrapper, this tree's and each variant's, timed in turns (old,
+   new, the variants, then the same backwards) with
    CUDA events, beside ``LIBRARY``'s PyTorch call of the same function
    where there is one, and compared bit for bit (their tensors: a list's
    slots, offsets, records, need and flag; not a cut's hits, which the old
@@ -75,6 +88,10 @@ OLD_NAMES = {}
 # The older wrappers' arguments, from this tree's, where a signature
 # changed (none here).
 OLD_ARGS = {}
+# name -> (csrc source, the __global__ kernel it launches) of the wrappers
+# of AB_KERNELS, for the occupancy probe
+OCCUPANCY = {"k1_kappa_acc": ("sweeps.cu", "k1_kappa_kernel"),
+             "k1_visc_acc": ("sweeps.cu", "k1_visc_acc_kernel")}
 # name -> (arguments of a recorded call -> the one PyTorch call that
 # computes the same function's core, as chip_smoke.py times it); none
 # computes a sweep over a cell list
@@ -141,11 +158,10 @@ def compare_states(old_dir: Path, new_dir: Path) -> dict:
     return out
 
 
-def old_engine(old_root: Path):
-    """The old tree's ``engine`` module: its package imported under another
-    name, with its own wrappers, launch counters and library (built from
-    its own ``csrc/`` at first use)."""
-    name = "_ab_old_wcsph_tpu_torch"
+def old_engine(old_root: Path, name: str = "_ab_old_wcsph_tpu_torch"):
+    """An older (or variant) tree's ``engine`` module: its package imported
+    under the name ``name``, with its own wrappers, launch counters and
+    library (built from its own ``csrc/`` at first use)."""
     pkg_dir = old_root / "wcsph_tpu_torch"
     spec = importlib.util.spec_from_file_location(
         name, pkg_dir / "__init__.py",
@@ -272,50 +288,61 @@ def _device_ms(fn, make_args):
         return {"not measured": str(e)}
 
 
-def kernels_ab(first, count, old) -> dict:
-    """Old and new wrapper on every recorded call, in turns, beside the
-    library call, the bits compared; each side's device time, device
-    kernels a call and host profile; ``step_calls`` sums each side's times
-    over the step's calls; then, where the step built its list, each
-    tree's fill kernel alone, in turns."""
+def _same(a, b):
+    """(bit-equal, largest absolute difference) of two sides' tensors."""
+    return (len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
+            max(float((x.double() - y.double()).abs().max())
+                for x, y in zip(a, b)))
+
+
+def kernels_ab(first, count, old, variants=None) -> dict:
+    """Old, new and each variant's wrapper (``variants``: name -> engine
+    module, this tree's wrappers) on every recorded call, in turns, beside
+    the library call, each side's bits compared with the old tree's; each
+    side's device time, device kernels a call and host profile;
+    ``step_calls`` sums each side's times over the step's calls; then,
+    where the step built its list, each tree's fill kernel alone, in
+    turns."""
     out = {}
+    engines = {"old": old, "new": engine, **(variants or {})}
     for name in AB_KERNELS:
         if name not in first:
             continue
         adapt = OLD_ARGS.get(name, lambda *a: a)
-        mine = {s: _own(first[name]) for s in ("old", "new")}
+        mine = {s: _own(first[name]) for s in engines}
         sides = {"old": (getattr(old, OLD_NAMES.get(name, name)),
-                         lambda: adapt(*_fresh(mine["old"]))),
-                 "new": (getattr(engine, name),
-                         lambda: _fresh(mine["new"]))}
+                         lambda: adapt(*_fresh(mine["old"])))}
+        for s, eng in engines.items():
+            if s != "old":
+                sides[s] = (getattr(eng, name),
+                            lambda s=s: _fresh(mine[s]))
         args = mine["new"]
         res = {s: _tensors(fn(*make())) for s, (fn, make) in sides.items()}
         torch.cuda.synchronize()
         library = LIBRARY[name](*args) if name in LIBRARY else None
-        times = {"old": [], "new": []}
+        times = {s: [] for s in sides}
         if library is not None:
             times["library"] = []
-        for s in ("old", "new", "new", "old"):
+        for s in [*sides, *reversed(sides)]:
             times[s].append(bench.time_call(*sides[s], REPS))
             if library is not None:
                 times["library"].append(bench.time_call(library, tuple,
                                                         REPS))
+        same = {s: _same(res["old"], res[s]) for s in sides if s != "old"}
         out[name] = {
             **{f"{s}_ms": sum(v) / len(v) for s, v in times.items()},
             "turns_ms": times,
             **{f"{s}_device": _device_ms(*sides[s]) for s in sides},
-            **{f"{s}_host": host_profile(*sides[s], eng)
-               for s, eng in (("old", old), ("new", engine))},
-            "bit_equal": len(res["old"]) == len(res["new"]) and all(
-                torch.equal(a, b) for a, b in zip(res["old"], res["new"])),
-            "max_abs_diff": max(float((a.double() - b.double()).abs().max())
-                                for a, b in zip(res["old"], res["new"]))}
+            **{f"{s}_host": host_profile(*sides[s], engines[s])
+               for s in sides},
+            "bit_equal": same["new"][0], "max_abs_diff": same["new"][1],
+            "bit_equal_to_old": {s: v[0] for s, v in same.items()}}
     calls = {k: n for k, n in count.items() if k in out}
     out["step_calls"] = {
         "calls": calls,
         **{f"{side}_ms": sum(n * out[k][f"{side}_ms"]
                              for k, n in calls.items())
-           for side in ("old", "new")}}
+           for side in engines}}
     if "nbr_list_fill" not in first:
         return out
     grid, cnt, slots = first["nbr_list_fill"]
@@ -340,10 +367,105 @@ def kernels_ab(first, count, old) -> dict:
     return out
 
 
+_PROBE = """
+#include "{src}"
+extern "C" int ab_occupancy(int which, int* regs, int* local, int* blocks) {{
+  const void* fns[] = {{{fns}}};
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fns[which]);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *regs = a.numRegs;
+  *local = static_cast<int>(a.localSizeBytes);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fns[which],
+                                                    kBlock, 0));
+}}
+"""
+
+
+def occupancy(eng) -> dict:
+    """name -> {registers, local_bytes, blocks_per_sm} of the kernel of each
+    wrapper of ``OCCUPANCY`` in AB_KERNELS, for the tree of the engine
+    module ``eng``: a probe that includes the tree's own source, built with
+    its own flags (the same machine code as its library), asks the
+    runtime.  A probe that does not build gives its error instead."""
+    names = [n for n in AB_KERNELS if n in OCCUPANCY]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sorted({OCCUPANCY[n][0] for n in names}):
+            mine = [n for n in names if OCCUPANCY[n][0] == src]
+            cu, lib = Path(tmp) / f"probe_{src}", Path(tmp) / f"{src}.so"
+            cu.write_text(_PROBE.format(
+                src=eng.SRC_DIR / src, fns=", ".join(
+                    f"(const void*){OCCUPANCY[n][1]}" for n in mine)))
+            run = subprocess.run([eng._nvcc(), *eng.NVCC_FLAGS, "-o",
+                                  str(lib), str(cu)], capture_output=True,
+                                 text=True)
+            if run.returncode != 0:
+                out.update({n: {"not measured": run.stderr[-2000:]}
+                            for n in mine})
+                continue
+            probe = ctypes.CDLL(str(lib))
+            for k, n in enumerate(mine):
+                v = [ctypes.c_int(-1) for _ in range(3)]
+                rc = probe.ab_occupancy(k, *map(ctypes.byref, v))
+                out[n] = ({"registers": v[0].value, "local_bytes": v[1].value,
+                           "blocks_per_sm": v[2].value} if rc == 0
+                          else {"not measured": f"CUDA error {rc}"})
+    return out
+
+
+def _sass(lib: Path) -> dict:
+    """function name -> its machine code (``cuobjdump -sass``, the
+    addresses and encodings stripped)."""
+    text = subprocess.run(["cuobjdump", "-sass", str(lib)],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        if line.strip().startswith("Function :"):
+            name = line.split(":", 1)[1].strip()
+            out[name] = []
+        elif name is not None and "/*" in line:
+            code = line.split("*/", 1)[-1].split("/*", 1)[0].strip()
+            if code:
+                out[name].append(code)
+    return out
+
+
+def sass_changes(old, new) -> dict:
+    """Per kernel source of this tree (``libwcsph_<source>_*.so``, each
+    tree's newest build of it): the kernels whose machine code differs
+    between the two trees, and how many are the same; or why it is not
+    measured."""
+    def newest(eng, stem):
+        libs = sorted(eng.BUILD_DIR.glob(f"{stem}_*.so"),
+                      key=lambda p: p.stat().st_mtime)
+        if not libs:
+            raise FileNotFoundError(f"no {stem} in {eng.BUILD_DIR}")
+        return libs[-1]
+
+    out = {}
+    for src in sorted(new.SRC_DIR.glob("*.cu")):
+        stem = f"libwcsph_{src.stem}"
+        try:
+            a, b = _sass(newest(old, stem)), _sass(newest(new, stem))
+        except (OSError, subprocess.CalledProcessError) as e:
+            out[stem] = {"not measured": str(e)}
+            continue
+        out[stem] = {"differ": sorted(k for k in a.keys() | b.keys()
+                                      if a.get(k) != b.get(k)),
+                     "same": sum(a.get(k) == b.get(k) for k in b)}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", required=True, type=Path,
                     help="root of an unpacked older tree")
+    ap.add_argument("--variant", action="append", default=[], type=Path,
+                    help="root of another tree whose AB_KERNELS are timed "
+                         "beside (kernels only); repeat for more")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("wcsph_tpu_torch.ab_list measures the CUDA device; "
@@ -351,6 +473,15 @@ def main(argv=None):
     card = bench.card_info()
     print(json.dumps({"card": card}), flush=True)
     old = old_engine(args.old.resolve())
+    variants = {v.resolve().name: old_engine(
+        v.resolve(), f"_ab_{k}_wcsph_tpu_torch")
+        for k, v in enumerate(args.variant)}
+    trees = {"old": old, "new": engine, **variants}
+    for eng in trees.values():
+        eng.library()
+    print(json.dumps({"card": card, "occupancy": {
+        s: occupancy(eng) for s, eng in trees.items()},
+        "sass_changes": sass_changes(old, engine)}), flush=True)
 
     paths = bench.flagship_paths(SIDE)
     for path in AB_SOLVERS:
@@ -382,7 +513,7 @@ def main(argv=None):
                      else int(hits.count.sum()) if hits
                      else int(grid.star.count.sum()) if grid.star is not None
                      else None)
-            res = kernels_ab(first, count, old)
+            res = kernels_ab(first, count, old, variants)
             print(json.dumps({
                 "solver": path, "scene": scene, "rows": grid.n,
                 "pairs": pairs, "card": card, "kernels": res,

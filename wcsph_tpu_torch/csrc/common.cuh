@@ -246,33 +246,50 @@ __device__ __forceinline__ void for_each_neighbor_cut(const Geom& g, int i,
 // slice, so each k is one coalesced line; the neighbour's position and
 // flag come in one 16-byte record; padding slots are skipped, never summed
 // as zero terms (+0.0 is not neutral at -0.0).
-template <class F>
+//
+// D, the depth, is how many of the row's slots the loop loads into
+// registers before it sums them (the slots past the row's n read none):
+// the D slot loads are in flight together, and the record and field loads
+// of the group no longer wait on a slot load each.  The pairs and their
+// order do not depend on D, so neither do the sums' bits.  D = 1 is the
+// one-slot loop (a slot, its record, the sum; unrolled 4).  A sweep picks
+// its depth on the card (sweeps.cu, kKappaDepth): a deeper group holds
+// more registers, so fewer blocks stay resident an SM.
+template <int D = 1, class F>
 __device__ __forceinline__ void for_each_listed_record(const Geom& g, int i,
                                                        F& f) {
+  static_assert(D >= 1, "the depth is a count of slots");
   const float4 ri = __ldg(g.nl_rec + i);
   const int b = g.nl_off[i >> 5];
   const int n = (g.nl_off[(i >> 5) + 1] - b) >> 5;
   const int* slot = g.nl_idx + b + (i & 31);
-#pragma unroll 4
-  for (int k = 0; k < n; ++k) {
-    const int j = __ldg(slot + 32 * k);
-    if (j < 0) continue;
-    const float4 rj = __ldg(g.nl_rec + j);
-    const float rx = ri.x - rj.x;
-    const float ry = ri.y - rj.y;
-    const float rz = ri.z - rj.z;
-    const float d2 = rx * rx + ry * ry + rz * rz;
-    f(j, rx, ry, rz, d2, rj);
+#pragma unroll (D == 1 ? 4 : 1)
+  for (int k = 0; k < n; k += D) {
+    int js[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      js[d] = D == 1 || k + d < n ? __ldg(slot + 32 * (k + d)) : -1;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int j = js[d];
+      if (j < 0) continue;
+      const float4 rj = __ldg(g.nl_rec + j);
+      const float rx = ri.x - rj.x;
+      const float ry = ri.y - rj.y;
+      const float rz = ri.z - rj.z;
+      const float d2 = rx * rx + ry * ry + rz * rz;
+      f(j, rx, ry, rz, d2, rj);
+    }
   }
 }
 
 // The same walk, calling f(j, rx, ry, rz, d2, lj) with lj the neighbour's
 // liquid flag (its record's .w).
-template <class F>
+template <int D = 1, class F>
 __device__ __forceinline__ void for_each_listed(const Geom& g, int i, F& f) {
   auto flag = [&](int j, float rx, float ry, float rz, float d2,
                   const float4& rj) { f(j, rx, ry, rz, d2, rj.w); };
-  for_each_listed_record(g, i, flag);
+  for_each_listed_record<D>(g, i, flag);
 }
 
 // Fixed-order tree over one block; thread 0 stores the block's partial.

@@ -76,8 +76,9 @@ struct KFromS {
   }
 };
 
-// sum_j V_j (k'_i + k'_j) gs r  (_KappaAcc), over the list
-template <class K>
+// sum_j V_j (k'_i + k'_j) gs r  (_KappaAcc), over the list at depth D
+// (for_each_listed_record)
+template <int D = 1, class K>
 __device__ __forceinline__ void kappa_sum(const Geom& g, int i, const K& k,
                                           float& ax, float& ay, float& az) {
   const float ki = k(i);
@@ -87,7 +88,7 @@ __device__ __forceinline__ void kappa_sum(const Geom& g, int i, const K& k,
     ay += c * ry;
     az += c * rz;
   };
-  for_each_listed(g, i, f);
+  for_each_listed<D>(g, i, f);
 }
 
 // Weiler viscosity pair coefficient seen from receiver i (_ViscAcc), lj
@@ -99,7 +100,8 @@ __device__ __forceinline__ float visc_coeff(float lj, int j, float d2,
   return (lj * a_liq * rinv[j] + (1.0f - lj) * b_sol * ri) / (d2 + d0);
 }
 
-// sum_j c (x_i - x_j).r gs r  (_ViscAcc), over the list
+// sum_j c (x_i - x_j).r gs r  (_ViscAcc), over the list at depth D
+template <int D = 1>
 __device__ __forceinline__ void visc_sum(const Geom& g, int i,
                                          const float* __restrict__ x,
                                          const float* __restrict__ rinv,
@@ -117,8 +119,17 @@ __device__ __forceinline__ void visc_sum(const Geom& g, int i,
     ay += cf * ry;
     az += cf * rz;
   };
-  for_each_listed(g, i, f);
+  for_each_listed<D>(g, i, f);
 }
+
+// The list walk's depth (for_each_listed_record) of the two K1 entries
+// that only the unfused loops run: of depths 4, 8 and 16 on the 1M dam
+// break, at rest and jittered, the fastest by device time (PERF.md §6).
+// The viscosity walk's deeper groups cost it registers (42 at depth 8: 5
+// blocks an SM where depth 4 keeps 6).  Every other walker walks at
+// depth 1.
+constexpr int kKappaDepth = 8;
+constexpr int kViscDepth = 4;
 
 // ---------------------------------------------------------------------------
 // K1: the pair sweep.  Replaces _build_sweep_sym (engine.py:441) with its
@@ -275,7 +286,7 @@ __global__ void k1_kappa_kernel(Geom g, const float* __restrict__ k,
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= g.M) return;
   float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  if (g.liq[i] != 0.0f) kappa_sum(g, i, KField{k}, ax, ay, az);
+  if (g.liq[i] != 0.0f) kappa_sum<kKappaDepth>(g, i, KField{k}, ax, ay, az);
   const int M = g.M;
   out[i] = ax;
   out[M + i] = ay;
@@ -294,7 +305,7 @@ __global__ void k1_visc_acc_kernel(Geom g, const float* __restrict__ x,
   if (i >= g.M) return;
   float ax = 0.0f, ay = 0.0f, az = 0.0f;
   if (g.liq[i] != 0.0f)
-    visc_sum(g, i, x, rinv, a_liq, b_sol, d0, ax, ay, az);
+    visc_sum<kViscDepth>(g, i, x, rinv, a_liq, b_sol, d0, ax, ay, az);
   const int M = g.M;
   out[i] = ax;
   out[M + i] = ay;
