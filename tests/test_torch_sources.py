@@ -252,26 +252,71 @@ def test_one_listed_walk_with_a_depth():
                      common["for_each_listed"])
 
 
-# the walkers that walk the list at a depth above 1: the two K1 entries of
-# the unfused loops
-DEEP_WALKERS = ["k1_kappa_kernel", "k1_visc_acc_kernel"]
+# the emits that solver_sweeps.cu's listed sweep kernel runs (K5's IISPH
+# three, K6's two, K7's two, and the unfused loops' entries: IISPH's two
+# of their own, the tension's K6 emits)
+LISTED_EMITS = ["IisphAdv", "IisphAii", "IisphForce", "SurfaceNormals",
+                "TensionAccel", "IisphDij", "IisphS", "IisphDijFac",
+                "IisphSFields"]
+# the walkers that walk the list at a depth above 1: the four K1 entries of
+# the unfused loops that have an H100 design of their own (the unfused
+# kappa and viscosity kernels of sweeps.cu; the emits of the unfused IISPH
+# entries, k1_iisph_dij and k1_iisph_s, in solver_sweeps.cu's listed sweep
+# kernel)
+DEEP_WALKERS = ["k1_kappa_kernel", "k1_visc_acc_kernel",
+                "k5_list_kernel<IisphDijFac>", "k5_list_kernel<IisphSFields>"]
 
 
-@pytest.mark.parametrize("kernel", LIST_WALKERS + ["k5_list_kernel"])
+def _emit_depth(text, consts, emit):
+    """The walk depth that emit ``emit`` of ``text`` sets (its struct's, or
+    for an alias its template's, ``static constexpr int kDepth``), or 1
+    where it sets none."""
+    alias = re.search(rf"^using {emit} = (\w+)<", text, re.M)
+    name = alias.group(1) if alias else emit
+    body = re.search(rf"^struct {name}\b[^{{;]*\{{.*?\n\}};", text,
+                     re.S | re.M).group(0)
+    depth = re.findall(r"static constexpr int kDepth = (\w+);", body)
+    assert len(depth) <= 1, depth
+    return (1 if not depth else consts[depth[0]] if depth[0] in consts
+            else int(depth[0]))
+
+
+@pytest.mark.parametrize("kernel", LIST_WALKERS + ["k5_list_kernel"] + [
+    f"k5_list_kernel<{e}>" for e in LISTED_EMITS])
 def test_listed_walk_depth(kernel):
     """The walker reaches the listed walk at one depth: above 1, a
-    constant of sweeps.cu (no switch), for DEEP_WALKERS; the default 1 for
-    every other walker of sweeps.cu and for solver_sweeps.cu's listed
-    sweep kernel."""
-    src = "solver_sweeps.cu" if kernel == "k5_list_kernel" else "sweeps.cu"
-    text = (CSRC / src).read_text()
+    constant of its source (no switch), for DEEP_WALKERS; the default 1 for
+    every other walker of sweeps.cu and every other emit of
+    solver_sweeps.cu's listed sweep kernel, which walks at its emit's depth
+    (``WalkDepth<E>``: the emit's kDepth, or 1 where it sets none; the
+    kernel alone, ``k5_list_kernel``, at 1)."""
+    listed = kernel.startswith("k5_list_kernel")
+    text = (CSRC / ("solver_sweeps.cu" if listed else "sweeps.cu")).read_text()
     consts = {k: int(v) for k, v in
               re.findall(r"^constexpr int (\w+) = (\d+);", text, re.M)}
     bodies = {**_bodies((CSRC / "common.cuh").read_text()),
               **_bodies(text)}
-    depths = _walk_depths(bodies, consts, kernel)
+    depth = 1
+    if listed:
+        assert re.search(r"\bconstexpr int D = WalkDepth<E>::value;",
+                         bodies["k5_list_kernel"])
+        assert re.search(r"struct WalkDepth<E, std::void_t<decltype\("
+                         r"E::kDepth\)>> \{\s*static constexpr int value = "
+                         r"E::kDepth;", text)
+        if "<" in kernel:
+            depth = _emit_depth(text, consts, kernel[len("k5_list_kernel<"):-1])
+    depths = _walk_depths(bodies, consts, kernel.split("<")[0], depth)
     assert len(depths) == 1, depths
     assert (min(depths) > 1) == (kernel in DEEP_WALKERS), depths
+
+
+def test_listed_emits_are_whole():
+    """LISTED_EMITS lists every emit that an entry of solver_sweeps.cu hands
+    to the listed sweep kernel."""
+    text = (CSRC / "solver_sweeps.cu").read_text()
+    launched = set(re.findall(r"\blaunch_list_sweep\(\s*&?\w+,\s*(\w+)\{",
+                              text))
+    assert launched == set(LISTED_EMITS)
 
 
 # the K5 entries of the steps that build no list (SESPH, PCISPH; IISPH's
@@ -309,7 +354,8 @@ def test_solver_walkers_never_scan_the_cells():
                          re.S).group(0)
 
     def launched(name):
-        return re.findall(r"\blaunch_(\w*)sweep\(\s*g, (\w+)\{", entry(name))
+        return re.findall(r"\blaunch_(\w*)sweep\(\s*&?\w+, (\w+)\{",
+                          entry(name))
 
     assert launched("k7_fused_jacobi_iter") == [
         ("list_", "IisphDij"), ("list_", "IisphS")]
@@ -318,9 +364,16 @@ def test_solver_walkers_never_scan_the_cells():
     assert launched("k5_iisph_force") == [("list_", "IisphForce")]
     assert launched("k6_fused_tension") == [
         ("list_", "SurfaceNormals"), ("list_", "TensionAccel")]
-    # K1's emits of the unfused loops: the same list sweeps alone
+    # K1's emits of the unfused loops: the same list sweeps alone; dij's
+    # after a pack of its walk's own records (x, y, z, fac), which it walks
+    # in place of the list's
     assert launched("k1_iisph_dij") == [("list_", "IisphDijFac")]
     assert launched("k1_iisph_s") == [("list_", "IisphSFields")]
+    body = entry("k1_iisph_dij")
+    assert re.findall(r"\b(\w+)<<<", body) == ["k1_fac_records_kernel"]
+    assert (body.index("k1_fac_records_kernel")
+            < body.index("nl_rec = ") < body.index("launch_list_sweep"))
+    assert not re.search(r"<<<", entry("k1_iisph_s"))
     assert launched("k1_surface_normals") == [("list_", "SurfaceNormals")]
     assert launched("k1_tension_accel") == [("list_", "TensionAccel")]
     # the unfused PCISPH prediction cuts the cells' candidates at x* into

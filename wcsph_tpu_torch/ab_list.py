@@ -78,20 +78,23 @@ import torch
 from . import bench, engine
 from .grid import ListSlots, PredictHits
 
-# the wrappers a change measured: the unfused kappa sum and viscosity
-# matvec, their list walks
-AB_KERNELS = ("k1_kappa_acc", "k1_visc_acc")
+# the wrappers a change measured: the unfused IISPH Jacobi iteration's two
+# list walks (dij's with the pack launch of its records before it)
+AB_KERNELS = ("k1_iisph_dij", "k1_iisph_s")
 # the paths of bench.flagship_paths whose steps call them
-AB_SOLVERS = ("dfsph-unfused", "iisph-unfused")
+AB_SOLVERS = ("iisph-unfused",)
 # The older wrapper of a wrapper that this tree split off (none here).
 OLD_NAMES = {}
 # The older wrappers' arguments, from this tree's, where a signature
 # changed (none here).
 OLD_ARGS = {}
-# name -> (csrc source, the __global__ kernel it launches) of the wrappers
-# of AB_KERNELS, for the occupancy probe
-OCCUPANCY = {"k1_kappa_acc": ("sweeps.cu", "k1_kappa_kernel"),
-             "k1_visc_acc": ("sweeps.cu", "k1_visc_acc_kernel")}
+# name -> (csrc source, the __global__ kernel it launches that walks the
+# list) of the wrappers of AB_KERNELS, for the occupancy probe (a template's
+# instance by the name every tree gives it)
+OCCUPANCY = {"k1_iisph_dij": ("solver_sweeps.cu",
+                              "k5_list_kernel<IisphDijFac>"),
+             "k1_iisph_s": ("solver_sweeps.cu",
+                            "k5_list_kernel<IisphSFields>")}
 # name -> (arguments of a recorded call -> the one PyTorch call that
 # computes the same function's core, as chip_smoke.py times it); none
 # computes a sweep over a cell list

@@ -60,7 +60,8 @@ struct Geom {
   const int* nl_off;
   // The list's record of every row, (x, y, z, liquid flag), written by the
   // fill: one 16-byte load per listed neighbour where the planar arrays
-  // take four scattered 4-byte ones.
+  // take four scattered 4-byte ones.  A sweep may walk records of its own
+  // in their place, with another word in .w (k1_iisph_dij: fac).
   const float4* nl_rec;
 };
 
@@ -253,8 +254,9 @@ __device__ __forceinline__ void for_each_neighbor_cut(const Geom& g, int i,
 // of the group no longer wait on a slot load each.  The pairs and their
 // order do not depend on D, so neither do the sums' bits.  D = 1 is the
 // one-slot loop (a slot, its record, the sum; unrolled 4).  A sweep picks
-// its depth on the card (sweeps.cu, kKappaDepth): a deeper group holds
-// more registers, so fewer blocks stay resident an SM.
+// its depth on the card (sweeps.cu, kKappaDepth; an emit's kDepth in
+// solver_sweeps.cu): a deeper group holds more registers, so fewer blocks
+// stay resident an SM.
 template <int D = 1, class F>
 __device__ __forceinline__ void for_each_listed_record(const Geom& g, int i,
                                                        F& f) {

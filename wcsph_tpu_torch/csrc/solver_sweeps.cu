@@ -45,6 +45,8 @@
 //
 // A launch returns cudaGetLastError().
 
+#include <type_traits>
+
 #include "common.cuh"
 
 // ---------------------------------------------------------------------------
@@ -70,8 +72,20 @@
 //     holds the pairs of the liquid rows); n is the neighbour's record,
 //     the float4 (x, y, z, liquid flag) the walk has already loaded, so an
 //     emit that needs the neighbour's position (TensionAccel) reads no
-//     other array for it.
+//     other array for it.  It walks at the emit's depth, E::kDepth where
+//     the emit sets one, else 1 (WalkDepth; for_each_listed_record).
 // ---------------------------------------------------------------------------
+
+// The list walk's depth of a listed emit: its kDepth, or 1 where it sets
+// none.
+template <class E, class = void>
+struct WalkDepth {
+  static constexpr int value = 1;
+};
+template <class E>
+struct WalkDepth<E, std::void_t<decltype(E::kDepth)>> {
+  static constexpr int value = E::kDepth;
+};
 
 template <class E>
 __global__ void k5_cut_kernel(Geom g, E e) {
@@ -104,7 +118,8 @@ __global__ void k5_list_kernel(Geom g, E e) {
                  const float4& rj) {
       e.pair(g, row, j, rx, ry, rz, d2, rj, acc);
     };
-    for_each_listed_record(g, i, f);
+    constexpr int D = WalkDepth<E>::value;
+    for_each_listed_record<D>(g, i, f);
   }
   e.finish(g, i, acc);
 }
@@ -405,19 +420,13 @@ struct TensionAccel {
 // ---------------------------------------------------------------------------
 
 // dij's source factor of row j: fac_j = -liq_j deninv_j p_j formed on the
-// fly (K7) ...
+// fly (K7; k1_iisph_dij walks the caller's fac, IisphDijFac below).
 struct FacFromP {
   const float* deninv;
   const float* p;
   __device__ float operator()(int j, float lj) const {
     return -lj * deninv[j] * p[j];
   }
-};
-
-// ... or the caller's fac, the JAX method's operand (k1_iisph_dij).
-struct FacField {
-  const float* fac;
-  __device__ float operator()(int j, float) const { return fac[j]; }
 };
 
 template <class Fac>
@@ -441,7 +450,6 @@ struct IisphDijOf {
   }
 };
 using IisphDij = IisphDijOf<FacFromP>;
-using IisphDijFac = IisphDijOf<FacField>;
 
 // s's pressure terms: p_liq_j = liq_j p_j and the receiver's g_i =
 // deninv_i p_i formed on the fly (K7) ...
@@ -497,7 +505,6 @@ struct IisphSOf {
   }
 };
 using IisphS = IisphSOf<PressFromP>;
-using IisphSFields = IisphSOf<PressFields>;
 
 __global__ void k7_update_kernel(int M, const float* __restrict__ liq,
                                  const float* __restrict__ aii,
@@ -522,6 +529,65 @@ __global__ void k7_update_kernel(int M, const float* __restrict__ liq,
   }
   block_partial(part, partials);
 }
+
+// ---------------------------------------------------------------------------
+// K1's IISPH emits of the unfused loop: K7's two list sweeps alone, on the
+// JAX method's operands (_IisphDij 2397 on fac; _IisphS 2417 on p_liq and
+// g), which only that loop runs.  Each walks the list at a depth of its
+// own; the pairs, their order and their arithmetic are K7's, term for term
+// (the same bits).  What bounds them is the gathers per listed neighbour:
+//   * dij's pair reads j's record and fac_j.  Its entry first packs
+//     (x_j, y_j, z_j, fac_j) into records of its own, which the walk reads
+//     in place of the list's: one 16-byte load a pair where there were
+//     two, for a pass of ~35 MB (0.98x the walk at depth 8 alone at rest,
+//     0.96x jittered, the pass counted in; PERF.md §6);
+//   * s's pair reads seven words of j from seven planes (dii and dij three
+//     each, p_liq).  Packed into one 32-byte row a neighbour they cost a
+//     pass of ~66 MB and gained nothing at rest, where the cell-sorted
+//     neighbours of a warp's rows share the planes' sectors in L1 (1.16x
+//     the walk alone at depth 8; 0.91x jittered): the walk reads the planes.
+// ---------------------------------------------------------------------------
+
+// The list walk's depth (for_each_listed_record) of the two: of depths 2,
+// 4, 8 and 16 on the 1M dam break, the fastest by device time at rest and
+// jittered (PERF.md §6).  Every other emit of k5_list_kernel walks at 1.
+constexpr int kIisphDijDepth = 8;
+constexpr int kIisphSDepth = 8;
+
+// dij's walk records: (x_j, y_j, z_j, fac_j), walked in place of the
+// list's (x, y, z, liquid flag).  fac carries the liquid mask (0 at a
+// boundary row), so the pair needs no flag.
+__global__ void k1_fac_records_kernel(int M, const float* __restrict__ pos,
+                                      const float* __restrict__ fac,
+                                      float4* __restrict__ rec) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i < M) rec[i] = make_float4(pos[i], pos[M + i], pos[2 * M + i], fac[i]);
+}
+
+// IisphDijOf's pair, with fac_j the record's .w.
+struct IisphDijFac {
+  static constexpr int kOut = 3;
+  static constexpr bool kAllRows = false;
+  static constexpr int kDepth = kIisphDijDepth;
+  using Row = NoRow;
+  float* out;
+  __device__ Row row(const Geom&, int) const { return Row{}; }
+  __device__ void pair(const Geom& g, const Row&, int, float rx, float ry,
+                       float rz, float d2, const float4& rj,
+                       float* acc) const {
+    const float fg = rj.w * kernel_gs(g, d2);
+    acc[0] += fg * rx;
+    acc[1] += fg * ry;
+    acc[2] += fg * rz;
+  }
+  __device__ void finish(const Geom& g, int i, const float* acc) const {
+    store_channels<kOut>(out, g.M, i, acc);
+  }
+};
+
+struct IisphSFields : IisphSOf<PressFields> {
+  static constexpr int kDepth = kIisphSDepth;
+};
 
 // ---------------------------------------------------------------------------
 // K8: a whole PCISPH prediction iteration.  Replaces
@@ -850,15 +916,23 @@ extern "C" int k8_fused_pcisph_iter(const Geom* g, const float* vel_star,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int k1_iisph_dij(const Geom* g, const float* fac, float* out,
-                            void* stream) {
-  return launch_list_sweep(g, IisphDijFac{{fac}, out}, stream);
+// rec: (M, 4) floats, 16-byte aligned, the walk's records (scratch).
+extern "C" int k1_iisph_dij(const Geom* g, const float* fac, float* rec,
+                            float* out, void* stream) {
+  k1_fac_records_kernel<<<blocks_of(g->M), kBlock, 0,
+                          (cudaStream_t)stream>>>(
+      g->M, g->pos, fac, reinterpret_cast<float4*>(rec));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Geom walk = *g;
+  walk.nl_rec = reinterpret_cast<const float4*>(rec);
+  return launch_list_sweep(&walk, IisphDijFac{out}, stream);
 }
 
 extern "C" int k1_iisph_s(const Geom* g, const float* dii, const float* dij,
                           const float* p_liq, const float* gi, float* out,
                           void* stream) {
-  return launch_list_sweep(g, IisphSFields{dii, dij, {p_liq, gi}, out},
+  return launch_list_sweep(g, IisphSFields{{dii, dij, {p_liq, gi}, out}},
                            stream);
 }
 

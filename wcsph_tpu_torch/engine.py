@@ -298,7 +298,7 @@ _SIGNATURES = {
     "k1_visc_acc": [_G, _P, _P, _F, _F, _F, _P, _P],
     "k1_pcisph_predict": [_G, _P, _P, _I, _P, _P, _P, _P, _P],
     "k1_pcisph_walk": [_G, _P, _P, _I, _P, _P, _P, _P, _P],
-    "k1_iisph_dij": [_G, _P, _P, _P],
+    "k1_iisph_dij": [_G, _P, _P, _P, _P],
     "k1_iisph_s": [_G, _P, _P, _P, _P, _P, _P],
     "k1_surface_normals": [_G, _P, _F, _P, _P],
     "k1_tension_accel": [_G, _P, _P, _T, _P, _P],
@@ -822,9 +822,10 @@ def unpack_rows(grid: Grid, packed, defaults):
 def _sweep(name: str, grid: Grid, operands, shapes, n_out, *consts,
            listed: bool = False):
     """Launch a sweep entry with one (n_out, M) output (K5's, and K1's
-    emits of the unfused loops): checked operands, then constants, then the
-    output; ``listed``: the entry walks the step's neighbour list (see
-    ``_geom``)."""
+    emits of the unfused loops): checked operands, then constants (or the
+    pointer of a scratch the caller holds until the launch is enqueued),
+    then the output; ``listed``: the entry walks the step's neighbour list
+    (see ``_geom``)."""
     _check(*operands, shapes=shapes)
     out = torch.empty((n_out, grid.n), dtype=torch.float32,
                       device=grid.device)
@@ -1036,10 +1037,13 @@ def k1_pcisph_walk(grid: Grid, xstar: torch.Tensor, p: torch.Tensor,
 
 
 def k1_iisph_dij(grid: Grid, fac: torch.Tensor) -> torch.Tensor:
-    """(3, M) dij = sum_j fac_j gs r at liquid rows (walks the list)."""
+    """(3, M) dij = sum_j fac_j gs r at liquid rows (walks the list, over
+    records (x, y, z, fac) that the entry packs first into ``rec``)."""
     if not _route(fac):
         return dense_ops.iisph_dij(grid, fac)
-    return _sweep("k1_iisph_dij", grid, [fac], [(grid.n,)], 3, listed=True)
+    rec = torch.empty((grid.n, 4), dtype=torch.float32, device=fac.device)
+    return _sweep("k1_iisph_dij", grid, [fac], [(grid.n,)], 3,
+                  rec.data_ptr(), listed=True)
 
 
 def k1_iisph_s(grid: Grid, dii: torch.Tensor, dij: torch.Tensor,
