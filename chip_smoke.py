@@ -70,7 +70,7 @@ its own lines and raising on failure:
    step's beyond one an iteration no more than its fused path's; its
    median step beside the fused path's); then the grid
    stage, the list and each kernel against its plain twin again and timed
-   beside it at those shapes (the four walks that load slots ahead,
+   beside it at those shapes (the six walks that load slots ahead,
    ``DEEP_WALKS``, and the list they walk also with the liquid jittered;
    every list walker's device time too,
    torch.profiler), with the least time the card could take for
@@ -486,20 +486,22 @@ def check_list(grid, vel, chk):
 
 
 # The list walks that take a depth above 1 (kKappaDepth, kViscDepth in
-# csrc/sweeps.cu; the kDepth of the unfused IISPH emits in
+# csrc/sweeps.cu; the kDepth of the unfused IISPH and tension emits in
 # csrc/solver_sweeps.cu), held to their twins once more on the 1M state with
 # every liquid position jittered by a numpy-seeded uniform +-JITTER r:
 # ragged slot counts a row run the tail of each group of slots the walk
 # loads ahead
-DEEP_WALKS = ("k1_kappa_acc", "k1_visc_acc", "k1_iisph_dij", "k1_iisph_s")
+DEEP_WALKS = ("k1_kappa_acc", "k1_visc_acc", "k1_iisph_dij", "k1_iisph_s",
+              "k1_surface_normals", "k1_tension_accel")
 JITTER = 0.3
 
 
 def check_jittered_walks(state, cfg, chk, rng):
     """DEEP_WALKS against their twins (``check_kernels``, TOL_SWEEP) on the
     grid of ``state`` with its liquid positions jittered, on seeded k, d,
-    1 / rho and IISPH's fac, dii, dij, p_liq and g, after the fill's list of
-    that grid is held to the plain list (``check_list``)."""
+    1 / rho, IISPH's fac, dii, dij, p_liq and g, and the tension's rho, ril
+    = liq / rho and h-scaled normals, after the fill's list of that grid is
+    held to the plain list (``check_list``)."""
     import torch
 
     from wcsph_tpu_torch.grid import build_grid
@@ -528,10 +530,15 @@ def check_jittered_walks(state, cfg, chk, rng):
     dij = (seeded(3, m) * liq).contiguous()
     p_liq = (seeded(m).abs() * 1e3 * liq).contiguous()
     g = (seeded(m) * liq).contiguous()
+    rho = (1.0 / rinv).contiguous()
+    ril = (liq * rinv).contiguous()
+    normals = (seeded(3, m) * liq).contiguous()
     make = {"k1_kappa_acc": lambda: (grid, k),
             "k1_visc_acc": lambda: (grid, d, rinv),
             "k1_iisph_dij": lambda: (grid, fac),
-            "k1_iisph_s": lambda: (grid, dii, dij, p_liq, g)}
+            "k1_iisph_s": lambda: (grid, dii, dij, p_liq, g),
+            "k1_surface_normals": lambda: (grid, ril),
+            "k1_tension_accel": lambda: (grid, rho, normals)}
     check_kernels(grid, [(name, "jittered", make[name], lambda a, r: [r],
                           TOL_SWEEP) for name in DEEP_WALKS], chk)
 
@@ -627,8 +634,8 @@ LIST_WALKERS = {
                              "k5_list_kernel IisphSOf PressFromP"),
     "k1_iisph_dij": ("k5_list_kernel IisphDijFac",),
     "k1_iisph_s": ("k5_list_kernel IisphSFields",),
-    "k1_surface_normals": ("k5_list_kernel SurfaceNormals",),
-    "k1_tension_accel": ("k5_list_kernel TensionAccel",),
+    "k1_surface_normals": ("k5_list_kernel SurfaceNormalsK1",),
+    "k1_tension_accel": ("k5_list_kernel TensionAccelK1",),
 }
 
 

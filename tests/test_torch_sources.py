@@ -254,17 +254,19 @@ def test_one_listed_walk_with_a_depth():
 
 # the emits that solver_sweeps.cu's listed sweep kernel runs (K5's IISPH
 # three, K6's two, K7's two, and the unfused loops' entries: IISPH's two
-# of their own, the tension's K6 emits)
+# and the tension's two, each of its own)
 LISTED_EMITS = ["IisphAdv", "IisphAii", "IisphForce", "SurfaceNormals",
                 "TensionAccel", "IisphDij", "IisphS", "IisphDijFac",
-                "IisphSFields"]
-# the walkers that walk the list at a depth above 1: the four K1 entries of
-# the unfused loops that have an H100 design of their own (the unfused
-# kappa and viscosity kernels of sweeps.cu; the emits of the unfused IISPH
-# entries, k1_iisph_dij and k1_iisph_s, in solver_sweeps.cu's listed sweep
-# kernel)
+                "IisphSFields", "SurfaceNormalsK1", "TensionAccelK1"]
+# the walkers that walk the list at a depth above 1: the six K1 entries of
+# the unfused loops (the unfused kappa and viscosity kernels of sweeps.cu;
+# the emits of the unfused IISPH and tension entries, k1_iisph_dij,
+# k1_iisph_s, k1_surface_normals and k1_tension_accel, in
+# solver_sweeps.cu's listed sweep kernel)
 DEEP_WALKERS = ["k1_kappa_kernel", "k1_visc_acc_kernel",
-                "k5_list_kernel<IisphDijFac>", "k5_list_kernel<IisphSFields>"]
+                "k5_list_kernel<IisphDijFac>", "k5_list_kernel<IisphSFields>",
+                "k5_list_kernel<SurfaceNormalsK1>",
+                "k5_list_kernel<TensionAccelK1>"]
 
 
 def _emit_depth(text, consts, emit):
@@ -364,9 +366,15 @@ def test_solver_walkers_never_scan_the_cells():
     assert launched("k5_iisph_force") == [("list_", "IisphForce")]
     assert launched("k6_fused_tension") == [
         ("list_", "SurfaceNormals"), ("list_", "TensionAccel")]
+    # ... at depth 1: the unfused entries walk emits of their own
+    consts = {k: int(v) for k, v in
+              re.findall(r"^constexpr int (\w+) = (\d+);", text, re.M)}
+    for emit in ("SurfaceNormals", "TensionAccel"):
+        assert _emit_depth(text, consts, emit) == 1, emit
     # K1's emits of the unfused loops: the same list sweeps alone; dij's
     # after a pack of its walk's own records (x, y, z, fac), which it walks
-    # in place of the list's
+    # in place of the list's; the tension's after a pack of its neighbours'
+    # rows (n, rho)
     assert launched("k1_iisph_dij") == [("list_", "IisphDijFac")]
     assert launched("k1_iisph_s") == [("list_", "IisphSFields")]
     body = entry("k1_iisph_dij")
@@ -374,8 +382,13 @@ def test_solver_walkers_never_scan_the_cells():
     assert (body.index("k1_fac_records_kernel")
             < body.index("nl_rec = ") < body.index("launch_list_sweep"))
     assert not re.search(r"<<<", entry("k1_iisph_s"))
-    assert launched("k1_surface_normals") == [("list_", "SurfaceNormals")]
-    assert launched("k1_tension_accel") == [("list_", "TensionAccel")]
+    assert launched("k1_surface_normals") == [("list_", "SurfaceNormalsK1")]
+    assert launched("k1_tension_accel") == [("list_", "TensionAccelK1")]
+    assert not re.search(r"<<<", entry("k1_surface_normals"))
+    body = entry("k1_tension_accel")
+    assert re.findall(r"\b(\w+)<<<", body) == ["k1_tension_rows_kernel"]
+    assert (body.index("k1_tension_rows_kernel")
+            < body.index("launch_list_sweep"))
     # the unfused PCISPH prediction cuts the cells' candidates at x* into
     # register masks (no list holds the pairs at x*) and keeps its hits;
     # its walk sums them, and scans the cells again (into register masks)
@@ -410,10 +423,12 @@ def test_solver_walkers_never_scan_the_cells():
         assert not re.search(r"\bfor_each_neighbor\w*\s*\(|\.start\[",
                              bodies[walker]), walker
     # TensionAccel takes the neighbour's position from the walk's record
+    # (in its pair, tension_pair, which the unfused entry's emit shares)
     tension = re.search(r"struct TensionAccel \{.*?\n\};", text,
                         re.S).group(0)
-    assert re.search(r"\brj\.x\b", tension)
-    assert not re.search(r"\bg\.pos\[", tension)
+    assert re.search(r"\btension_pair\(", tension)
+    assert re.search(r"\brj\.x\b", bodies["tension_pair"])
+    assert not re.search(r"\bg\.pos\[", tension + bodies["tension_pair"])
 
     tree = ast.parse((ROOT / "wcsph_tpu_torch" / "engine.py").read_text())
     wrappers = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}

@@ -78,11 +78,11 @@ import torch
 from . import bench, engine
 from .grid import ListSlots, PredictHits
 
-# the wrappers a change measured: the unfused IISPH Jacobi iteration's two
-# list walks (dij's with the pack launch of its records before it)
-AB_KERNELS = ("k1_iisph_dij", "k1_iisph_s")
+# the wrappers a change measured: the unfused DFSPH step's two tension
+# walks (the tension's with the pack launch of its rows before it)
+AB_KERNELS = ("k1_surface_normals", "k1_tension_accel")
 # the paths of bench.flagship_paths whose steps call them
-AB_SOLVERS = ("iisph-unfused",)
+AB_SOLVERS = ("dfsph+tension-unfused",)
 # The older wrapper of a wrapper that this tree split off (none here).
 OLD_NAMES = {}
 # The older wrappers' arguments, from this tree's, where a signature
@@ -90,11 +90,16 @@ OLD_NAMES = {}
 OLD_ARGS = {}
 # name -> (csrc source, the __global__ kernel it launches that walks the
 # list) of the wrappers of AB_KERNELS, for the occupancy probe (a template's
-# instance by the name every tree gives it)
-OCCUPANCY = {"k1_iisph_dij": ("solver_sweeps.cu",
-                              "k5_list_kernel<IisphDijFac>"),
-             "k1_iisph_s": ("solver_sweeps.cu",
-                            "k5_list_kernel<IisphSFields>")}
+# instance by the name this tree and the variants give it) ...
+OCCUPANCY = {"k1_surface_normals": ("solver_sweeps.cu",
+                                    "k5_list_kernel<SurfaceNormalsK1>"),
+             "k1_tension_accel": ("solver_sweeps.cu",
+                                  "k5_list_kernel<TensionAccelK1>")}
+# ... and the same for the old tree, whose entries walked K6's emits
+OLD_OCCUPANCY = {"k1_surface_normals": ("solver_sweeps.cu",
+                                        "k5_list_kernel<SurfaceNormals>"),
+                 "k1_tension_accel": ("solver_sweeps.cu",
+                                      "k5_list_kernel<TensionAccel>")}
 # name -> (arguments of a recorded call -> the one PyTorch call that
 # computes the same function's core, as chip_smoke.py times it); none
 # computes a sweep over a cell list
@@ -386,21 +391,22 @@ extern "C" int ab_occupancy(int which, int* regs, int* local, int* blocks) {{
 """
 
 
-def occupancy(eng) -> dict:
+def occupancy(eng, kernels) -> dict:
     """name -> {registers, local_bytes, blocks_per_sm} of the kernel of each
-    wrapper of ``OCCUPANCY`` in AB_KERNELS, for the tree of the engine
-    module ``eng``: a probe that includes the tree's own source, built with
-    its own flags (the same machine code as its library), asks the
-    runtime.  A probe that does not build gives its error instead."""
-    names = [n for n in AB_KERNELS if n in OCCUPANCY]
+    wrapper of ``kernels`` (``OCCUPANCY`` or ``OLD_OCCUPANCY``) in
+    AB_KERNELS, for the tree of the engine module ``eng``: a probe that
+    includes the tree's own source, built with its own flags (the same
+    machine code as its library), asks the runtime.  A probe that does not
+    build gives its error instead."""
+    names = [n for n in AB_KERNELS if n in kernels]
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for src in sorted({OCCUPANCY[n][0] for n in names}):
-            mine = [n for n in names if OCCUPANCY[n][0] == src]
+        for src in sorted({kernels[n][0] for n in names}):
+            mine = [n for n in names if kernels[n][0] == src]
             cu, lib = Path(tmp) / f"probe_{src}", Path(tmp) / f"{src}.so"
             cu.write_text(_PROBE.format(
                 src=eng.SRC_DIR / src, fns=", ".join(
-                    f"(const void*){OCCUPANCY[n][1]}" for n in mine)))
+                    f"(const void*){kernels[n][1]}" for n in mine)))
             run = subprocess.run([eng._nvcc(), *eng.NVCC_FLAGS, "-o",
                                   str(lib), str(cu)], capture_output=True,
                                  text=True)
@@ -483,7 +489,8 @@ def main(argv=None):
     for eng in trees.values():
         eng.library()
     print(json.dumps({"card": card, "occupancy": {
-        s: occupancy(eng) for s, eng in trees.items()},
+        s: occupancy(eng, OLD_OCCUPANCY if s == "old" else OCCUPANCY)
+        for s, eng in trees.items()},
         "sass_changes": sass_changes(old, engine)}), flush=True)
 
     paths = bench.flagship_paths(SIDE)

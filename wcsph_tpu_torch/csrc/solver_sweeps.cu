@@ -310,7 +310,8 @@ struct IisphForce {
 // ---------------------------------------------------------------------------
 
 // The normals' sums times `scale`: h in K6, 1 in the unfused entry
-// k1_surface_normals, whose caller scales by h (engine.surface_normals).
+// k1_surface_normals (SurfaceNormalsK1), whose caller scales by h
+// (engine.surface_normals).
 struct SurfaceNormals {
   static constexpr int kOut = 3;
   static constexpr bool kAllRows = false;
@@ -348,12 +349,68 @@ struct TensionParams {
   float cx, cy, cz, radius2;  // adhesion region around the SOURCE particle
 };
 
+// The receiver's fields of the tension's pair: its density and h-scaled
+// normal.
+struct TensionRow {
+  float rho, nx, ny, nz;
+};
+
+// The neighbour's density and normal as TensionAccel reads them: from the
+// planes rho (M,) and n (3, M).
+struct TensionPlanes {
+  const float* rho;
+  const float* n;
+  int M, j;
+  __device__ float rho_j() const { return rho[j]; }
+  __device__ float nx() const { return n[j]; }
+  __device__ float ny() const { return n[M + j]; }
+  __device__ float nz() const { return n[2 * M + j]; }
+};
+
+// _TensionAccel's pair: Akinci cohesion, curvature and boundary adhesion,
+// with the neighbour's density and normal from nb (each read where the
+// sum needs it).
+template <class Nb>
+__device__ __forceinline__ void tension_pair(const Geom& g,
+                                             const TensionParams& t,
+                                             const TensionRow& r, float rx,
+                                             float ry, float rz, float d2,
+                                             const float4& rj, const Nb& nb,
+                                             float* acc) {
+  const float lj = rj.w;
+  const float h = g.h;
+  const float dist = sqrtf(fmaxf(d2, 1.0e-12f));
+  const float inv_dist = 1.0f / fmaxf(dist, t.eps);
+  const bool pair_ok = d2 > t.eps;
+  const float k_ij = t.rho0x2 / fmaxf(r.rho + nb.rho_j(), 1.0f);
+  const float gate = pair_ok ? lj * k_ij : 0.0f;
+  // kernels.cohesion_w_scalar
+  const float hd = h - dist;
+  const float base = hd * hd * hd * (dist * dist * dist);
+  const float w_coh = dist > 0.5f * h ? t.coh_k * base
+                                      : 2.0f * t.coh_k * base - t.coh_c;
+  // kernels.adhesion_w_scalar
+  const float arg =
+      fmaxf(-4.0f * dist * dist / h + 6.0f * dist - 2.0f * h, 0.0f);
+  const float w_adh = dist > 0.5f * h ? t.adh_k * sqrtf(sqrtf(arg)) : 0.0f;
+  // the neighbour's own position, from its record (the floats of g.pos)
+  const float ex = rj.x - t.cx;
+  const float ey = rj.y - t.cy;
+  const float ez = rj.z - t.cz;
+  const bool in_region = ex * ex + ey * ey + ez * ez < t.radius2;
+  const float adh_gate = (pair_ok && in_region) ? 1.0f - lj : 0.0f;
+  const float c_rad = t.coh * w_coh * inv_dist * gate +
+                      t.adh * w_adh * inv_dist * adh_gate;
+  const float cg = gate * t.curv;
+  acc[0] += c_rad * rx + cg * (r.nx - nb.nx());
+  acc[1] += c_rad * ry + cg * (r.ny - nb.ny());
+  acc[2] += c_rad * rz + cg * (r.nz - nb.nz());
+}
+
 struct TensionAccel {
   static constexpr int kOut = 3;
   static constexpr bool kAllRows = false;
-  struct Row {
-    float rho, nx, ny, nz;
-  };
+  using Row = TensionRow;
   const float* rho;
   const float* n;
   TensionParams t;
@@ -364,35 +421,8 @@ struct TensionAccel {
   __device__ void pair(const Geom& g, const Row& r, int j, float rx, float ry,
                        float rz, float d2, const float4& rj,
                        float* acc) const {
-    const float lj = rj.w;
-    const int M = g.M;
-    const float h = g.h;
-    const float dist = sqrtf(fmaxf(d2, 1.0e-12f));
-    const float inv_dist = 1.0f / fmaxf(dist, t.eps);
-    const bool pair_ok = d2 > t.eps;
-    const float k_ij = t.rho0x2 / fmaxf(r.rho + rho[j], 1.0f);
-    const float gate = pair_ok ? lj * k_ij : 0.0f;
-    // kernels.cohesion_w_scalar
-    const float hd = h - dist;
-    const float base = hd * hd * hd * (dist * dist * dist);
-    const float w_coh = dist > 0.5f * h ? t.coh_k * base
-                                        : 2.0f * t.coh_k * base - t.coh_c;
-    // kernels.adhesion_w_scalar
-    const float arg =
-        fmaxf(-4.0f * dist * dist / h + 6.0f * dist - 2.0f * h, 0.0f);
-    const float w_adh = dist > 0.5f * h ? t.adh_k * sqrtf(sqrtf(arg)) : 0.0f;
-    // the neighbour's own position, from its record (the floats of g.pos)
-    const float ex = rj.x - t.cx;
-    const float ey = rj.y - t.cy;
-    const float ez = rj.z - t.cz;
-    const bool in_region = ex * ex + ey * ey + ez * ez < t.radius2;
-    const float adh_gate = (pair_ok && in_region) ? 1.0f - lj : 0.0f;
-    const float c_rad = t.coh * w_coh * inv_dist * gate +
-                        t.adh * w_adh * inv_dist * adh_gate;
-    const float cg = gate * t.curv;
-    acc[0] += c_rad * rx + cg * (r.nx - n[j]);
-    acc[1] += c_rad * ry + cg * (r.ny - n[M + j]);
-    acc[2] += c_rad * rz + cg * (r.nz - n[2 * M + j]);
+    tension_pair(g, t, r, rx, ry, rz, d2, rj, TensionPlanes{rho, n, g.M, j},
+                 acc);
   }
   __device__ void finish(const Geom& g, int i, const float* acc) const {
     store_channels<kOut>(out, g.M, i, acc);
@@ -590,6 +620,76 @@ struct IisphSFields : IisphSOf<PressFields> {
 };
 
 // ---------------------------------------------------------------------------
+// K1's tension emits of the unfused DFSPH step: K6's two list sweeps alone,
+// on the JAX methods' operands (_SurfaceNormals 2498 on ril, unscaled;
+// _TensionAccel 2519 on rho and the h-scaled normals), which only that
+// step runs.  Each walks the list at a depth of its own; the pairs, their
+// order and their arithmetic are K6's, term for term (the same bits), and
+// K6's two instances walk at 1 with their machine code.  What bounds them
+// is the gathers per listed neighbour:
+//   * the normals' pair reads j's record and ril_j.  Packing
+//     (x_j, y_j, z_j, m ril_j) into records of their own, walked in place
+//     of the list's as dij's are, lost in both scenes (1.03x the walk at
+//     depth 8 alone, the pass counted in; PERF.md §6): the walk reads ril;
+//   * the tension's pair reads j's record, rho_j and the three planes of
+//     its normal.  Its entry first packs (nx_j, ny_j, nz_j, rho_j) into one
+//     16-byte row a neighbour, one aligned load a pair beside the record
+//     where there were four gathers, for a pass of ~35 MB (0.95x the walk
+//     at depth 4 alone at rest, 0.97x jittered, the pass counted in).
+// ---------------------------------------------------------------------------
+
+// The list walk's depth (for_each_listed_record) of the two: of depths 2,
+// 4, 8 and 16 on the 1M dam break, the fastest by device time at rest and
+// jittered (PERF.md §6).
+constexpr int kSurfaceNormalsDepth = 8;
+constexpr int kTensionAccelDepth = 4;
+
+struct SurfaceNormalsK1 : SurfaceNormals {
+  static constexpr int kDepth = kSurfaceNormalsDepth;
+};
+
+// The tension's rows: (nx_j, ny_j, nz_j, rho_j).
+__global__ void k1_tension_rows_kernel(int M, const float* __restrict__ rho,
+                                       const float* __restrict__ n,
+                                       float4* __restrict__ rows) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i < M) rows[i] = make_float4(n[i], n[M + i], n[2 * M + i], rho[i]);
+}
+
+// The neighbour's density and normal from its packed row.
+struct TensionPacked {
+  float4 q;
+  __device__ float rho_j() const { return q.w; }
+  __device__ float nx() const { return q.x; }
+  __device__ float ny() const { return q.y; }
+  __device__ float nz() const { return q.z; }
+};
+
+// TensionAccel's pair on the packed rows.
+struct TensionAccelK1 {
+  static constexpr int kOut = 3;
+  static constexpr bool kAllRows = false;
+  static constexpr int kDepth = kTensionAccelDepth;
+  using Row = TensionRow;
+  const float4* rows;
+  TensionParams t;
+  float* out;
+  __device__ Row row(const Geom&, int i) const {
+    const float4 q = __ldg(rows + i);
+    return Row{q.w, q.x, q.y, q.z};
+  }
+  __device__ void pair(const Geom& g, const Row& r, int j, float rx, float ry,
+                       float rz, float d2, const float4& rj,
+                       float* acc) const {
+    tension_pair(g, t, r, rx, ry, rz, d2, rj, TensionPacked{__ldg(rows + j)},
+                 acc);
+  }
+  __device__ void finish(const Geom& g, int i, const float* acc) const {
+    store_channels<kOut>(out, g.M, i, acc);
+  }
+};
+
+// ---------------------------------------------------------------------------
 // K8: a whole PCISPH prediction iteration.  Replaces
 // _build_fused_pcisph_iter (engine.py:1466), whose two sweeps both run at
 // the moved positions x* = x + liq v* dt, with the candidates of the
@@ -717,7 +817,8 @@ __global__ void k8_acc_kernel(Geom g, const float4* __restrict__ xs,
 //     the s sweep reads its neighbours' finished dij, so they are two calls
 //     in order, as in K7;
 //   * _SurfaceNormals (2498), _TensionAccel (2519): K6's two list sweeps,
-//     the normals unscaled (the caller scales by h);
+//     the normals unscaled (the caller scales by h), with emits of their
+//     own (SurfaceNormalsK1, TensionAccelK1);
 //   * _PcisphPredict (2270): predicted density and pressure acceleration
 //     at the moved positions x* (3, M), two entries.  No list holds the
 //     pairs at x*, and the unfused loop calls it twice an iteration at the
@@ -938,13 +1039,20 @@ extern "C" int k1_iisph_s(const Geom* g, const float* dii, const float* dij,
 
 extern "C" int k1_surface_normals(const Geom* g, const float* ril,
                                   float mass, float* out, void* stream) {
-  return launch_list_sweep(g, SurfaceNormals{ril, mass, 1.0f, out}, stream);
+  return launch_list_sweep(g, SurfaceNormalsK1{{ril, mass, 1.0f, out}},
+                           stream);
 }
 
+// rows: (M, 4) floats, 16-byte aligned, the neighbours' rows (scratch).
 extern "C" int k1_tension_accel(const Geom* g, const float* rho,
                                 const float* n, const TensionParams* t,
-                                float* out, void* stream) {
-  return launch_list_sweep(g, TensionAccel{rho, n, *t, out}, stream);
+                                float* rows, float* out, void* stream) {
+  float4* packed = reinterpret_cast<float4*>(rows);
+  k1_tension_rows_kernel<<<blocks_of(g->M), kBlock, 0,
+                           (cudaStream_t)stream>>>(g->M, rho, n, packed);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_list_sweep(g, TensionAccelK1{packed, *t, out}, stream);
 }
 
 extern "C" int k1_pcisph_predict(const Geom* g, const float* xs,

@@ -301,7 +301,7 @@ _SIGNATURES = {
     "k1_iisph_dij": [_G, _P, _P, _P, _P],
     "k1_iisph_s": [_G, _P, _P, _P, _P, _P, _P],
     "k1_surface_normals": [_G, _P, _F, _P, _P],
-    "k1_tension_accel": [_G, _P, _P, _T, _P, _P],
+    "k1_tension_accel": [_G, _P, _P, _T, _P, _P, _P],
     "k2_fused_kappa_drho": [_G, _P, _P, _P, _P, _P],
     "k3_fused_iter_full": [_G, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P],
     "k4_fused_visc_iter": [_G, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F,
@@ -1069,12 +1069,15 @@ def k1_surface_normals(grid: Grid, ril: torch.Tensor) -> torch.Tensor:
 def k1_tension_accel(grid: Grid, rho: torch.Tensor,
                      n: torch.Tensor) -> torch.Tensor:
     """(3, M) cohesion, curvature and adhesion acceleration at liquid rows
-    on the h-scaled normals ``n`` (walks the list)."""
+    on the h-scaled normals ``n`` (walks the list, reading each neighbour's
+    (nx, ny, nz, rho), which the entry packs first into ``rows``)."""
     if not _route(rho):
         return dense_ops.tension_accel(grid, rho, n)
     m = grid.n
+    rows = torch.empty((m, 4), dtype=torch.float32, device=rho.device)
     return _sweep("k1_tension_accel", grid, [rho, n], [(m,), (3, m)], 3,
-                  ctypes.byref(_tension_params(grid.cfg)), listed=True)
+                  ctypes.byref(_tension_params(grid.cfg)), rows.data_ptr(),
+                  listed=True)
 
 
 # ---------------------------------------------------------------------------
