@@ -86,15 +86,20 @@ its own lines and raising on failure:
 5. surface reconstruction of the DFSPH path's 1M state: ``reconstruct``
    with the host and the device extractor, plain and anisotropic, the
    launch counters reset just before and read just after (the bin, the
-   density sweep, ``mc_field``, ``aniso_moments`` and ``aniso_g``
-   launched); then the three kernels against their plain twins at those
-   shapes, each field's active cubes and triangles, the device extractor
+   density sweep, ``mc_field`` once a reconstruct, ``aniso_moments`` once
+   an anisotropic one, and ``aniso_g`` launched); then the three kernels
+   against their plain twins at those shapes (aniso_g's reach too), every
+   nonzero term of the plain twin's anisotropic field within its
+   candidate's reach (the radius past which the field kernel skips it),
+   each field's active cubes and triangles, the device extractor
    under budgets sized from them (nothing dropped, equal to the host
    extractor) and under its default budgets (what they drop, printed), and
    ms a call (CUDA events) of the density sweep, the three kernels and
    their twins, ``torch.linalg.eigh`` of aniso_g's matrices, both
    extractor runs and the whole ``reconstruct(on_device=True)``, the host
-   extractor's seconds, and the kernels' bounds;
+   extractor's seconds, the kernels' bounds, and the device time of
+   ``mc_field`` (both forms) and ``aniso_moments`` (torch.profiler; one
+   device kernel a call, a gate);
 6. the mesh-scene tooling: the sampler's phase kernel against its twin
    (``poisson_phase``: the kernel-driven and the twin-driven sampler on the
    showcase's weir tank at r = 0.025, two z-chunks, bit for bit, order
@@ -867,7 +872,7 @@ MOMENTS = (1, 3, 6, 1)   # aniso_moments' fields: sum w, sum w x, the six
 
 
 def surface_inputs(grid):
-    """(gated coefficients, smoothed centres, G) of the grid, as
+    """(gated coefficients, smoothed centres, G, reach) of the grid, as
     ``reconstruct`` forms them: the density sweep, then the anisotropy
     moments and eigh, on the kernels."""
     from wcsph_tpu_torch import engine
@@ -876,7 +881,7 @@ def surface_inputs(grid):
     rho, _ = engine.density(grid)
     an = aniso.compute(grid)
     return (field.gated_coefficients(grid, rho),
-            aniso.smoothed_positions(grid, an), an.g)
+            aniso.smoothed_positions(grid, an), an.g, an.reach)
 
 
 def mc_need(dense):
@@ -921,9 +926,10 @@ def check_moments(grid, chk, what):
                                    torch.split(want, MOMENTS))):
         chk.close("aniso_moments", a, b, TOL_SWEEP, f"[{what} out {c}]")
     args = aniso_g_args(grid, want)
-    g = engine.aniso_g(*args)
-    chk.close("aniso_g", g, dense_ops.aniso_g(*args), TOL_FUSED,
-              f"[{what}]")
+    g, reach = engine.aniso_g(*args)
+    want_g, want_reach = dense_ops.aniso_g(*args)
+    chk.close("aniso_g", g, want_g, TOL_FUSED, f"[{what}]")
+    chk.close("aniso_g", reach, want_reach, TOL_FUSED, f"[{what} reach]")
     clamped = int((g[0] != args[4]).sum())
     log(f"  aniso_g ({what}): {clamped} of {grid.n} rows take the clamped "
         "spectral G, the rest kn I")
@@ -944,10 +950,10 @@ def check_surface(grid, chk, what):
 
     check_moments(grid, chk, what)
     saved = dict(engine.LAUNCHES)
-    coeff, xs, g = surface_inputs(grid)
+    coeff, xs, g, reach = surface_inputs(grid)
     fields = {}
     for label, args in (("plain", (grid.pos, coeff)),
-                        ("anisotropic", (xs, coeff, g))):
+                        ("anisotropic", (xs, coeff, g, reach))):
         fields[label] = engine.mc_field(grid, *args)
         scale = chk.close("mc_field", fields[label],
                           dense_ops.mc_field(grid, *args), TOL_SWEEP,
@@ -1010,8 +1016,8 @@ def surface_bounds(grid, terms, pairs):
     out["aniso_moments"] = (max(t_bytes, t_ops) * 1e3,
                             "bytes" if t_bytes >= t_ops else "operations")
     # the moments' rows it reads (sum w, the six sums, the count), the
-    # liquid flag, G's nine rows written
-    t_bytes = 4 * (8 + 1 + 9) * m / PEAK_BYTES_PER_S
+    # liquid flag, G's nine rows and the reach written
+    t_bytes = 4 * (8 + 1 + 10) * m / PEAK_BYTES_PER_S
     t_ops = G_OPS * m / PEAK_FP32_FLOPS
     out["aniso_g"] = (max(t_bytes, t_ops) * 1e3,
                       "bytes" if t_bytes >= t_ops else "operations")
@@ -1021,8 +1027,9 @@ def surface_bounds(grid, terms, pairs):
 def surface_times(grid, args, dense, n_act, n_tri, state, cfg, anisotropic):
     """ms a call (CUDA events) of one field variant's stages at the grid's
     shapes: the field kernel and its plain twin (``args``: its operands),
-    the device extractor on ``dense`` under budgets sized for it and
-    under its defaults, and the whole ``reconstruct(on_device=True)``."""
+    the kernel's own device time (``mc_field_device``), the device extractor
+    on ``dense`` under budgets sized for it and under its defaults, and
+    the whole ``reconstruct(on_device=True)``."""
     from wcsph_tpu_torch import dense_ops, engine
     from wcsph_tpu_torch.bench import time_call
     from wcsph_tpu_torch.surface import field, mc
@@ -1031,6 +1038,8 @@ def surface_times(grid, args, dense, n_act, n_tri, state, cfg, anisotropic):
     origin, spacing = field.mc_grid_geometry(cfg)
     return {
         "mc_field": time_call(engine.mc_field, lambda: (grid, *args), 10),
+        "mc_field_device": kernel_device_ms(
+            "mc_field", engine.mc_field, lambda: (grid, *args), 20),
         "mc_field_plain": time_call(dense_ops.mc_field,
                                     lambda: (grid, *args), 1),
         "extractor_sized": time_call(
@@ -1043,14 +1052,35 @@ def surface_times(grid, args, dense, n_act, n_tri, state, cfg, anisotropic):
             lambda: (state, cfg, 0.5, anisotropic, mc.MAX_VERTEX, True), 3)}
 
 
+def kernel_device_ms(name, fn, make, reps):
+    """The device time of one call's kernel (torch.profiler,
+    ``bench.device_ms``), None where the profiler dropped events; raises
+    where a call ran more than one device kernel."""
+    from wcsph_tpu_torch.bench import device_ms
+
+    try:
+        dev, n = device_ms(fn, make, reps)
+    except RuntimeError as e:     # the profiler dropped events
+        log(f"  {name}: device time not measured ({e})")
+        return None
+    if n != 1:
+        raise AssertionError(f"{name}: {n:g} device kernels a call, not 1")
+    log(f"  {name}: {dev:.4f} ms on the device, {n:g} device kernel a call")
+    return dev
+
+
 def surface_full_width(state, cfg, chk, card):
     """Phase 5: reconstruct the 1M state on the card, host and device
     extractors, plain and anisotropic, with the launch counts set to 0
-    just before and read just after; then the kernels against their plain
-    twins at those shapes, the device extractor under budgets sized from
-    each field (nothing dropped, equal to the host extractor) and under
-    its default budgets (what they drop), and the times.  Returns the
-    launches, the per-kernel (ms, plain ms), bounds and the record."""
+    just before and read just after (mc_field once a reconstruct,
+    aniso_moments once an anisotropic one); then the kernels against their
+    plain twins at those shapes, every nonzero term of the plain twin's
+    anisotropic field within its candidate's reach, the device extractor
+    under budgets sized from each field (nothing dropped, equal to the host
+    extractor) and under its default budgets (what they drop), and the
+    times, the field's and the moments' device time too (one device
+    kernel a call).  Returns the launches, the per-kernel (ms, plain ms,
+    device ms), bounds, the record and aniso_g's library time."""
     import warnings
 
     import torch
@@ -1089,19 +1119,34 @@ def surface_full_width(state, cfg, chk, card):
                if launches[k] <= 0]
     if missing:
         raise AssertionError(f"reconstruct did not launch {missing}")
+    # one field a reconstruct; the moments in one launch, once for each of
+    # the two anisotropic reconstructs
+    if launches["mc_field"] != 4 or launches["aniso_moments"] != 2:
+        raise AssertionError(f"the four reconstructs launched mc_field "
+                             f"{launches['mc_field']} and aniso_moments "
+                             f"{launches['aniso_moments']} times, not 4 "
+                             "and 2")
 
     grid = build_grid(state.pos, state.n_liquid, cfg)
     mom = check_moments(grid, chk, "1M")
     saved = dict(engine.LAUNCHES)
-    coeff, xs, g = surface_inputs(grid)
+    coeff, xs, g, reach = surface_inputs(grid)
+    ratio = dense_ops.field_reach_ratio(grid, xs, coeff, g, reach)
+    log(f"[phase 5] anisotropic field at M={grid.n}: every nonzero term of "
+        f"the plain twin lies within its candidate's reach (largest |r| / "
+        f"reach {ratio:.6f})")
+    if not 0.0 < ratio <= 1.0:
+        raise AssertionError(f"an anisotropic field term lies at {ratio} "
+                             "times its candidate's reach")
     origin, spacing = field.mc_grid_geometry(cfg)
-    times, terms, record = {}, {}, {"reconstruct": meshes}
+    times, terms, record = {}, {}, {"reconstruct": meshes,
+                                    "reach_ratio": ratio}
     for label, anisotropic in variants:
-        args = (grid.pos, coeff) if not anisotropic else (xs, coeff, g)
+        args = (grid.pos, coeff) if not anisotropic else (xs, coeff, g, reach)
         dense = engine.mc_field(grid, *args)
         chk.close("mc_field", dense, dense_ops.mc_field(grid, *args),
                   TOL_SWEEP, f"[1M {label}]")
-        terms[label] = dense_ops.mc_field_terms(grid, *args)
+        terms[label] = dense_ops.mc_field_terms(grid, *args[:3])
         n_act, n_tri = mc_need(dense)
         dv, n, dropped = mc.marching_cubes_device(
             dense, origin, spacing, max_active=n_act, max_vertices=3 * n_tri)
@@ -1138,7 +1183,8 @@ def surface_full_width(state, cfg, chk, card):
             f"default budgets (262144 cubes, {mc.MAX_VERTEX} vertices) it "
             f"kept {n_def} triangles and dropped {drop_def}")
         log(f"[phase 5] {label} on {card}: mc_field "
-            f"{times[label]['mc_field']:.4f} ms (plain "
+            f"{times[label]['mc_field']:.4f} ms (device "
+            f"{times[label]['mc_field_device']}, plain "
             f"{times[label]['mc_field_plain']:.4f}), device extractor "
             f"{times[label]['extractor_sized']:.4f} ms sized, "
             f"{times[label]['extractor_default']:.4f} ms default budgets, "
@@ -1170,6 +1216,8 @@ def surface_full_width(state, cfg, chk, card):
         "eigh_one_call": eigh_once, "eigh_one_call_refused": refused,
         "density": time_call(engine.density, lambda: (grid,), 10),
         "aniso_moments": time_call(engine.aniso_moments, lambda: (grid,), 10),
+        "aniso_moments_device": kernel_device_ms(
+            "aniso_moments", engine.aniso_moments, lambda: (grid,), 20),
         "aniso_moments_plain": time_call(dense_ops.aniso_moments,
                                          lambda: (grid,), 2),
         "aniso_g": time_call(engine.aniso_g,
@@ -1183,7 +1231,8 @@ def surface_full_width(state, cfg, chk, card):
     bound = surface_bounds(grid, terms, pairs)
     log(f"[phase 5] on {card}, M={grid.n}: density "
         f"{extra['density']:.4f} ms, aniso_moments "
-        f"{extra['aniso_moments']:.4f} ms (plain "
+        f"{extra['aniso_moments']:.4f} ms (device "
+        f"{extra['aniso_moments_device']}, plain "
         f"{extra['aniso_moments_plain']:.4f}), aniso_g "
         f"{extra['aniso_g']:.4f} ms (plain {extra['aniso_g_plain']:.4f}), "
         f"torch.linalg.eigh of the same {grid.n} 3x3 matrices (library, "
@@ -1191,16 +1240,21 @@ def surface_full_width(state, cfg, chk, card):
         f"{extra['eigh']:.4f} ms; field terms {terms}, moment pairs "
         f"{pairs}; bounds {bound}")
     record["bounds"] = bound
+    # (kernel ms, plain ms, device ms) a kernel; the library call of aniso_g
+    # (torch.linalg.eigh in one call; None where the card refuses the batch)
     kernel_times = {
         "mc_field": (times["plain"]["mc_field"],
-                     times["plain"]["mc_field_plain"]),
+                     times["plain"]["mc_field_plain"],
+                     times["plain"]["mc_field_device"]),
         "aniso_moments": (extra["aniso_moments"],
-                          extra["aniso_moments_plain"]),
-        "aniso_g": (extra["aniso_g"], extra["aniso_g_plain"],
-                    extra["eigh_one_call"])}
-    return launches, kernel_times, {"mc_field": bound["plain"],
-                                    "aniso_moments": bound["aniso_moments"],
-                                    "aniso_g": bound["aniso_g"]}, record
+                          extra["aniso_moments_plain"],
+                          extra["aniso_moments_device"]),
+        "aniso_g": (extra["aniso_g"], extra["aniso_g_plain"], None)}
+    return (launches, kernel_times,
+            {"mc_field": bound["plain"],
+             "aniso_moments": bound["aniso_moments"],
+             "aniso_g": bound["aniso_g"]}, record,
+            {"aniso_g": extra["eigh_one_call"]})
 
 
 # ---------------------------------------------------------------------------
@@ -2822,18 +2876,17 @@ def main():
     # ---- phase 5: surface reconstruction at full width --------------------
     del mgrid, minp, cases, mcount
     torch.cuda.empty_cache()
-    surf_launches, surf_times, surf_bound, surface = surface_full_width(
-        mstate, mcfg, chk, card)
+    (surf_launches, surf_times, surf_bound, surface,
+     surf_library) = surface_full_width(mstate, mcfg, chk, card)
     for name in SURFACE_KERNELS:
         launches[name] = surf_launches[name]
         log(f"  {name}: bound {surf_bound[name][0]:.4f} ms by "
             f"{surf_bound[name][1]}; kernel "
             f"{surf_times[name][0] / surf_bound[name][0]:.1f}x its bound")
-    times.update({k: v[:2] for k, v in surf_times.items()})
+    times.update(surf_times)
     bound.update(surf_bound)
     library = {k: v[2] for k, v in grid_times.items()}
-    # torch.linalg.eigh in one call; None where the card refuses the batch
-    library["aniso_g"] = surf_times["aniso_g"][2]
+    library.update(surf_library)
 
     mark = phase_seconds(5, mark)
     # ---- phase 6: the mesh-scene tooling and the showcase ----------------

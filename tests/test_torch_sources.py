@@ -171,6 +171,35 @@ def test_cuda_sources_never_wait_for_the_card():
                   if isinstance(c, ast.Call) and isinstance(c.func, ast.Name)}
         assert called.isdisjoint({"_Fields", "_fields", "_field_rows"}), name
         assert "_launch" in called, name
+
+
+# the C entries of csrc/surface.cu and the kernels each launches: the field
+# kernel, plain or anisotropic (one of the two a call); the moments kernel
+# once (both walks of a row in one launch); G's kernel once
+SURFACE_ENTRIES = {
+    "mc_field": ["mc_field_kernel<false>", "mc_field_kernel<true>"],
+    "aniso_moments": ["aniso_moments_kernel"],
+    "aniso_g": ["aniso_g_kernel"],
+}
+
+
+@pytest.mark.parametrize("entry", list(SURFACE_ENTRIES))
+def test_surface_entry_launches(entry):
+    """Each C entry of csrc/surface.cu launches its kernels and no other.
+    The moments kernel writes its 11 rows and reads none of them back (no
+    second pass reads the first one's sums from memory)."""
+    text = re.sub(r"//[^\n]*", "", (CSRC / "surface.cu").read_text())
+    body = re.search(rf'extern "C" int {entry}\(.*?\n}}', text,
+                     re.S).group(0)
+    launched = re.findall(r"\b([\w<>]+?)\s*<<<", body)
+    assert sorted(launched) == sorted(SURFACE_ENTRIES[entry])
+    if entry == "aniso_moments":
+        kernel = re.search(r"\baniso_moments_kernel\(Geom g.*?\n}", text,
+                           re.S).group(0)
+        uses = re.findall(r"\bmom\[[^\]]*\]\s*(=?=?)", kernel)
+        assert uses and set(uses) == {"="}, uses
+
+
 # the __global__ functions of csrc/sweeps.cu that walk the step's list
 LIST_WALKERS = [
     "k1_div_kernel", "k2_kappa_kernel", "k3_kappa_kernel", "k3_div_kernel",

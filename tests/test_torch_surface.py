@@ -9,7 +9,10 @@ plain twins) against the JAX package on the same inputs.
 (b) On the 8^3 liquid block of tests/test_surface.py: the dense field
     within 1e-5 max|phi| (plain) and 1e-4 max|phi| (anisotropic) of
     ``mc_field_packed`` -> ``field_to_dense``; G within 1e-4 of max|G| of
-    the JAX package's; ``reconstruct`` on the host and on the device, plain
+    the JAX package's, and each liquid row's reach (the radius past which
+    the field kernel skips a candidate) bounds its ellipsoid: |2 G r| > h
+    at r = reach u (1 + 1e-4) for numpy-seeded unit directions u;
+    ``reconstruct`` on the host and on the device, plain
     and anisotropic, with the triangles of the JAX extractor on the JAX
     field and vertices within 1e-4 (no cube changes case between the two
     fields: the test counts them), and a watertight mesh.
@@ -151,12 +154,21 @@ def test_field_anisotropy_and_reconstruct():
     # G per liquid particle, both packages mapped back to particle order
     nl = sc.n_liquid
     tgrid = tbuild(tstate.pos, nl, tcfg)
+    an = taniso.compute(tgrid)
     g_port = np.zeros((9, sc.n_total), np.float32)
-    g_port[:, tgrid.order.numpy()] = taniso.compute(tgrid).g.numpy()
+    g_port[:, tgrid.order.numpy()] = an.g.numpy()
     g_ref = np.zeros((9, sc.n_total), np.float32)
     g_ref[:, pid[pid >= 0]] = g_packed[:, pid >= 0]
     assert (np.abs(g_port[:, :nl] - g_ref[:, :nl]).max()
             <= 1e-4 * np.abs(g_ref[:, :nl]).max())
+    # the reach bounds the ellipsoid |2 G r| <= h of every liquid row
+    rows = tgrid.liquid.numpy()
+    g_rows = an.g.numpy().T.reshape(-1, 3, 3)[rows]            # (L, 3, 3)
+    u = np.random.default_rng(7).normal(size=(g_rows.shape[0], 64, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    r = an.reach.numpy()[rows, None, None] * u * (1.0 + 1e-4)
+    gr = 2.0 * np.einsum("lab,lkb->lka", g_rows, r)
+    assert (np.linalg.norm(gr, axis=-1) > tcfg.support_radius).all()
 
     origin, spacing = field.mc_grid_geometry(cfg)
     for anisotropic, ref_field, port_field in ((False, phi, got),

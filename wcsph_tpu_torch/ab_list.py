@@ -2,6 +2,7 @@
 card.
 
     python -m wcsph_tpu_torch.ab_list --old out/old [--variant out/v ...]
+    python -m wcsph_tpu_torch.ab_list --old out/old --surface [...]
 
 ``--old`` is an unpacked copy of an older commit of this repository
 (``git archive <commit> | tar -x -C out/old``).  Its package is imported
@@ -83,14 +84,25 @@ from .grid import ListSlots, PredictHits
 AB_KERNELS = ("k1_surface_normals", "k1_tension_accel")
 # the paths of bench.flagship_paths whose steps call them
 AB_SOLVERS = ("dfsph+tension-unfused",)
+# --surface: the surface reconstruction's recorded calls, by case; a case
+# that is not a wrapper's name names its wrapper in CASE_WRAPPERS
+SURFACE_CASES = ("mc_field", "mc_field (anisotropic)", "aniso_moments",
+                 "aniso_g")
+SURFACE_PATH = "dfsph"
+CASE_WRAPPERS = {"mc_field (anisotropic)": "mc_field"}
 # The older wrapper of a wrapper that this tree split off (none here).
 OLD_NAMES = {}
 # The older wrappers' arguments, from this tree's, where a signature
-# changed (none here).
-OLD_ARGS = {}
-# name -> (csrc source, the __global__ kernel it launches that walks the
-# list) of the wrappers of AB_KERNELS, for the occupancy probe (a template's
-# instance by the name this tree and the variants give it) ...
+# changed: the field's reach is newer than the old tree.
+OLD_ARGS = {"mc_field": lambda grid, x, coeff, g=None, reach=None: (
+    grid, x, coeff, g)}
+# The outputs an older wrapper had, where this tree's returns more (the
+# first ones compared): aniso_g's reach is newer than the old tree.
+OLD_OUTPUTS = {"aniso_g": 1}
+# case -> (csrc source, the __global__ kernel it launches, its threads a
+# block: a name of the source, kBlock where left out) of the cases measured,
+# for the occupancy probe (a template's instance by the name this tree and
+# the variants give it) ...
 OCCUPANCY = {"k1_surface_normals": ("solver_sweeps.cu",
                                     "k5_list_kernel<SurfaceNormalsK1>"),
              "k1_tension_accel": ("solver_sweeps.cu",
@@ -100,6 +112,22 @@ OLD_OCCUPANCY = {"k1_surface_normals": ("solver_sweeps.cu",
                                         "k5_list_kernel<SurfaceNormals>"),
                  "k1_tension_accel": ("solver_sweeps.cu",
                                       "k5_list_kernel<TensionAccel>")}
+# the same with --surface: the field's block of kFieldThreads (the old
+# tree's of kPoints, one cell), the moments in one launch (the old tree's
+# two passes)
+SURFACE_OCCUPANCY = {
+    "mc_field": ("surface.cu", "mc_field_kernel<false>", "kFieldThreads"),
+    "mc_field (anisotropic)": ("surface.cu", "mc_field_kernel<true>",
+                               "kFieldThreads"),
+    "aniso_moments": ("surface.cu", "aniso_moments_kernel"),
+    "aniso_g": ("surface.cu", "aniso_g_kernel")}
+SURFACE_OLD_OCCUPANCY = {
+    "mc_field": ("surface.cu", "mc_field_kernel<false>", "kPoints"),
+    "mc_field (anisotropic)": ("surface.cu", "mc_field_kernel<true>",
+                               "kPoints"),
+    "aniso_moments (pass 1)": ("surface.cu", "aniso_moments_kernel<1>"),
+    "aniso_moments (pass 2)": ("surface.cu", "aniso_moments_kernel<2>"),
+    "aniso_g": ("surface.cu", "aniso_g_kernel")}
 # name -> (arguments of a recorded call -> the one PyTorch call that
 # computes the same function's core, as chip_smoke.py times it); none
 # computes a sweep over a cell list
@@ -228,6 +256,37 @@ def record_step(sim):
     return first, count
 
 
+def record_surface(state, cfg):
+    """``surface_field`` of the state, plain then anisotropic, with the
+    surface wrappers recording what it passes them: ({case: arguments of
+    its first call}, {case: calls}); the field's case names its form."""
+    from .surface.reconstruction import surface_field
+
+    first, count = {}, {}
+    names = ("mc_field", "aniso_moments", "aniso_g")
+    wrappers = {n: getattr(engine, n) for n in names}
+
+    def recording(name):
+        def call(*args):
+            case = (name + " (anisotropic)"
+                    if name == "mc_field" and len(args) > 3
+                    and args[3] is not None else name)
+            first.setdefault(case, _recorded(args))
+            count[case] = count.get(case, 0) + 1
+            return wrappers[name](*args)
+        return call
+
+    for name in names:
+        setattr(engine, name, recording(name))
+    try:
+        for anisotropic in (False, True):
+            surface_field(state, cfg, anisotropic)
+    finally:
+        for name, fn in wrappers.items():
+            setattr(engine, name, fn)
+    return first, count
+
+
 def _tensors(ret):
     """The tensors a wrapper returned (one, or a tuple or list of them; a
     neighbour list's slots in use, offsets, records, need and flag, of
@@ -303,29 +362,32 @@ def _same(a, b):
                 for x, y in zip(a, b)))
 
 
-def kernels_ab(first, count, old, variants=None) -> dict:
+def kernels_ab(first, count, old, variants=None, cases=AB_KERNELS) -> dict:
     """Old, new and each variant's wrapper (``variants``: name -> engine
-    module, this tree's wrappers) on every recorded call, in turns, beside
-    the library call, each side's bits compared with the old tree's; each
-    side's device time, device kernels a call and host profile;
-    ``step_calls`` sums each side's times over the step's calls; then,
-    where the step built its list, each tree's fill kernel alone, in
-    turns."""
+    module, this tree's wrappers) on every recorded call of ``cases``, in
+    turns, beside the library call, each side's bits compared with the old
+    tree's (the outputs it had, ``OLD_OUTPUTS``); each side's device time,
+    device kernels a call and host profile; ``step_calls`` sums each side's
+    times over the step's calls; then, where the step built its list, each
+    tree's fill kernel alone, in turns."""
     out = {}
     engines = {"old": old, "new": engine, **(variants or {})}
-    for name in AB_KERNELS:
+    for name in cases:
         if name not in first:
             continue
-        adapt = OLD_ARGS.get(name, lambda *a: a)
+        wrapper = CASE_WRAPPERS.get(name, name)
+        adapt = OLD_ARGS.get(wrapper, lambda *a: a)
         mine = {s: _own(first[name]) for s in engines}
-        sides = {"old": (getattr(old, OLD_NAMES.get(name, name)),
+        sides = {"old": (getattr(old, OLD_NAMES.get(wrapper, wrapper)),
                          lambda: adapt(*_fresh(mine["old"])))}
         for s, eng in engines.items():
             if s != "old":
-                sides[s] = (getattr(eng, name),
+                sides[s] = (getattr(eng, wrapper),
                             lambda s=s: _fresh(mine[s]))
         args = mine["new"]
         res = {s: _tensors(fn(*make())) for s, (fn, make) in sides.items()}
+        if wrapper in OLD_OUTPUTS:
+            res = {s: r[:OLD_OUTPUTS[wrapper]] for s, r in res.items()}
         torch.cuda.synchronize()
         library = LIBRARY[name](*args) if name in LIBRARY else None
         times = {s: [] for s in sides}
@@ -377,28 +439,32 @@ def kernels_ab(first, count, old, variants=None) -> dict:
 
 _PROBE = """
 #include "{src}"
-extern "C" int ab_occupancy(int which, int* regs, int* local, int* blocks) {{
+extern "C" int ab_occupancy(int which, int* regs, int* local, int* blocks,
+                            int* smem) {{
   const void* fns[] = {{{fns}}};
+  const int threads[] = {{{threads}}};
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, fns[which]);
   if (e != cudaSuccess) return static_cast<int>(e);
   *regs = a.numRegs;
   *local = static_cast<int>(a.localSizeBytes);
+  *smem = static_cast<int>(a.sharedSizeBytes);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fns[which],
-                                                    kBlock, 0));
+                                                    threads[which], 0));
 }}
 """
 
 
 def occupancy(eng, kernels) -> dict:
-    """name -> {registers, local_bytes, blocks_per_sm} of the kernel of each
-    wrapper of ``kernels`` (``OCCUPANCY`` or ``OLD_OCCUPANCY``) in
-    AB_KERNELS, for the tree of the engine module ``eng``: a probe that
-    includes the tree's own source, built with its own flags (the same
-    machine code as its library), asks the runtime.  A probe that does not
-    build gives its error instead."""
-    names = [n for n in AB_KERNELS if n in kernels]
+    """case -> {registers, local_bytes, blocks_per_sm, shared_bytes} of the
+    kernel of each case of ``kernels`` (``OCCUPANCY``, ``OLD_OCCUPANCY`` or
+    their ``--surface`` forms), for the tree of the engine module ``eng``:
+    a probe that includes the tree's own source, built with its own flags
+    (the same machine code as its library), asks the runtime at the
+    kernel's threads a block.  A probe that does not build gives its error
+    instead."""
+    names = list(kernels)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for src in sorted({kernels[n][0] for n in names}):
@@ -406,7 +472,9 @@ def occupancy(eng, kernels) -> dict:
             cu, lib = Path(tmp) / f"probe_{src}", Path(tmp) / f"{src}.so"
             cu.write_text(_PROBE.format(
                 src=eng.SRC_DIR / src, fns=", ".join(
-                    f"(const void*){kernels[n][1]}" for n in mine)))
+                    f"(const void*){kernels[n][1]}" for n in mine),
+                threads=", ".join((kernels[n] + ("kBlock",))[2]
+                                  for n in mine)))
             run = subprocess.run([eng._nvcc(), *eng.NVCC_FLAGS, "-o",
                                   str(lib), str(cu)], capture_output=True,
                                  text=True)
@@ -416,10 +484,11 @@ def occupancy(eng, kernels) -> dict:
                 continue
             probe = ctypes.CDLL(str(lib))
             for k, n in enumerate(mine):
-                v = [ctypes.c_int(-1) for _ in range(3)]
+                v = [ctypes.c_int(-1) for _ in range(4)]
                 rc = probe.ab_occupancy(k, *map(ctypes.byref, v))
                 out[n] = ({"registers": v[0].value, "local_bytes": v[1].value,
-                           "blocks_per_sm": v[2].value} if rc == 0
+                           "blocks_per_sm": v[2].value,
+                           "shared_bytes": v[3].value} if rc == 0
                           else {"not measured": f"CUDA error {rc}"})
     return out
 
@@ -475,6 +544,9 @@ def main(argv=None):
     ap.add_argument("--variant", action="append", default=[], type=Path,
                     help="root of another tree whose AB_KERNELS are timed "
                          "beside (kernels only); repeat for more")
+    ap.add_argument("--surface", action="store_true",
+                    help="measure the surface reconstruction's kernels "
+                         "(SURFACE_CASES) in place of AB_KERNELS")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("wcsph_tpu_torch.ab_list measures the CUDA device; "
@@ -488,25 +560,41 @@ def main(argv=None):
     trees = {"old": old, "new": engine, **variants}
     for eng in trees.values():
         eng.library()
+    probes = ((SURFACE_OLD_OCCUPANCY, SURFACE_OCCUPANCY) if args.surface
+              else (OLD_OCCUPANCY, OCCUPANCY))
     print(json.dumps({"card": card, "occupancy": {
-        s: occupancy(eng, OLD_OCCUPANCY if s == "old" else OCCUPANCY)
+        s: occupancy(eng, probes[0] if s == "old" else probes[1])
         for s, eng in trees.items()},
         "sass_changes": sass_changes(old, engine)}), flush=True)
 
     paths = bench.flagship_paths(SIDE)
+    (surface_ab if args.surface else solvers_ab)(paths, old, variants, card)
+    steps_ab(args.old, card)
+
+
+def jittered_positions(state, r):
+    """The state's positions with every liquid one moved by a numpy-seeded
+    uniform +-JITTER r."""
+    nl = state.n_liquid
+    jitter = np.random.RandomState(SEED).uniform(-JITTER * r, JITTER * r,
+                                                 (3, nl))
+    pos = state.pos.clone()
+    pos[:, :nl] += torch.as_tensor(jitter.astype(np.float32),
+                                   device=state.pos.device)
+    return pos
+
+
+def solvers_ab(paths, old, variants, card):
+    """Step 1: the wrappers of ``AB_KERNELS`` on the calls one step of each
+    path of ``AB_SOLVERS`` makes, after 4 steps, at rest and jittered,
+    through ``kernels_ab``."""
     for path in AB_SOLVERS:
         solver, over = paths[path]
         sim = bench.build_sim(SIDE, "cuda", solver, **over)
         for _ in range(4):
             sim.step()
         state = sim.state
-        nl = state.n_liquid
-        r = sim.cfg.particle_radius
-        jitter = np.random.RandomState(SEED).uniform(-JITTER * r, JITTER * r,
-                                                     (3, nl))
-        jittered = state.pos.clone()
-        jittered[:, :nl] += torch.as_tensor(jitter.astype(np.float32),
-                                            device=state.pos.device)
+        jittered = jittered_positions(state, sim.cfg.particle_radius)
         for scene, pos in (("at rest", state.pos), ("jittered", jittered)):
             sim.state = state.replace(pos=pos)
             first, count = record_step(sim)
@@ -538,12 +626,73 @@ def main(argv=None):
         del sim, state
         torch.cuda.empty_cache()
 
+
+def surface_field_ms(state, cfg, engines, reps: int = 10) -> dict:
+    """Each tree's whole ``surface_field`` of the state, plain and
+    anisotropic (the bin, the density sweep, the anisotropy, the field,
+    and whatever host work and reads its tree does between them), ms a
+    call between CUDA events, in turns (the trees, then backwards)."""
+    fns = {s: importlib.import_module(eng.__name__.rsplit(".", 1)[0]
+                                      + ".surface.reconstruction"
+                                      ).surface_field
+           for s, eng in engines.items()}
+    out = {s: {"plain": [], "anisotropic": []} for s in fns}
+    for s in [*fns, *reversed(fns)]:
+        for label, aniso in (("plain", False), ("anisotropic", True)):
+            out[s][label].append(bench.time_call(
+                fns[s], lambda aniso=aniso: (state, cfg, aniso), reps))
+    return out
+
+
+def surface_ab(paths, old, variants, card):
+    """Step 1 with ``--surface``: the surface wrappers' recorded calls on
+    the ``SURFACE_PATH`` state after 4 steps, at rest and jittered, through
+    ``kernels_ab``; each tree's whole ``surface_field`` in turns; then each
+    tree's neighbour list of the moments' grid (offsets and fill from the
+    density sweep's count), device time."""
+    solver, over = paths[SURFACE_PATH]
+    sim = bench.build_sim(SIDE, "cuda", solver, **over)
+    for _ in range(4):
+        sim.step()
+    state, cfg = sim.state, sim.cfg
+    for scene, pos in (("at rest", state.pos),
+                       ("jittered", jittered_positions(
+                           state, cfg.particle_radius))):
+        st = state.replace(pos=pos)
+        first, count = record_surface(st, cfg)
+        grid = first["aniso_moments"][0]
+        if int(grid.cell_start[-1]) != st.n_total:
+            raise AssertionError(f"{scene}: a particle left the domain")
+        res = kernels_ab(first, count, old, variants, SURFACE_CASES)
+        stage = surface_field_ms(st, cfg, {"old": old, "new": engine,
+                                           **variants})
+        _, cnt = engine.density(grid)
+        need = int(engine.nbr_list_fill(grid, cnt).need)
+        lists = {"slots": need}
+        for side, eng in (("old", old), ("new", engine)):
+            slots = ListSlots(need)
+            lists[f"{side}_device"] = _device_ms(
+                eng.nbr_list_fill, lambda eng=eng, slots=slots: (
+                    grid, cnt, slots))
+        print(json.dumps({
+            "surface": SURFACE_PATH, "scene": scene, "rows": grid.n,
+            "cells": cfg.num_cells, "card": card, "kernels": res,
+            "surface_field_ms": stage,
+            # a list walk of the moments would add at least this
+            "list_of_this_grid": lists}), flush=True)
+        del first, grid
+    del sim, state
+    torch.cuda.empty_cache()
+
+
+def steps_ab(old_root: Path, card):
+    """Step 2: both trees' paths in child processes, in turns."""
     # each child imports the package of its own working directory
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     with tempfile.TemporaryDirectory() as tmp:
         kept = {"old": Path(tmp) / "old", "new": Path(tmp) / "new"}
-        for tree, root in (("old", args.old), ("new", Path.cwd()),
-                           ("new", Path.cwd()), ("old", args.old)):
+        for tree, root in (("old", old_root), ("new", Path.cwd()),
+                           ("new", Path.cwd()), ("old", old_root)):
             keep = kept[tree]
             keep_arg = "-" if keep.exists() else str(keep)
             keep.mkdir(exist_ok=True)

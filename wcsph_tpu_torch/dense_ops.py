@@ -808,11 +808,11 @@ def field_offsets(cfg: SimConfig) -> np.ndarray:
 
 def _field_terms(grid: Grid, x: torch.Tensor, coeff: torch.Tensor,
                  g: torch.Tensor | None):
-    """Yields (p0, p1, cell (Q,), terms (p1 - p0, Q)): the terms
-    coeff_j W of points p0 .. p1 - 1 of every cell, over the (cell,
-    candidate) pairs of the cells' 27-cell windows (the binning of
-    ``grid``) whose candidate has coeff != 0, evaluated at ``x`` and, with
-    ``g`` (9, M) row-major, at |2 G_j r|."""
+    """Yields (p0, p1, cell (Q,), candidate (Q,), r (3, p1 - p0, Q), terms
+    (p1 - p0, Q)): the terms coeff_j W of points p0 .. p1 - 1 of every
+    cell, over the (cell, candidate) pairs of the cells' 27-cell windows
+    (the binning of ``grid``) whose candidate has coeff != 0, evaluated at
+    ``x`` (r = p - x_j) and, with ``g`` (9, M) row-major, at |2 G_j r|."""
     cfg = grid.cfg
     gx, gy, gz = cfg.grid_res
     nc = cfg.num_cells
@@ -863,21 +863,24 @@ def _field_terms(grid: Grid, x: torch.Tensor, coeff: torch.Tensor,
             d2 = gr[0] * gr[0] + gr[1] * gr[1] + gr[2] * gr[2]
         w = kernels.cubic_w_scalar(torch.sqrt(torch.clamp(d2, min=0.0)),
                                    cfg.support_radius)
-        yield p0, p0 + p.shape[0], c, cj[None] * w
+        yield p0, p0 + p.shape[0], c, j, r, cj[None] * w
 
 
 def mc_field(grid: Grid, x: torch.Tensor, coeff: torch.Tensor,
-             g: torch.Tensor | None = None) -> torch.Tensor:
+             g: torch.Tensor | None = None,
+             reach: torch.Tensor | None = None) -> torch.Tensor:
     """The scalar field phi = sum_j coeff_j W(|p - x_j|, h) (with ``g``:
     W(|2 G_j (p - x_j)|, h)) at the MC_SUB^3 points of every grid cell,
     over the candidates of the cell's 27-cell window, in the dense layout
     (gx MC_SUB, gy MC_SUB, gz MC_SUB) of ``field_to_dense``
-    (``mc_field_packed`` of ``wcsph_tpu/surface/field.py``)."""
+    (``mc_field_packed`` of ``wcsph_tpu/surface/field.py``).  ``reach``
+    (``aniso_g``'s) only lets the kernel skip terms that are exactly 0;
+    this twin sums every term of the window."""
     gx, gy, gz = grid.cfg.grid_res
     s = MC_SUB
     phi = torch.zeros((s ** 3, grid.cfg.num_cells), dtype=torch.float32,
                       device=grid.device)
-    for p0, p1, c, terms in _field_terms(grid, x, coeff, g):
+    for p0, p1, c, _, _, terms in _field_terms(grid, x, coeff, g):
         phi[p0:p1].index_add_(1, c, terms)
     return (phi.reshape(s, s, s, gx, gy, gz).permute(3, 0, 4, 1, 5, 2)
             .reshape(gx * s, gy * s, gz * s))
@@ -889,6 +892,19 @@ def mc_field_terms(grid: Grid, x: torch.Tensor, coeff: torch.Tensor,
     pairs within the kernel's support, with coeff != 0."""
     return sum(int((t != 0.0).sum()) for *_, t in _field_terms(
         grid, x, coeff, g))
+
+
+def field_reach_ratio(grid: Grid, x: torch.Tensor, coeff: torch.Tensor,
+                      g: torch.Tensor, reach: torch.Tensor) -> float:
+    """The largest |r| / reach_j over the anisotropic field's terms that
+    are not zero (0 where there is none): at most 1 where every such term
+    lies within its candidate's reach, as ``mc_field``'s kernel assumes."""
+    most = torch.zeros((), dtype=torch.float32, device=grid.device)
+    for *_, j, r, t in _field_terms(grid, x, coeff, g):
+        dist = torch.sqrt(r[0] * r[0] + r[1] * r[1] + r[2] * r[2])
+        ratio = torch.where(t != 0.0, dist / reach[j][None], 0.0)
+        most = torch.maximum(most, ratio.max())
+    return float(most)
 
 
 def aniso_moments(grid: Grid) -> torch.Tensor:
@@ -922,14 +938,21 @@ EIG_CHUNK = 16384   # matrices a torch.linalg.eigh call takes here: on the
                     # 1.1M at once (CUSOLVER_STATUS_INVALID_VALUE)
 
 
+REACH_CAP = 5.0    # aniso_g's reach at most this many h: no candidate of
+                   # a cell's window lies farther from its points (2 sqrt 3
+                   # h binned, plus a smoothed centre's move below 0.95 h)
+
+
 def aniso_g(grid: Grid, mom: torch.Tensor, kr: float, ks: float, kn: float,
-            min_neighbors: int) -> torch.Tensor:
-    """(9, M) row-major G from ``aniso_moments``' sums (the spectral clamp
-    of ``wcsph_tpu/surface/aniso.py``, ParticleData.py:246-278): the
-    covariance c = sums / max(sum w, 1e-12), its eigenvalues ascending,
-    s0 the largest, the others clamped from below to s0 / kr, G = R
-    diag(1 / (ks s~)) R^T; kn I where the row is not liquid, has at most
-    ``min_neighbors`` neighbours, or s0 <= 0."""
+            min_neighbors: int):
+    """((9, M) row-major G, (M,) reach) from ``aniso_moments``' sums (the
+    spectral clamp of ``wcsph_tpu/surface/aniso.py``, ParticleData.py:
+    246-278): the covariance c = sums / max(sum w, 1e-12), its eigenvalues
+    ascending, s0 the largest, the others clamped from below to s0 / kr,
+    G = R diag(1 / (ks s~)) R^T; kn I where the row is not liquid, has at
+    most ``min_neighbors`` neighbours, or s0 <= 0.  The reach is where
+    |2 G r| passes h: G's least eigenvalue is 1 / (ks s0) (kn for kn I), so
+    h ks s0 / 2 (h / (2 kn)), capped at REACH_CAP h."""
     xx, xy, xz, yy, yz, zz = mom[4:10] / torch.clamp(mom[0], min=1e-12)
     cov = torch.stack([torch.stack([xx, xy, xz], -1),
                        torch.stack([xy, yy, yz], -1),
@@ -946,7 +969,10 @@ def aniso_g(grid: Grid, mom: torch.Tensor, kr: float, ks: float, kn: float,
     gm = torch.einsum("mij,mj,mkj->mik", eigvec, inv, eigvec)
     ok = (mom[10] > min_neighbors) & (s0 > 0.0) & grid.liquid
     eye = torch.eye(3, dtype=torch.float32, device=mom.device) * kn
-    return torch.where(ok[:, None, None], gm, eye).reshape(-1, 9).T
+    h = grid.cfg.support_radius
+    reach = torch.where(ok, 0.5 * h * ks * torch.clamp(s0, min=1e-20),
+                        0.5 * h / kn).clamp(max=REACH_CAP * h)
+    return torch.where(ok[:, None, None], gm, eye).reshape(-1, 9).T, reach
 
 
 def color_field(grid: Grid, rho: torch.Tensor):

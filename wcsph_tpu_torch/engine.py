@@ -60,11 +60,12 @@ first fill sizes its buffer: one read).
 
 The surface reconstruction has three kernels of its own (``OWN_KERNELS``,
 ``csrc/surface.cu``; XLA in the JAX package): ``mc_field``,
-the scalar field at the reconstruction points, one block per grid cell
-over its 27-cell window, plain or anisotropic; ``aniso_moments``, the
-anisotropy estimator's weighted mean and covariance sums, two launches of
-one cell scan; and ``aniso_g``, its matrices G, a 3x3 eigendecomposition
-per row.
+the scalar field at the reconstruction points, one block per two grid
+cells along z over their windows, each warp keeping the candidates within
+reach of its points, plain or anisotropic; ``aniso_moments``, the
+anisotropy estimator's weighted mean and covariance sums, one launch that
+cuts each row's window once and walks its hits twice; and ``aniso_g``, its
+matrices G and each row's reach, a 3x3 eigendecomposition per row.
 
 The mesh-scene tooling has two kernels of its own (``OWN_KERNELS``; XLA in
 the JAX package): ``poisson_phase`` (``csrc/sampling.cu``), one phase step
@@ -323,9 +324,9 @@ _SIGNATURES = {
     "unpack_rows": [_I, _I, _P, _P, *[_P, _I] * PACK_SOURCES,
                     *[_P] * PACK_SOURCES, _P],
     "nbr_list_offsets": [_P, _P, _I, _I, _P, _P, _P, _P],
-    "mc_field": [_G, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _P, _P],
+    "mc_field": [_G, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "aniso_moments": [_G, _P, _P],
-    "aniso_g": [_I, _P, _P, _F, _F, _F, _I, _P, _P],
+    "aniso_g": [_I, _P, _P, _F, _F, _F, _I, _F, _P, _P, _P],
     "poisson_phase": [ctypes.POINTER(_PhaseChunk), _I, _I, _P],
     "splat_points": [ctypes.POINTER(_Splat), _P],
 }
@@ -1085,18 +1086,23 @@ def k1_tension_accel(grid: Grid, rho: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def mc_field(grid: Grid, x: torch.Tensor, coeff: torch.Tensor,
-             g: torch.Tensor | None = None) -> torch.Tensor:
+             g: torch.Tensor | None = None,
+             reach: torch.Tensor | None = None) -> torch.Tensor:
     """The surface's scalar field at the reconstruction points, dense
     (gx MC_SUB, gy MC_SUB, gz MC_SUB) (``dense_ops.mc_field``): positions
     ``x`` (3, M), coefficients ``coeff`` (M,) (0 for a row that does not
-    contribute) and, anisotropic, G (9, M); the candidates are those of
-    the grid's cells."""
+    contribute) and, anisotropic, G (9, M) with each row's reach (M,) of
+    ``aniso_g``; the candidates are those of the grid's cells.  The kernel
+    skips the candidates out of reach of a warp's points, whose terms are
+    exactly 0: the field's bits do not depend on ``reach``."""
     if not _route(x):
-        return dense_ops.mc_field(grid, x, coeff, g)
+        return dense_ops.mc_field(grid, x, coeff, g, reach)
     cfg = grid.cfg
     m = grid.n
-    operands = [x, coeff] + ([] if g is None else [g])
-    _check(*operands, shapes=[(3, m), (m,), (9, m)])
+    if (g is None) != (reach is None):
+        raise ValueError("the anisotropic field takes G and its reach")
+    operands = [x, coeff] + ([] if g is None else [g, reach])
+    _check(*operands, shapes=[(3, m), (m,), (9, m), (m,)])
     s = dense_ops.MC_SUB
     shape = tuple(n * s for n in cfg.grid_res)
     if math.prod(shape) >= 2 ** 31:
@@ -1106,7 +1112,8 @@ def mc_field(grid: Grid, x: torch.Tensor, coeff: torch.Tensor,
     off = dense_ops.field_offsets(cfg)
     dmin = [float(np.float32(v)) for v in cfg.domain_min]
     _launch("mc_field", ctypes.byref(_geom(grid)), x.data_ptr(),
-            coeff.data_ptr(), None if g is None else g.data_ptr(), *dmin,
+            coeff.data_ptr(), None if g is None else g.data_ptr(),
+            None if reach is None else reach.data_ptr(), *dmin,
             float(np.float32(cfg.cell_size)), *map(float, off[1:]),
             out.data_ptr(), _stream())
     return out
@@ -1114,7 +1121,7 @@ def mc_field(grid: Grid, x: torch.Tensor, coeff: torch.Tensor,
 
 def aniso_moments(grid: Grid) -> torch.Tensor:
     """(11, M) weighted moments of the anisotropy estimator at liquid rows
-    (``dense_ops.aniso_moments``), in two launches of one kernel."""
+    (``dense_ops.aniso_moments``), in one launch."""
     if not _route(grid.pos):
         return dense_ops.aniso_moments(grid)
     out = torch.empty((11, grid.n), dtype=torch.float32, device=grid.device)
@@ -1124,17 +1131,20 @@ def aniso_moments(grid: Grid) -> torch.Tensor:
 
 
 def aniso_g(grid: Grid, mom: torch.Tensor, kr: float, ks: float, kn: float,
-            min_neighbors: int) -> torch.Tensor:
-    """(9, M) row-major G of the anisotropy estimator from the (11, M)
-    moments of ``aniso_moments`` (``dense_ops.aniso_g``)."""
+            min_neighbors: int):
+    """((9, M) row-major G, (M,) reach) of the anisotropy estimator from
+    the (11, M) moments of ``aniso_moments`` (``dense_ops.aniso_g``): the
+    reach of a row is the distance past which |2 G r| > h, capped at
+    ``dense_ops.REACH_CAP`` h."""
     if not _route(mom):
         return dense_ops.aniso_g(grid, mom, kr, ks, kn, min_neighbors)
     m = grid.n
     _check(mom, grid.liq, shapes=[(11, m), (m,)])
-    out = torch.empty((9, m), dtype=torch.float32, device=mom.device)
+    out = torch.empty((10, m), dtype=torch.float32, device=mom.device)
     _launch("aniso_g", m, mom.data_ptr(), grid.liq.data_ptr(), kr, ks, kn,
-            int(min_neighbors), out.data_ptr(), _stream())
-    return out
+            int(min_neighbors), float(grid.cfg.support_radius),
+            out.data_ptr(), out[9].data_ptr(), _stream())
+    return out[:9], out[9]
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,12 @@ decomposition with clamped eigenvalues (kr = 4, ks = 1400, kn = 0.5, more
 than 25 neighbours), and G = R diag(1 / (ks σ̃)) Rᵀ to deform the
 reconstruction kernel.
 
-The two weighted sums are one kernel in two launches
-(``engine.aniso_moments``, csrc/surface.cu), and G another
-(``engine.aniso_g``: a 3x3 Jacobi eigendecomposition per row).  The JAX
+The two weighted sums are one kernel in one launch
+(``engine.aniso_moments``, csrc/surface.cu: each row cuts its window
+once and walks its hits twice), and G another (``engine.aniso_g``: a 3x3
+Jacobi eigendecomposition per row), which also gives each row's reach,
+the distance past which its deformed kernel is 0 (the field kernel skips
+candidates out of reach).  The JAX
 package leaves the eigendecomposition to XLA's batched
 ``jnp.linalg.eigh`` (the covariance is symmetric PSD, so eigh equals the
 reference's SVD up to order); the plain twin on the CPU runs
@@ -38,6 +41,7 @@ MIN_NEIGHBORS = 25
 class Anisotropy(NamedTuple):
     pos_avr: torch.Tensor   # (3, M) weighted mean positions x̄
     g: torch.Tensor         # (9, M) row-major G
+    reach: torch.Tensor     # (M,) |r| past which |2 G r| > h
 
 
 def compute(grid: Grid) -> Anisotropy:
@@ -45,8 +49,9 @@ def compute(grid: Grid) -> Anisotropy:
     sw = mom[0]
     pos_avr = torch.where(sw > 0.0, mom[1:4] / torch.clamp(sw, min=1e-12),
                           grid.pos)
-    g = engine.aniso_g(grid, mom, KR, KS, KN, MIN_NEIGHBORS)
-    return Anisotropy(pos_avr=pos_avr, g=g.contiguous())
+    g, reach = engine.aniso_g(grid, mom, KR, KS, KN, MIN_NEIGHBORS)
+    return Anisotropy(pos_avr=pos_avr, g=g.contiguous(),
+                      reach=reach.contiguous())
 
 
 def smoothed_positions(grid: Grid, an: Anisotropy) -> torch.Tensor:

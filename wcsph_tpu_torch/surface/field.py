@@ -41,13 +41,15 @@ def gated_coefficients(grid: Grid, rho: torch.Tensor) -> torch.Tensor:
 
 
 def mc_field(grid: Grid, rho: torch.Tensor, pos_smooth=None,
-             g=None) -> torch.Tensor:
+             g=None, reach=None) -> torch.Tensor:
     """The dense field (gx MC_SUB, gy MC_SUB, gz MC_SUB) from the density
     ``rho`` of the grid's rows; anisotropic with the smoothed centres
-    ``pos_smooth`` (3, M) and G (9, M) of ``aniso.compute``."""
+    ``pos_smooth`` (3, M), G (9, M) and the reach (M,) of
+    ``aniso.compute``."""
     x = grid.pos if pos_smooth is None else pos_smooth.contiguous()
     return engine.mc_field(grid, x, gated_coefficients(grid, rho),
-                           None if g is None else g.contiguous())
+                           None if g is None else g.contiguous(),
+                           None if reach is None else reach.contiguous())
 
 
 def mc_grid_geometry(cfg):

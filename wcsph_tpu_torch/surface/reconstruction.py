@@ -32,7 +32,8 @@ def surface_field(state: FluidState, cfg: SimConfig,
         return field_mod.mc_field(grid, rho)
     an = aniso_mod.compute(grid)
     return field_mod.mc_field(grid, rho,
-                              aniso_mod.smoothed_positions(grid, an), an.g)
+                              aniso_mod.smoothed_positions(grid, an), an.g,
+                              an.reach)
 
 
 def reconstruct(state: FluidState, cfg: SimConfig, isolevel: float = 0.5,
